@@ -1,0 +1,393 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (gnn_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero without the final result line):
+
+1. versions, and the card's name and power limit (nvidia-smi);
+2. build every CUDA kernel of the port from ``gnn_tpu_torch/csrc`` (one
+   nvcc per source, all started together);
+3. hold each kernel against its plain PyTorch version on the card at the
+   main path's shapes, taken from one batch of the default
+   configuration (synthetic 100k nodes / degree 50 / 602 features / 41
+   classes, batch 2048, samp_num 8192, orders 1,1,1, hot_k 16384): the
+   edge-stream SpMM forward and transpose at each aggregating layer's
+   width, plus one per-edge-values case. Each case prints its error, the
+   kernel's time (CUDA events), the plain version's time, the time of
+   ``torch.sparse.mm`` over a CSR of the same weighted edges (a yardstick
+   the port never calls) and the bound (the larger of the bytes over the
+   memory rate and the float32 flops over the float32 rate);
+4. a small input (3000 nodes) through the whole training path on the
+   card and on the CPU, where the CPU path is the one the tests hold
+   against the JAX package: the step losses must agree;
+5. the main path: ``gnn_tpu_torch.cli.main`` with its defaults plus
+   ``--n_devices 1 --epoch_num 1 --test`` — one full-width epoch, the val
+   pass and the full test sweep — with every launch counter set to 0
+   just before and read just after;
+6. a ``kernels`` JSON line, then the result line
+   ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor
+# core) flop/s; the kernel adds float32 products on CUDA cores
+MEM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# relative tolerance: the kernel sums float32 products in another order
+# (shared-memory atomics) than the plain version (index_add_); a row sums
+# at most a few hundred terms, so differences stay near 1e-6 of the
+# output's magnitude — 1e-4 leaves room without hiding a wrong edge
+REL_TOL = 1e-4
+# step losses of the small-input run on the card vs on the CPU
+AGREE_RTOL = 1e-3
+KERNEL_SOURCES = ["edge_stream"]
+REPLACES = "gnn_tpu/ops/pallas_edgestream.py:572"
+SOURCE = "gnn_tpu_torch/csrc/edge_stream.cu"
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def time_ms(fn, reps=10, rounds=5):
+    """Median over ``rounds`` of the mean time of ``reps`` back-to-back
+    calls, by CUDA events (after warm-up)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        per.append(a.elapsed_time(b) / reps)
+    per.sort()
+    return per[len(per) // 2]
+
+
+def build_kernels():
+    from gnn_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+        list(ex.map(cuda_build.build, KERNEL_SOURCES))
+    for name in KERNEL_SOURCES:
+        cuda_build.load(name)
+    return time.perf_counter() - t0
+
+
+def main_path_batch(save_dir, device):
+    """One batch of the default configuration, its layers rebuilt on the
+    device (the same set-up `gnn_tpu_torch.cli` runs)."""
+    import numpy as np
+    import torch
+
+    from gnn_tpu_torch import cli
+    from gnn_tpu_torch.data.loaders import load_dataset
+    from gnn_tpu_torch.ops.hotdense import HotSpec, build_hot_dense_cached
+    from gnn_tpu_torch.ops.residentgraph import (ResidentGraph,
+                                                 build_resident_graph)
+    from gnn_tpu_torch.placement.engine import compute_sample_prob
+    from gnn_tpu_torch.sampling.ladies import SamplerConfig, ladies_sample
+    from gnn_tpu_torch.train.stepfns import prepare_adjs, to_device_batch
+    from gnn_tpu_torch.utils.normalize import build_laplacian
+
+    a = cli.build_parser().parse_args([])
+    orders = tuple(int(t) for t in a.orders.split(","))
+    graph = load_dataset(a.dataset, a.data_dir)
+    lap = build_laplacian(graph.adj_full, a.model)
+    depth = sum(orders)
+    prob = compute_sample_prob(lap, graph.train_nodes, depth)
+    # the CLI's cache names, so the main path reuses this set-up
+    np.save(os.path.join(save_dir, f"synthetic.sampprob.L{depth}.npy"),
+            prob)
+    spec = HotSpec.from_sample_prob(prob, a.hot_k)
+    dense, dense_t = build_hot_dense_cached(
+        lap, spec, dtype=torch.bfloat16, device=device,
+        cache_path=os.path.join(save_dir,
+                                f"synthetic.hotcoo.L{depth}.K{a.hot_k}.npz"))
+    host = build_resident_graph(lap, spec, dense, dense_t,
+                                val_dtype="bfloat16")
+    cfg = SamplerConfig(batch_size=a.batch_size, samp_num=a.samp_num,
+                        orders=orders, num_nodes=lap.shape[0],
+                        num_classes=graph.num_classes, adj_format="resident",
+                        hot_spec=spec, resident_val_free=host["val_free"],
+                        resident_stream_tiles=True)
+    tgt = np.random.default_rng(1).permutation(graph.train_nodes)
+    mb = ladies_sample(cfg, 7, tgt[: a.batch_size], lap, graph.labels)
+    batch = to_device_batch(mb, device)
+    adjs = prepare_adjs(batch, ResidentGraph.from_host(host, device))
+    widths = [graph.feats.shape[1]] + [(1 + o) * a.nhid
+                                       for o in orders[:-1]]
+    del dense, dense_t, host
+    return adjs, widths
+
+
+def check_kernels(save_dir, device):
+    """Phase 3: the edge-stream kernel against its plain version."""
+    import torch
+
+    from gnn_tpu_torch.ops.edgestream import (EdgeTiles, ECAP, decode_edges,
+                                              edge_stream_spmm,
+                                              edge_stream_spmm_ref)
+    adjs, widths = main_path_batch(save_dir, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    totals = {d: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                      max_abs_err=0.0, bytes=0.0, flops=0.0)
+              for d in ("forward", "transpose")}
+    cases = []
+    for l, (adj, f) in enumerate(zip(adjs, widths)):
+        tiles = EdgeTiles(coords=adj.es_coords, blk_rc=adj.es_rc,
+                          off=adj.es_off, t_order=adj.es_ord,
+                          nrows=adj.nrows, ncols=adj.ncols, bm=adj.es_bm,
+                          bk=adj.es_bk, ecap=ECAP, vals=None)
+        cases.append((f"layer{l}", tiles, adj.es_rv, adj.es_nf, f, True))
+    # per-edge values ride the layer-1 tiles (weighted-graph payload)
+    t1 = cases[1][1]
+    vals = torch.rand(tuple(t1.coords.shape), generator=gen,
+                      device=device) + 0.5
+    cases.append(("layer1+vals", EdgeTiles(**{**t1.__dict__, "vals": vals}),
+                  cases[1][2], cases[1][3], widths[1], False))
+    for name, tiles, rv, nf, f, main in cases:
+        rows, cols, w = decode_edges(tiles)
+        e = int(rows.shape[0])
+        nb = int(tiles.blk_rc.shape[0])
+        for transpose in (False, True):
+            d = "transpose" if transpose else "forward"
+            n_in = tiles.nrows if transpose else tiles.ncols
+            n_out = tiles.ncols if transpose else tiles.nrows
+            x = torch.randn((n_in, f), generator=gen, device=device)
+            y = edge_stream_spmm(tiles, x, rv, nf, transpose)
+            ref = edge_stream_spmm_ref(tiles, x, rv, nf, transpose)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            scale = float(ref.abs().max())
+            if not torch.isfinite(y).all() or err > REL_TOL * scale + 1e-6:
+                fail(f"edge_stream_spmm {d} {name}: max abs err {err:.3e} "
+                     f"vs max |ref| {scale:.3e}")
+            ms = time_ms(lambda: edge_stream_spmm(tiles, x, rv, nf,
+                                                  transpose))
+            plain_ms = time_ms(lambda: edge_stream_spmm_ref(
+                tiles, x, rv, nf, transpose), reps=3)
+            # library yardstick: cuSPARSE CSR SpMM over the same weights
+            wt = w * rv[rows] * nf[cols]
+            r_, c_ = (cols, rows) if transpose else (rows, cols)
+            csr = torch.sparse_coo_tensor(
+                torch.stack([r_, c_]), wt, (n_out, n_in)
+            ).coalesce().to_sparse_csr()
+            lib_y = torch.sparse.mm(csr, x)
+            lib_err = float((lib_y - ref).abs().max())
+            library_ms = time_ms(lambda: torch.sparse.mm(csr, x))
+            nbytes = (2 * e + 16 * nb + 4 * (n_in + n_out) * f
+                      + 4 * (tiles.nrows + tiles.ncols)
+                      + (4 * e if tiles.vals is not None else 0))
+            flops = 2 * e * f + (n_in + n_out) * f
+            t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+            t_flops = flops / F32_FLOPS_PER_S * 1e3
+            bound_ms = max(t_bytes, t_flops)
+            log(f"K1 {d:9s} {name:12s} R={tiles.nrows} C={tiles.ncols} "
+                f"F={f} cold_edges={e} entries={nb} "
+                f"max_abs_err={err:.3e} max_rel_err={err / scale:.3e} "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={library_ms:.4f} (lib err {lib_err:.2e}) "
+                f"bound_ms={bound_ms:.4f} "
+                f"({'bytes' if t_bytes >= t_flops else 'operations'})")
+            t = totals[d]
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            if main:
+                t["ms"] += ms
+                t["plain_ms"] += plain_ms
+                t["library_ms"] += library_ms
+                t["bound_ms"] += bound_ms
+                t["bytes"] += nbytes / MEM_BYTES_PER_S
+                t["flops"] += flops / F32_FLOPS_PER_S
+    del adjs, cases
+    torch.cuda.empty_cache()
+    return totals
+
+
+def check_agreement():
+    """Phase 4: a small input through the port's whole training path on
+    the card (CUDA kernel, cuBLAS) and on the CPU (plain versions — the
+    path the CPU tests hold against the JAX package): same batches, same
+    initial weights, dropout 0, float32 hot block. The step losses must
+    agree to AGREE_RTOL (float32 sums in another order, carried through
+    Adam steps)."""
+    import numpy as np
+    import torch
+
+    from gnn_tpu_torch.data.synthetic import make_powerlaw_graph
+    from gnn_tpu_torch.models.gnn import build_model
+    from gnn_tpu_torch.ops.hotdense import HotSpec, build_hot_dense
+    from gnn_tpu_torch.ops.residentgraph import build_resident_graph
+    from gnn_tpu_torch.placement.engine import compute_sample_prob
+    from gnn_tpu_torch.sampling.ladies import SamplerConfig
+    from gnn_tpu_torch.sampling.pipeline import BatchPipeline
+    from gnn_tpu_torch.train.trainer import Trainer
+    from gnn_tpu_torch.utils.normalize import build_laplacian
+
+    g = make_powerlaw_graph(3000, 12, 40, 7, seed=0)
+    lap = build_laplacian(g.adj_full, "graphsage")
+    spec = HotSpec.from_sample_prob(
+        compute_sample_prob(lap, g.train_nodes, 2), 512)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        d, dt = build_hot_dense(lap, spec, torch.float32, dev)
+        cfg = SamplerConfig(batch_size=128, samp_num=256, orders=(1, 1),
+                            num_nodes=lap.shape[0], num_classes=7,
+                            adj_format="resident", hot_spec=spec,
+                            resident_val_free=True,
+                            resident_stream_tiles=True)
+        pipe = BatchPipeline(cfg, lap, g.labels, pool_num=2, seed=0)
+        net = build_model("graphsage", 64, (1, 1), 7, n_feats=40,
+                          dropout=0.0, seed=0)
+        tr = Trainer(net, pipe, g.feats, lr=0.01, sigmoid_loss=False,
+                     resident_graph=build_resident_graph(lap, spec, d, dt),
+                     device=dev)
+        try:
+            m = tr.train_epoch(g.train_nodes, epoch=0)
+            f1, vloss = tr.evaluate(g.valid_nodes, 128, "val")
+        finally:
+            pipe.close()
+        out[dev] = (np.asarray(m.step_losses), f1, vloss)
+    lc, lp = out["cuda"][0], out["cpu"][0]
+    rel = float(np.max(np.abs(lc - lp) / np.abs(lp)))
+    log(f"agreement (3000 nodes, {len(lc)} steps): cuda losses "
+        f"{lc[0]:.5f}..{lc[-1]:.5f}, cpu {lp[0]:.5f}..{lp[-1]:.5f}, max "
+        f"rel diff {rel:.2e}; val F1 cuda {out['cuda'][1]:.4f} cpu "
+        f"{out['cpu'][1]:.4f}; val loss cuda {out['cuda'][2]:.5f} cpu "
+        f"{out['cpu'][2]:.5f}")
+    if not (np.all(np.isfinite(lc)) and rel <= AGREE_RTOL):
+        fail(f"cuda and cpu training disagree: max rel diff {rel:.3e}")
+    if not lc[-1] < lc[0]:
+        fail(f"small-input loss did not fall: {lc}")
+
+
+def run_main_path(save_dir):
+    """Phase 5: the default CLI run, one epoch + val + test sweep."""
+    import math
+
+    import torch
+
+    from gnn_tpu_torch import cli
+    from gnn_tpu_torch.ops import edgestream
+
+    edgestream.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["--n_devices", "1", "--epoch_num", "1", "--test",
+                   "--save_dir", save_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(edgestream.launches)
+    if rc != 0:
+        fail(f"cli.main returned {rc}")
+    recs = [json.loads(l) for l in open(os.path.join(save_dir,
+                                                     "metrics.jsonl"))]
+    ep = next(r for r in recs if "step_losses" in r)
+    test_f1 = next(r["test_f1"] for r in recs if "test_f1" in r)
+    losses, times = ep["step_losses"], ep["step_times"]
+    steps = len(losses)
+    log(f"main path: {steps} steps in {wall:.1f}s wall (set-up, epoch, "
+        f"val, test sweep)")
+    log("step losses: " + " ".join(f"{v:.4f}" for v in losses))
+    log("step seconds: " + " ".join(f"{v:.3f}" for v in times))
+    steady = sorted(times[1:]) or times
+    log(f"median step seconds (after the first): "
+        f"{steady[len(steady) // 2]:.4f}")
+    log(f"val F1 {ep['valid_f1']:.4f}  val loss {ep['valid_loss']:.4f}  "
+        f"test F1 {test_f1:.4f}")
+    log(f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    log(f"K1 launches on the main path: {counts}")
+    if steps == 0 or not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite or missing losses: {losses}")
+    last5 = sum(losses[-5:]) / len(losses[-5:])
+    if not last5 < losses[0]:
+        fail(f"loss did not fall: first {losses[0]}, last-5 mean {last5}")
+    if counts.get("forward", 0) < 3 * steps:
+        fail(f"forward launches {counts.get('forward', 0)} < 3 x {steps}")
+    if counts.get("transpose", 0) < 2 * steps:
+        fail(f"transpose launches {counts.get('transpose', 0)} < "
+             f"2 x {steps}")
+    if not (0.0 <= test_f1 <= 1.0):
+        fail(f"test F1 out of range: {test_f1}")
+    return counts
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available; nothing to drive",
+              file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "gnn_tpu_torch")):
+        print("chip_smoke: gnn_tpu_torch is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, here)
+    from gnn_tpu_torch.ops import cuda_build
+
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    # the card's name and power limit, as nvidia-smi prints them
+    log(smi.stdout.strip())
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    secs = build_kernels()
+    log(f"kernel build: {secs:.1f}s "
+        f"({ {k: round(v, 1) for k, v in cuda_build.BUILD_SECONDS.items()} })")
+
+    save_dir = tempfile.mkdtemp(prefix="gnn_tpu_torch_smoke_")
+    try:
+        totals = check_kernels(save_dir, device)
+        check_agreement()
+        counts = run_main_path(save_dir)
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+    kernels = []
+    for d in ("forward", "transpose"):
+        t = totals[d]
+        kernels.append({
+            "name": f"edge_stream_spmm.{d}", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES,
+            "launches": int(counts.get(d, 0)),
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": ("bytes" if t["bytes"] >= t["flops"]
+                         else "operations"),
+            "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,367 @@
+"""Edge-stream SpMM: the cold-residual aggregation of the resident
+hot-block path, from `gnn_tpu.ops.pallas_edgestream`.
+
+Host side (numpy, identical arrays to the JAX package's): the packed
+tile layout :class:`EdgeTiles` and its packers :func:`pack_edge_tiles`,
+:func:`_build_tiles`, :func:`repad_tiles` and :func:`tile_dims`. Each
+edge is one int16 ``(lr << log2 bk) | lc`` coordinate local to its
+``(bm, bk)`` tile; entries ``blk_rc = rt << 16 | ct`` sorted rt-major own
+at most ``ecap`` edges each; ``t_order`` visits the entries ct-major for
+the transpose, so one packed buffer serves both directions.
+
+Device side: :func:`edge_stream_spmm` computes
+``y = rv * (A01 @ (nf * x))`` (or the transpose) by launching the
+hand-written CUDA kernel ``gnn_tpu_torch/csrc/edge_stream.cu`` on CUDA
+tensors. On CPU tensors it runs the plain PyTorch version
+:func:`edge_stream_spmm_ref`, which decodes every edge to global
+``(row, col)`` and aggregates with ``index_add_``.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+# edges per coord row (the coord grid is [n_coord_rows, EC]) and the tail
+# pad in coord rows the TPU kernel's two block views need; kept so the
+# packed arrays stay identical to the JAX package's
+EC = 256
+BLK_ROWS = 8
+# deployed per-entry edge cap (heavier tiles split across entries)
+ECAP = 256
+
+# kernel launches by direction ("forward" / "transpose"); incremented
+# only where the CUDA kernel is launched
+launches: collections.Counter = collections.Counter()
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass
+class EdgeTiles:
+    """Tile-grouped edge stream for one sampled layer (both directions).
+
+    Entry ``i`` owns flat edges ``[off[0, i], off[0, i] + off[1, i])``.
+    Sentinel zero-edge entries make every row tile and col tile appear;
+    pad entries point at tile ``(n_rt - 1, n_ct - 1)``, which sorts last
+    in both orders. Arrays are numpy on the host and tensors on the
+    device."""
+
+    coords: object   # int16 [n_coord_rows, EC]
+    blk_rc: object   # int32 [NB]
+    off: object      # int32 [2, NB + 1]: row 0 = offset, 1 = count
+    t_order: object  # int32 [NB]
+    nrows: int
+    ncols: int
+    bm: int
+    bk: int
+    ecap: int
+    # per-edge values in tile order, same grid as coords (None = the
+    # rank-1 factors alone)
+    vals: Optional[object] = None
+
+
+def pack_edge_tiles(rows: np.ndarray, cols: np.ndarray, nrows_pad: int,
+                    ncols_pad: int, bm: int = 128, bk: int = 128,
+                    ecap: int = 256, nb_pad: Optional[int] = None,
+                    e_pad: Optional[int] = None, use_native: bool = True,
+                    vals: Optional[np.ndarray] = None,
+                    val_dtype=None) -> EdgeTiles:
+    """Host-side packing: COO pattern -> tile-grouped edge stream. The
+    tile sort runs in the native core when it is available."""
+    assert nrows_pad % bm == 0 and ncols_pad % bk == 0
+    assert ecap <= BLK_ROWS * EC, (ecap, BLK_ROWS)
+    assert (bm & (bm - 1)) == 0 and (bk & (bk - 1)) == 0, (bm, bk)
+    assert bm * bk <= (1 << 16), (bm, bk)  # int16 coord pack
+    n_rt, n_ct = nrows_pad // bm, ncols_pad // bk
+    assert n_rt < (1 << 15) and n_ct < (1 << 16), (n_rt, n_ct)
+    shift = bk.bit_length() - 1
+    lib = None
+    if use_native:
+        from gnn_tpu_torch import native as _native
+        lib = _native.get_lib()
+    vals_s = None
+    if lib is not None:
+        if vals is not None:
+            from gnn_tpu_torch.native import pack_tiles_perm_native
+            coords_s, tile_cnt, perm = pack_tiles_perm_native(
+                lib, np.asarray(rows, np.int32),
+                np.asarray(cols, np.int32), n_rt, n_ct,
+                bm.bit_length() - 1, shift)
+            vals_s = np.asarray(vals)[perm]
+        else:
+            from gnn_tpu_torch.native import pack_tiles_native
+            coords_s, tile_cnt = pack_tiles_native(
+                lib, np.asarray(rows, np.int32),
+                np.asarray(cols, np.int32), n_rt, n_ct,
+                bm.bit_length() - 1, shift)
+        occ = np.flatnonzero(tile_cnt)
+        uniq = occ.astype(np.int64)
+        counts = tile_cnt[occ].astype(np.int64)
+    else:
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        key = (rows // bm) * n_ct + cols // bk
+        order = np.argsort(key, kind="stable")
+        rows_s, cols_s = rows[order], cols[order]
+        if vals is not None:
+            vals_s = np.asarray(vals)[order]
+        uniq, counts = np.unique(key[order], return_counts=True)
+        lr = rows_s - (rows_s // bm) * bm
+        lc = cols_s - (cols_s // bk) * bk
+        coords_s = (((lr << shift) | lc) & 0xFFFF).astype(
+            np.uint16).view(np.int16)
+    return _build_tiles(coords_s, uniq, counts, nrows_pad, ncols_pad,
+                        bm, bk, ecap, n_rt, n_ct, nb_pad, e_pad,
+                        vals_s=vals_s, val_dtype=val_dtype)
+
+
+def _build_tiles(coords_s: np.ndarray, uniq: np.ndarray,
+                 counts: np.ndarray, nrows_pad: int, ncols_pad: int,
+                 bm: int, bk: int, ecap: int, n_rt: int, n_ct: int,
+                 nb_pad: Optional[int], e_pad: Optional[int],
+                 vals_s: Optional[np.ndarray] = None,
+                 val_dtype=None) -> EdgeTiles:
+    """Entry tables + padding from tile-sorted coords and per-tile
+    counts. ``val_dtype`` ``None`` (the JAX package's bfloat16 default)
+    keeps bfloat16-rounded values in float32; ``np.float32`` keeps them
+    as given."""
+    # split heavy tiles into ceil(cnt/ecap) entries
+    n_ent = np.maximum(-(-counts // ecap), 1)
+    ent_tile = np.repeat(np.arange(len(uniq)), n_ent)
+    within = (np.arange(len(ent_tile))
+              - np.repeat(np.cumsum(n_ent) - n_ent, n_ent))
+    tile_start = np.concatenate([[0], np.cumsum(counts)])[:-1]
+    ent_off = (tile_start[ent_tile] + within * ecap).astype(np.int64)
+    ent_cnt = np.minimum(counts[ent_tile] - within * ecap, ecap)
+    ent_rc = ((uniq[ent_tile] // n_ct).astype(np.int64) << 16) \
+        | (uniq[ent_tile] % n_ct).astype(np.int64)
+
+    # sentinel zero-edge entries for unvisited row-tiles / col-tiles
+    miss_rt = np.setdiff1d(np.arange(n_rt), np.unique(uniq // n_ct))
+    miss_ct = np.setdiff1d(np.arange(n_ct), np.unique(uniq % n_ct))
+    sent_rc = np.concatenate([miss_rt.astype(np.int64) << 16,
+                              miss_ct.astype(np.int64)])
+    if len(sent_rc):
+        ent_rc = np.concatenate([ent_rc, sent_rc])
+        ent_off = np.concatenate(
+            [ent_off, np.zeros(len(sent_rc), np.int64)])
+        ent_cnt = np.concatenate(
+            [ent_cnt, np.zeros(len(sent_rc), np.int64)])
+
+    # forward visit order: (rt, ct); entries of one tile stay adjacent
+    fwd = np.argsort(ent_rc, kind="stable")
+    ent_rc, ent_off, ent_cnt = ent_rc[fwd], ent_off[fwd], ent_cnt[fwd]
+    nb = len(ent_rc)
+    if nb_pad is None:
+        nb_pad = max(_round_up(nb, 8), 8)
+    if nb > nb_pad:
+        raise ValueError(f"{nb} entries > nb_pad {nb_pad}")
+
+    e_used = len(coords_s)
+    if e_pad is None:
+        e_pad = max(_round_up(e_used, EC), EC)
+    if e_used > e_pad:
+        raise ValueError(f"{e_used} edges > e_pad {e_pad}")
+    n_cr = e_pad // EC + 2 * BLK_ROWS
+    coords = np.zeros(n_cr * EC, np.int16)
+    coords[:e_used] = coords_s
+    coords = coords.reshape(n_cr, EC)
+    vgrid = None
+    if vals_s is not None:
+        vgrid = np.zeros(n_cr * EC, np.float32)
+        v = np.asarray(vals_s, np.float32)
+        if val_dtype is None:
+            from gnn_tpu_torch.ops.sparse import round_bf16
+            v = round_bf16(v)
+        vgrid[:e_used] = v
+        vgrid = vgrid.reshape(n_cr, EC)
+
+    # pad entries carry zero edges and point at tile (n_rt-1, n_ct-1),
+    # which sorts LAST in both visit orders
+    pad_rc = ((n_rt - 1) << 16) | (n_ct - 1)
+    blk_rc = np.full(nb_pad, pad_rc, np.int32)
+    blk_rc[:nb] = ent_rc.astype(np.int32)
+    offcnt = np.zeros((2, nb_pad + 1), np.int32)
+    offcnt[0, :nb] = ent_off
+    offcnt[1, :nb] = ent_cnt
+
+    # transpose order: (ct, rt) over ALL nb_pad entries (pads sort last)
+    t_key = ((blk_rc.astype(np.int64) & 0xFFFF) << 16) | \
+        (blk_rc.astype(np.int64) >> 16)
+    t_ord = np.argsort(t_key, kind="stable").astype(np.int32)
+
+    return EdgeTiles(coords=coords, blk_rc=blk_rc, off=offcnt,
+                     t_order=t_ord, nrows=int(nrows_pad),
+                     ncols=int(ncols_pad), bm=bm, bk=bk, ecap=ecap,
+                     vals=vgrid)
+
+
+def tile_dims(nrows_pad: int, ncols_pad: int):
+    """The deployed (bm, bk) choice for a layer's padded caps: 256 where
+    the cap aligns, else 128 (one place, so the sampler's native slice
+    and `pack_resident_ref` always agree)."""
+    return (256 if nrows_pad % 256 == 0 else 128,
+            256 if ncols_pad % 256 == 0 else 128)
+
+
+def repad_tiles(coords: np.ndarray, blk_rc: np.ndarray, off: np.ndarray,
+                t_order: np.ndarray, nb_pad: int, n_cr: int,
+                n_rt: int, n_ct: int, vals: Optional[np.ndarray] = None):
+    """Extend a packed tile set to (nb_pad entries, n_cr coord rows).
+    Pad entries carry zero edges at tile (n_rt-1, n_ct-1), which sorts
+    last in both visit orders. Returns ``(coords, blk_rc, off, t_order,
+    vals)``."""
+    nb = blk_rc.shape[0]
+    if nb == nb_pad and coords.shape[0] == n_cr:
+        return coords, blk_rc, off, t_order, vals
+    assert nb_pad >= nb and n_cr >= coords.shape[0], \
+        ((nb, nb_pad), (coords.shape[0], n_cr))
+    pad_rc = ((n_rt - 1) << 16) | (n_ct - 1)
+    blk2 = np.concatenate(
+        [blk_rc, np.full(nb_pad - nb, pad_rc, np.int32)])
+    off2 = np.zeros((2, nb_pad + 1), np.int32)
+    off2[:, : nb + 1] = off
+    t2 = np.concatenate(
+        [t_order, np.arange(nb, nb_pad, dtype=np.int32)])
+    c2 = np.zeros((n_cr, coords.shape[1]), coords.dtype)
+    c2[: coords.shape[0]] = coords
+    v2 = None
+    if vals is not None:
+        v2 = np.zeros((n_cr, vals.shape[1]), vals.dtype)
+        v2[: vals.shape[0]] = vals
+    return c2, blk2, off2, t2, v2
+
+
+def decode_edges(tiles: EdgeTiles):
+    """Global ``(rows, cols, w)`` of every packed edge, as tensors on
+    the tiles' device (``w`` = per-edge values, ones when there are
+    none). Sentinel and pad entries contribute nothing."""
+    blk_rc = tiles.blk_rc.long()
+    nb = blk_rc.shape[0]
+    off = tiles.off.long()
+    start, cnt = off[0, :nb], off[1, :nb]
+    ent = torch.repeat_interleave(
+        torch.arange(nb, device=blk_rc.device), cnt)
+    first = torch.cumsum(cnt, 0) - cnt
+    eidx = start[ent] + (torch.arange(ent.shape[0], device=blk_rc.device)
+                         - first[ent])
+    code = tiles.coords.reshape(-1)[eidx].long() & 0xFFFF
+    shift = tiles.bk.bit_length() - 1
+    lr = code >> shift
+    lc = code & (tiles.bk - 1)
+    rows = (blk_rc[ent] >> 16) * tiles.bm + lr
+    cols = (blk_rc[ent] & 0xFFFF) * tiles.bk + lc
+    if tiles.vals is not None:
+        w = tiles.vals.reshape(-1)[eidx].float()
+    else:
+        w = torch.ones(eidx.shape[0], dtype=torch.float32,
+                       device=blk_rc.device)
+    # a local row past the tile is dropped, as the TPU kernel's one-hot
+    w = torch.where(lr < tiles.bm, w, torch.zeros_like(w))
+    return rows.clamp(max=tiles.nrows - 1), cols, w
+
+
+def edge_stream_spmm_ref(tiles: EdgeTiles, x: torch.Tensor,
+                         rv: torch.Tensor, nf: torch.Tensor,
+                         transpose: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`edge_stream_spmm`: decode every
+    edge to global (row, col) and aggregate with ``index_add_``."""
+    rows, cols, w = decode_edges(tiles)
+    in_fac, out_fac = (rv, nf) if transpose else (nf, rv)
+    xs = x.float() * in_fac.float()[:, None]
+    src, dst = (rows, cols) if transpose else (cols, rows)
+    n_out = tiles.ncols if transpose else tiles.nrows
+    y = torch.zeros((n_out, x.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    y.index_add_(0, dst, xs.index_select(0, src) * w[:, None])
+    return y * out_fac.float()[:, None]
+
+
+def _kernel():
+    from gnn_tpu_torch.ops import cuda_build
+    lib = cuda_build.load("edge_stream")
+    fn = lib.edge_stream_spmm_f32
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, p]
+        fn.restype = i
+    return fn
+
+
+def _check(name, t, dtype, device, shape=None):
+    if t.device != device:
+        raise ValueError(f"edge_stream_spmm: {name} on {t.device}, "
+                         f"expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"edge_stream_spmm: {name} is {t.dtype}, "
+                        f"expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"edge_stream_spmm: {name} has shape "
+                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"edge_stream_spmm: {name} is not contiguous")
+
+
+def _launch(tiles: EdgeTiles, xs: torch.Tensor, transpose: bool
+            ) -> torch.Tensor:
+    """Launch the CUDA kernel on ``xs`` (the input with its rank-1
+    factor already folded in); returns ``A01 @ xs`` (or ``A01^T``)."""
+    dev = xs.device
+    nb = tiles.blk_rc.shape[0]
+    n_in = tiles.nrows if transpose else tiles.ncols
+    n_out = tiles.ncols if transpose else tiles.nrows
+    b_out = tiles.bk if transpose else tiles.bm
+    if tiles.bm not in (128, 256) or tiles.bk not in (128, 256):
+        raise ValueError(f"edge_stream_spmm: tile dims {tiles.bm}x"
+                         f"{tiles.bk} not in {{128, 256}}")
+    _check("x", xs, torch.float32, dev, (n_in, xs.shape[1]))
+    _check("coords", tiles.coords, torch.int16, dev)
+    _check("blk_rc", tiles.blk_rc, torch.int32, dev, (nb,))
+    _check("off", tiles.off, torch.int32, dev, (2, nb + 1))
+    _check("t_order", tiles.t_order, torch.int32, dev, (nb,))
+    vals = None
+    if tiles.vals is not None:
+        vals = tiles.vals.float().contiguous()
+        _check("vals", vals, torch.float32, dev, tuple(tiles.coords.shape))
+    f = xs.shape[1]
+    y = torch.empty((n_out, f), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _kernel()(tiles.coords.data_ptr(),
+                    None if vals is None else vals.data_ptr(),
+                    tiles.blk_rc.data_ptr(), tiles.off.data_ptr(),
+                    tiles.t_order.data_ptr(), nb, xs.data_ptr(),
+                    y.data_ptr(), n_out // b_out, f, tiles.bm, tiles.bk,
+                    int(transpose), stream)
+    if err != 0:
+        raise RuntimeError(f"edge_stream_spmm: CUDA launch failed "
+                           f"(cudaError {err})")
+    launches["transpose" if transpose else "forward"] += 1
+    return y
+
+
+def edge_stream_spmm(tiles: EdgeTiles, x: torch.Tensor, rv: torch.Tensor,
+                     nf: torch.Tensor, transpose: bool = False
+                     ) -> torch.Tensor:
+    """``y = A @ x`` (or ``A^T @ x``) with ``A[r, c] = rv[r] * nf[c]``
+    (times the per-edge value when ``tiles.vals`` is set) on the packed
+    edges and 0 elsewhere. Output float32.
+
+    CUDA tensors launch the hand-written kernel; CPU tensors take the
+    plain version. The rank-1 factors fold outside the kernel
+    (``y = rv * (A01 @ (nf * x))``, swapped for the transpose)."""
+    assert rv.shape == (tiles.nrows,), rv.shape
+    assert nf.shape == (tiles.ncols,), nf.shape
+    if x.device.type == "cpu":
+        return edge_stream_spmm_ref(tiles, x, rv, nf, transpose)
+    if x.device.type != "cuda":
+        raise ValueError(f"edge_stream_spmm: unsupported device {x.device}")
+    in_fac, out_fac = (rv, nf) if transpose else (nf, rv)
+    xs = (x.float() * in_fac.float()[:, None]).contiguous()
+    return _launch(tiles, xs, transpose) * out_fac.float()[:, None]

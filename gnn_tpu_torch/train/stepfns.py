@@ -1,0 +1,59 @@
+"""The single-device half of `gnn_tpu.train.stepfns`: moving a host
+minibatch to the device, rebuilding its adjacencies, and the gradient
+clip. The per-step recipe itself (forward -> masked loss -> backward ->
+clip at 5 -> Adam) lives in `gnn_tpu_torch.train.trainer.Trainer`.
+``jit``/``shard_map`` have no counterpart here: PyTorch runs eagerly on
+one device."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, List
+
+import torch
+
+from gnn_tpu_torch.ops.sparse import to_device
+from gnn_tpu_torch.sampling.ladies import MiniBatch
+
+
+@dataclasses.dataclass
+class DeviceBatch:
+    """The device-side slice of a :class:`MiniBatch`."""
+
+    adjs: list                  # per-layer COOAdj | ResidentLayerRef | None
+    sampled_nodes: list         # int32 [R_cap_l] per layer
+    input_nodes: torch.Tensor   # int32 [C_cap_0]
+    input_mask: torch.Tensor    # f32 [C_cap_0]
+    labels: torch.Tensor        # f32 [B_cap, C]
+    label_mask: torch.Tensor    # f32 [B_cap]
+
+
+def to_device_batch(mb: MiniBatch, device) -> DeviceBatch:
+    def t(a):
+        return torch.from_numpy(a).to(device)
+    return DeviceBatch(
+        adjs=[to_device(a, device) for a in mb.adjs],
+        sampled_nodes=[t(s) for s in mb.sampled_nodes],
+        input_nodes=t(mb.input_nodes), input_mask=t(mb.input_mask),
+        labels=t(mb.labels), label_mask=t(mb.label_mask))
+
+
+def prepare_adjs(batch: DeviceBatch, resident_graph) -> List[object]:
+    """The batch's adjacency list: rebuilt from the device-resident
+    graph in resident mode, else as shipped (COO)."""
+    if resident_graph is not None:
+        from gnn_tpu_torch.ops.residentgraph import materialize_adjs
+        return materialize_adjs(resident_graph, batch.adjs,
+                                batch.sampled_nodes, batch.input_nodes)
+    return list(batch.adjs)
+
+
+def clip_by_global_norm(params: Iterable[torch.nn.Parameter],
+                        max_norm: float) -> torch.Tensor:
+    """Scale gradients by ``min(1, max_norm / (norm + 1e-6))``
+    (reference ``main.py:146``); returns the global norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    for g in grads:
+        g.mul_(scale)
+    return norm

@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch port's training step on one NVIDIA GPU.
+
+    python3 tools/torch_profile_step.py [--warmup 5] [--steps 10] [CLI flags]
+
+Sets up the configuration `gnn_tpu_torch.cli` would train (its defaults
+unless CLI flags are given), runs ``--warmup`` steps, then ``--steps``
+steps under ``torch.profiler``, and prints:
+
+* per step: seconds waiting for the sampler, moving the batch to the
+  card, and running the step (ending with the loss read back);
+* the device busy share over the window (kernel time / wall time);
+* the kernels by total device time per step, with their shares.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import shutil
+import sys
+import tempfile
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--warmup", type=int, default=5)
+    ap.add_argument("--steps", type=int, default=10)
+    own, rest = ap.parse_known_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnn_tpu_torch import cli
+    from gnn_tpu_torch.sampling.pipeline import BatchPipeline
+    from gnn_tpu_torch.train.stepfns import to_device_batch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda is not available", file=sys.stderr)
+        return 2
+    save_dir = tempfile.mkdtemp(prefix="gnn_tpu_torch_profile_")
+    try:
+        args = cli.build_parser().parse_args(
+            rest + ["--epoch_num", "0", "--save_dir", save_dir])
+        trainer, graph = cli.train(args)   # set-up only: zero epochs
+        old = trainer.pipeline
+        pipe = BatchPipeline(old.cfg, old.lap, old.labels,
+                             pool_num=args.pool_num, seed=args.seed)
+        trainer.pipeline = pipe
+        it = pipe.train_epoch(graph.train_nodes, epoch=0)
+
+        def step():
+            t0 = time.perf_counter()
+            mb = next(it)
+            t1 = time.perf_counter()
+            b = to_device_batch(mb, trainer.device)
+            t2 = time.perf_counter()
+            float(trainer.train_step(b))
+            return t1 - t0, t2 - t1, time.perf_counter() - t2
+
+        for _ in range(own.warmup):
+            step()
+        torch.cuda.synchronize()
+        split = [0.0, 0.0, 0.0]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(own.steps):
+                for i, v in enumerate(step()):
+                    split[i] += v
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        pipe.close()
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+    by_name = collections.Counter()
+    calls = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            calls[e.name] += 1
+    busy = sum(by_name.values()) / 1e6
+    n = own.steps
+    print(f"gpu: {torch.cuda.get_device_name(0)}")
+    print(f"window: {n} steps after {own.warmup} warm-up, "
+          f"{wall / n * 1e3:.3f} ms/step wall")
+    print(f"host per step: sampler wait {split[0] / n * 1e3:.3f} ms, "
+          f"to device {split[1] / n * 1e3:.3f} ms, step "
+          f"{split[2] / n * 1e3:.3f} ms")
+    print(f"device busy {busy / n * 1e3:.3f} ms/step = "
+          f"{busy / wall:.3f} of wall (idle {1 - busy / wall:.3f})")
+    print("kernels by device time per step:")
+    for name, us in by_name.most_common(25):
+        print(f"  {us / n / 1e3:9.4f} ms  {us / 1e6 / busy:6.3f}  "
+              f"x{calls[name] / n:5.1f}  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
