@@ -9,22 +9,28 @@ Phases (any failure exits non-zero without the final result line):
 2. build every CUDA kernel of the port from ``gnn_tpu_torch/csrc`` (one
    nvcc per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, taken from one batch of the default
-   configuration (synthetic 100k nodes / degree 50 / 602 features / 41
-   classes, batch 2048, samp_num 8192, orders 1,1,1, hot_k 16384): the
-   edge-stream SpMM forward and transpose at each aggregating layer's
-   width, plus one per-edge-values case. Each case prints its error, the
-   kernel's time (CUDA events), the plain version's time, the time of
-   ``torch.sparse.mm`` over a CSR of the same weighted edges (a yardstick
-   the port never calls) and the bound (the larger of the bytes over the
-   memory rate and the float32 flops over the float32 rate);
+   main paths' shapes, taken from one batch of the default configuration
+   (synthetic 100k nodes / degree 50 / 602 features / 41 classes, batch
+   2048, samp_num 8192, orders 1,1,1, hot_k 16384; GraphSAGE and GAT
+   sample the same row-normalized graph, so their batches are the same):
+   the edge-stream SpMM (K1) forward and transpose at each aggregating
+   layer's width, plus one per-edge-values case; the four edge-stream
+   attention kernels (K3 row max, K4 terms, bwd_q, bwd_kv) at each GAT
+   layer's width (512, one head), plus one 4-head case and one case at
+   50x magnitudes. Each case prints its error, the kernel's time (CUDA
+   events), the plain version's time, the bound (the larger of the bytes
+   over the memory rate and the float32 flops over the float32 rate) and,
+   for K1, the time of ``torch.sparse.mm`` over a CSR of the same
+   weighted edges (a yardstick the port never calls);
 4. a small input (3000 nodes) through the whole training path on the
-   card and on the CPU, where the CPU path is the one the tests hold
-   against the JAX package: the step losses must agree;
-5. the main path: ``gnn_tpu_torch.cli.main`` with its defaults plus
-   ``--n_devices 1 --epoch_num 1 --test`` — one full-width epoch, the val
-   pass and the full test sweep — with every launch counter set to 0
-   just before and read just after;
+   card and on the CPU, for GraphSAGE and for GAT, where the CPU path is
+   the one the tests hold against the JAX package: the step losses must
+   agree;
+5. the main paths: ``gnn_tpu_torch.cli.main`` with its defaults plus
+   ``--n_devices 1 --epoch_num 1 --test`` (GraphSAGE), then the same with
+   ``--model gat`` — each one full-width epoch, the val pass and the full
+   test sweep, with every launch counter set to 0 just before the run and
+   read just after;
 6. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -50,9 +56,20 @@ F32_FLOPS_PER_S = 67e12
 REL_TOL = 1e-4
 # step losses of the small-input run on the card vs on the CPU
 AGREE_RTOL = 1e-3
-KERNEL_SOURCES = ["edge_stream"]
+KERNEL_SOURCES = ["edge_stream", "edge_attention"]
 REPLACES = "gnn_tpu/ops/pallas_edgestream.py:572"
 SOURCE = "gnn_tpu_torch/csrc/edge_stream.cu"
+# the edge-stream attention kernels: JSON name, launch-counter key, the
+# TPU kernel each replaces
+ATTN_SOURCE = "gnn_tpu_torch/csrc/edge_attention.cu"
+ATTN_KERNELS = [
+    ("cold_attention_rowmax", "rowmax", "gnn_tpu/ops/pallas_esattn.py:321"),
+    ("cold_attention_terms", "terms", "gnn_tpu/ops/pallas_esattn.py:429"),
+    ("cold_attention_terms.bwd_q", "bwd_q",
+     "gnn_tpu/ops/pallas_esattn.py:429"),
+    ("cold_attention_terms.bwd_kv", "bwd_kv",
+     "gnn_tpu/ops/pallas_esattn.py:429"),
+]
 
 
 def log(msg):
@@ -142,14 +159,14 @@ def main_path_batch(save_dir, device):
     return adjs, widths
 
 
-def check_kernels(save_dir, device):
-    """Phase 3: the edge-stream kernel against its plain version."""
+def check_edge_stream(adjs, widths, device):
+    """Phase 3: the edge-stream SpMM kernel (K1) against its plain
+    version."""
     import torch
 
     from gnn_tpu_torch.ops.edgestream import (EdgeTiles, ECAP, decode_edges,
                                               edge_stream_spmm,
                                               edge_stream_spmm_ref)
-    adjs, widths = main_path_batch(save_dir, device)
     gen = torch.Generator(device=device).manual_seed(0)
     totals = {d: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                       max_abs_err=0.0, bytes=0.0, flops=0.0)
@@ -220,18 +237,135 @@ def check_kernels(save_dir, device):
                 t["bound_ms"] += bound_ms
                 t["bytes"] += nbytes / MEM_BYTES_PER_S
                 t["flops"] += flops / F32_FLOPS_PER_S
-    del adjs, cases
-    torch.cuda.empty_cache()
     return totals
 
 
-def check_agreement():
+def _max_err(y, ref, name, what):
+    """``(max abs err, max rel err)`` of a kernel's output against its
+    plain version; fails on a non-finite output or an error above
+    REL_TOL of the output's magnitude + 1e-6."""
+    import torch
+    err = float((y - ref).abs().max()) if y.numel() else 0.0
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    if not torch.isfinite(y).all() or err > REL_TOL * scale + 1e-6:
+        fail(f"{what} {name}: max abs err {err:.3e} vs max |ref| "
+             f"{scale:.3e}")
+    return err, err / max(scale, 1e-30)
+
+
+def check_attention(adjs, device, nhid):
+    """Phase 3: the four edge-stream attention kernels (K3, K4 and its two
+    backward passes) against their plain versions at the GAT layers'
+    shapes: q [R, nhid], k and v [C, nhid] of each layer's cold tiles,
+    one head; plus a 4-head case on layer 1 and a 50x-magnitude case on
+    layer 1 (there only the row max is compared, and every output must
+    be finite: at scores of ~1e4, one float32 rounding step of a score
+    moves exp(s - row_max) by ~1e-3)."""
+    import torch
+
+    from gnn_tpu_torch.ops import esattn as ea
+    gen = torch.Generator(device=device).manual_seed(1)
+    totals = {key: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+                        max_rel_err=0.0, bytes=0.0, flops=0.0)
+              for _, key, _ in ATTN_KERNELS}
+    cases = [(f"layer{l}", adj, 1, 1.0) for l, adj in enumerate(adjs)]
+    cases += [("layer1 H=4", adjs[1], 4, 1.0), ("layer1 x50", adjs[1], 1,
+                                                50.0)]
+    for name, adj, H, mag in cases:
+        main = H == 1 and mag == 1.0
+        t = (adj.es_coords, adj.es_rc, adj.es_off, adj.es_ord)
+        kw = dict(n_heads=H, bm=adj.es_bm, bk=adj.es_bk)
+        R, C, n = adj.nrows, adj.ncols, nhid
+
+        def rnd(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=device) * scale
+        # the softmax scale 1/sqrt(d) is folded into q, as on the path
+        q = rnd(R, n, scale=mag / (n // H) ** 0.5)
+        k, v = rnd(C, n, scale=mag), rnd(C, n)
+        gd, gn = rnd(R, H), rnd(R, n)
+        rows, _ = ea.live_edges(*t[:3], adj.es_bm, adj.es_bk)
+        e, nb = int(rows.shape[0]), int(t[1].shape[0])
+        rm_ref = ea.cold_attention_rowmax_ref(*t[:3], q, k, **kw)
+        has = rm_ref > ea.NEG_SENTINEL / 2
+        rm = torch.where(has, rm_ref, torch.zeros_like(rm_ref))
+        fns = {
+            "rowmax": (lambda: ea.cold_attention_rowmax(*t[:3], q, k, **kw),
+                       lambda: ea.cold_attention_rowmax_ref(*t[:3], q, k,
+                                                            **kw)),
+            "terms": (lambda: ea.cold_attention_terms(*t, q, k, v, rm, **kw),
+                      lambda: ea.cold_attention_terms_ref(*t, q, k, v, rm,
+                                                          **kw)),
+            "bwd_q": (lambda: ea.cold_attention_bwd_q(*t, q, k, v, rm, gd,
+                                                      gn, **kw),
+                      lambda: ea.cold_attention_bwd_q_ref(*t, q, k, v, rm,
+                                                          gd, gn, **kw)),
+            "bwd_kv": (lambda: ea.cold_attention_bwd_kv(*t, q, k, v, rm, gd,
+                                                        gn, **kw),
+                       lambda: ea.cold_attention_bwd_kv_ref(*t, q, k, v, rm,
+                                                            gd, gn, **kw)),
+        }
+        # bytes each function must move besides the coords (2 B/edge) and
+        # the entry tables (16 B/entry), and its float32 flops
+        qkv = 4 * (R * n + 2 * C * n)
+        io = {"rowmax": (4 * (R * n + C * n) + 4 * R * H, 2 * e * n),
+              "terms": (qkv + 4 * R * H + 4 * (R * H + R * n), 4 * e * n),
+              "bwd_q": (qkv + 4 * (2 * R * H + R * n) + 4 * R * n,
+                        6 * e * n),
+              "bwd_kv": (qkv + 4 * (2 * R * H + R * n) + 4 * nb
+                         + 8 * C * n, 8 * e * n)}
+        for _, key, _ in ATTN_KERNELS:
+            kern, plain = fns[key]
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = []
+            for i, (y, ref) in enumerate(zip(got, want)):
+                if not torch.isfinite(y[has] if key == "rowmax" else y).all():
+                    fail(f"{key} {name}: non-finite output {i}")
+                if key == "rowmax":
+                    if not (y[~has] == ea.NEG_SENTINEL).all():
+                        fail(f"{key} {name}: rows without a cold edge do "
+                             f"not read NEG_SENTINEL")
+                    errs.append(_max_err(y[has], ref[has], name, key))
+                elif mag == 1.0:
+                    errs.append(_max_err(y, ref, name, key))
+            err = max((a for a, _ in errs), default=0.0)
+            rel = max((b for _, b in errs), default=0.0)
+            nbytes = 2 * e + 16 * nb + io[key][0]
+            t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+            t_flops = io[key][1] / F32_FLOPS_PER_S * 1e3
+            bound_ms = max(t_bytes, t_flops)
+            tot = totals[key]
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["max_rel_err"] = max(tot["max_rel_err"], rel)
+            line = (f"{key:6s} {name:10s} R={R} C={C} n_out={n} H={H} "
+                    f"cold_edges={e} entries={nb} max_abs_err={err:.3e} "
+                    f"max_rel_err={rel:.3e}")
+            if main:
+                ms = time_ms(kern)
+                plain_ms = time_ms(plain, reps=2, rounds=3)
+                line += (f" ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                         f"bound_ms={bound_ms:.4f} "
+                         f"({'bytes' if t_bytes >= t_flops else 'operations'})")
+                tot["ms"] += ms
+                tot["plain_ms"] += plain_ms
+                tot["bound_ms"] += bound_ms
+                tot["bytes"] += t_bytes
+                tot["flops"] += t_flops
+            log(line)
+            del got, want
+        torch.cuda.empty_cache()
+    return totals
+
+
+def check_agreement(model):
     """Phase 4: a small input through the port's whole training path on
-    the card (CUDA kernel, cuBLAS) and on the CPU (plain versions — the
+    the card (CUDA kernels, cuBLAS) and on the CPU (plain versions — the
     path the CPU tests hold against the JAX package): same batches, same
-    initial weights, dropout 0, float32 hot block. The step losses must
-    agree to AGREE_RTOL (float32 sums in another order, carried through
-    Adam steps)."""
+    initial weights, dropout 0, float32 hot block, stream tiles on. The
+    step losses must agree to AGREE_RTOL (float32 sums in another order,
+    carried through Adam steps)."""
     import numpy as np
     import torch
 
@@ -246,7 +380,7 @@ def check_agreement():
     from gnn_tpu_torch.utils.normalize import build_laplacian
 
     g = make_powerlaw_graph(3000, 12, 40, 7, seed=0)
-    lap = build_laplacian(g.adj_full, "graphsage")
+    lap = build_laplacian(g.adj_full, model)
     spec = HotSpec.from_sample_prob(
         compute_sample_prob(lap, g.train_nodes, 2), 512)
     out = {}
@@ -258,8 +392,8 @@ def check_agreement():
                             resident_val_free=True,
                             resident_stream_tiles=True)
         pipe = BatchPipeline(cfg, lap, g.labels, pool_num=2, seed=0)
-        net = build_model("graphsage", 64, (1, 1), 7, n_feats=40,
-                          dropout=0.0, seed=0)
+        net = build_model(model, 64, (1, 1), 7, n_feats=40, dropout=0.0,
+                          seed=0)
         tr = Trainer(net, pipe, g.feats, lr=0.01, sigmoid_loss=False,
                      resident_graph=build_resident_graph(lap, spec, d, dt),
                      device=dev)
@@ -271,44 +405,58 @@ def check_agreement():
         out[dev] = (np.asarray(m.step_losses), f1, vloss)
     lc, lp = out["cuda"][0], out["cpu"][0]
     rel = float(np.max(np.abs(lc - lp) / np.abs(lp)))
-    log(f"agreement (3000 nodes, {len(lc)} steps): cuda losses "
+    log(f"agreement {model} (3000 nodes, {len(lc)} steps): cuda losses "
         f"{lc[0]:.5f}..{lc[-1]:.5f}, cpu {lp[0]:.5f}..{lp[-1]:.5f}, max "
         f"rel diff {rel:.2e}; val F1 cuda {out['cuda'][1]:.4f} cpu "
         f"{out['cpu'][1]:.4f}; val loss cuda {out['cuda'][2]:.5f} cpu "
         f"{out['cpu'][2]:.5f}")
     if not (np.all(np.isfinite(lc)) and rel <= AGREE_RTOL):
-        fail(f"cuda and cpu training disagree: max rel diff {rel:.3e}")
+        fail(f"{model}: cuda and cpu training disagree: max rel diff "
+             f"{rel:.3e}")
     if not lc[-1] < lc[0]:
-        fail(f"small-input loss did not fall: {lc}")
+        fail(f"{model}: small-input loss did not fall: {lc}")
 
 
-def run_main_path(save_dir):
-    """Phase 5: the default CLI run, one epoch + val + test sweep."""
+# the kernel launches each main path needs per training step
+PER_STEP = {
+    "graphsage": {"forward": 3, "transpose": 2},
+    "gat": {"rowmax": 3, "terms": 3, "bwd_q": 3, "bwd_kv": 3},
+}
+
+
+def run_main_path(save_dir, model):
+    """Phase 5: the default CLI run of ``model``, one epoch + val + test
+    sweep, with every launch counter set to 0 just before and read just
+    after; returns its kernel launch counts."""
     import math
 
     import torch
 
     from gnn_tpu_torch import cli
-    from gnn_tpu_torch.ops import edgestream
+    from gnn_tpu_torch.ops import edgestream, esattn
 
+    metrics = os.path.join(save_dir, "metrics.jsonl")
+    n_before = sum(1 for _ in open(metrics)) if os.path.exists(metrics) else 0
     edgestream.launches.clear()
+    esattn.launches.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rc = cli.main(["--n_devices", "1", "--epoch_num", "1", "--test",
-                   "--save_dir", save_dir])
+    rc = cli.main(["--model", model, "--n_devices", "1", "--epoch_num", "1",
+                   "--test", "--save_dir", save_dir])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(edgestream.launches)
+    ours, others = ((edgestream, esattn) if model == "graphsage"
+                    else (esattn, edgestream))
+    counts, others = dict(ours.launches), dict(others.launches)
     if rc != 0:
-        fail(f"cli.main returned {rc}")
-    recs = [json.loads(l) for l in open(os.path.join(save_dir,
-                                                     "metrics.jsonl"))]
+        fail(f"{model}: cli.main returned {rc}")
+    recs = [json.loads(l) for l in open(metrics)][n_before:]
     ep = next(r for r in recs if "step_losses" in r)
     test_f1 = next(r["test_f1"] for r in recs if "test_f1" in r)
     losses, times = ep["step_losses"], ep["step_times"]
     steps = len(losses)
-    log(f"main path: {steps} steps in {wall:.1f}s wall (set-up, epoch, "
-        f"val, test sweep)")
+    log(f"main path {model}: {steps} steps in {wall:.1f}s wall (set-up, "
+        f"epoch, val, test sweep)")
     log("step losses: " + " ".join(f"{v:.4f}" for v in losses))
     log("step seconds: " + " ".join(f"{v:.3f}" for v in times))
     steady = sorted(times[1:]) or times
@@ -317,20 +465,31 @@ def run_main_path(save_dir):
     log(f"val F1 {ep['valid_f1']:.4f}  val loss {ep['valid_loss']:.4f}  "
         f"test F1 {test_f1:.4f}")
     log(f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    log(f"K1 launches on the main path: {counts}")
+    log(f"kernel launches on the {model} main path: {counts} "
+        f"(other kernels: {others})")
     if steps == 0 or not all(math.isfinite(v) for v in losses):
-        fail(f"non-finite or missing losses: {losses}")
+        fail(f"{model}: non-finite or missing losses: {losses}")
     last5 = sum(losses[-5:]) / len(losses[-5:])
     if not last5 < losses[0]:
-        fail(f"loss did not fall: first {losses[0]}, last-5 mean {last5}")
-    if counts.get("forward", 0) < 3 * steps:
-        fail(f"forward launches {counts.get('forward', 0)} < 3 x {steps}")
-    if counts.get("transpose", 0) < 2 * steps:
-        fail(f"transpose launches {counts.get('transpose', 0)} < "
-             f"2 x {steps}")
+        fail(f"{model}: loss did not fall: first {losses[0]}, last-5 mean "
+             f"{last5}")
+    for key, per_step in PER_STEP[model].items():
+        if counts.get(key, 0) < per_step * steps:
+            fail(f"{model}: {key} launches {counts.get(key, 0)} < "
+                 f"{per_step} x {steps}")
     if not (0.0 <= test_f1 <= 1.0):
-        fail(f"test F1 out of range: {test_f1}")
+        fail(f"{model}: test F1 out of range: {test_f1}")
     return counts
+
+
+def _kernel_entry(name, source, replaces, launches, t, library_ms):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": int(launches),
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": ("bytes" if t["bytes"] >= t["flops"]
+                         else "operations"),
+            "library_ms": library_ms}
 
 
 def main() -> int:
@@ -345,6 +504,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, here)
+    from gnn_tpu_torch import cli
     from gnn_tpu_torch.ops import cuda_build
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -364,24 +524,25 @@ def main() -> int:
 
     save_dir = tempfile.mkdtemp(prefix="gnn_tpu_torch_smoke_")
     try:
-        totals = check_kernels(save_dir, device)
-        check_agreement()
-        counts = run_main_path(save_dir)
+        adjs, widths = main_path_batch(save_dir, device)
+        k1 = check_edge_stream(adjs, widths, device)
+        attn = check_attention(adjs, device,
+                               cli.build_parser().parse_args([]).nhid)
+        del adjs
+        torch.cuda.empty_cache()
+        check_agreement("graphsage")
+        check_agreement("gat")
+        counts = {**run_main_path(save_dir, "graphsage"),
+                  **run_main_path(save_dir, "gat")}
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
 
-    kernels = []
-    for d in ("forward", "transpose"):
-        t = totals[d]
-        kernels.append({
-            "name": f"edge_stream_spmm.{d}", "route": "cuda",
-            "source": SOURCE, "replaces": REPLACES,
-            "launches": int(counts.get(d, 0)),
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": ("bytes" if t["bytes"] >= t["flops"]
-                         else "operations"),
-            "library_ms": t["library_ms"]})
+    kernels = [_kernel_entry(f"edge_stream_spmm.{d}", SOURCE, REPLACES,
+                             counts.get(d, 0), k1[d], k1[d]["library_ms"])
+               for d in ("forward", "transpose")]
+    kernels += [_kernel_entry(name, ATTN_SOURCE, replaces,
+                              counts.get(key, 0), attn[key], None)
+                for name, key, replaces in ATTN_KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ The default run is the resident hot-block path: GraphSAGE 512 wide,
 orders 1,1,1, LADIES with samp_num 8192, batch 2048, sigmoid BCE, Adam
 0.01, clip 5, the K=16384 bfloat16 hot block, and the cold residual
 through the edge-stream CUDA kernel (``--resident_stream auto`` = on for
-``cuda``). Flags whose paths are not ported yet raise
+``cuda``). ``--model gat`` trains the same path with hot-block attention
+and the edge-stream attention kernels for the cold residual (lr 0.002
+with a linear warmup). Flags whose paths are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -22,7 +24,8 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="GNN training on a GPU (GraphSAGE/GCN/GIN + LADIES)")
+        description="GNN training on a GPU (GraphSAGE/GCN/GIN/GAT + "
+                    "LADIES)")
     # --- reference flags (main.py:24-65) ---
     p.add_argument("--dataset", type=str, default="synthetic",
                    help="dataset name, GraphSAINT dir, ogbn-*, or "
@@ -136,7 +139,9 @@ def _check_ported(args) -> None:
         (args.adj_format in ("blocked", "hot", "pattern"),
          f"--adj_format {args.adj_format}", formats),
         (args.sampler == "subgraph", "--sampler subgraph", formats),
-        (args.model == "gat", "--model gat", "GAT with K2/K3/K4"),
+        (args.model == "gat" and args.adj_format != "resident",
+         f"--model gat with --adj_format {args.adj_format}",
+         "the GAT tile route with K2"),
         (args.feature_cache, "--feature_cache", multi),
         (args.resident_parts > 1, "--resident_parts", multi),
         (args.n_devices > 1, "--n_devices > 1", multi),

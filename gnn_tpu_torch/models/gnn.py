@@ -1,5 +1,6 @@
 """GNN model family as ``torch.nn.Module``s: the counterpart of
-`gnn_tpu.models.gnn` (reference ``models.py``).
+`gnn_tpu.models.gnn` (reference ``models.py``); the GAT encoder lives in
+`gnn_tpu_torch.models.gat`.
 
 * :class:`SageConv` — ``concat([B(x[sampled]), W(A @ x)])`` for
   ``order > 0``, ``W(x)`` for ``order == 0``; ELU; per-row LayerNorm with
@@ -207,8 +208,8 @@ def build_model(model: str, nhid: int, orders: Sequence[int],
     gen = torch.Generator().manual_seed(seed)
     stacks = {"graphsage": GraphSage, "gcn": GCN, "gin": GIN}
     if model == "gat":
-        raise NotImplementedError(
-            "GAT is not ported yet (ROADMAP queue 1: GAT with K2/K3/K4)")
+        from gnn_tpu_torch.models.gat import GATEncoder
+        stacks["gat"] = GATEncoder
     if model not in stacks:
         raise ValueError(f"unknown model {model!r}")
     encoder = stacks[model](n_feats, nhid, orders, dropout, gen)

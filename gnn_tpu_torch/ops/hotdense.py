@@ -148,14 +148,15 @@ class HotDenseAdj:
         return (self.nrows, self.ncols)
 
 
-def _take_rows_fill(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``a[idx]`` with zeros where ``idx`` is out of range (the JAX
-    package's ``jnp.take(mode="fill", fill_value=0)``)."""
+def _take_rows_fill(a: torch.Tensor, idx: torch.Tensor,
+                    fill: float = 0.0) -> torch.Tensor:
+    """``a[idx]`` with ``fill`` where ``idx`` is out of range (the JAX
+    package's ``jnp.take(mode="fill", fill_value=fill)``)."""
     idx = idx.long()
     ok = (idx >= 0) & (idx < a.shape[0])
     rows = a.index_select(0, idx.clamp(0, max(a.shape[0] - 1, 0)))
-    return torch.where(ok[:, None], rows, torch.zeros((), dtype=a.dtype,
-                                                      device=a.device))
+    return torch.where(ok[:, None], rows, torch.full((), fill, dtype=a.dtype,
+                                                     device=a.device))
 
 
 def _hot_mm(d_rows: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

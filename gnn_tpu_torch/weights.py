@@ -4,7 +4,10 @@
 ``state_dict`` for `gnn_tpu_torch.models.gnn.GNN`: flax's
 ``Dense.kernel`` is ``[in, out]`` and becomes ``Linear.weight`` as its
 transpose; ``scale``, ``offset`` and ``eps`` copy as they are. The
-encoder's ``gcs_{i}`` become ``encoder.layers.{i}``. Takes numpy arrays
+encoder's ``gcs_{i}`` become ``encoder.layers.{i}``: a GAT layer's
+``gcs_{i}/{q,k,v,self}/{kernel,bias}`` become ``encoder.layers.{i}.{q,k,v,
+self}.{weight,bias}`` and an order-0 GAT layer's bare ``gcs_{i}/{kernel,
+bias}`` become ``encoder.layers.{i}.{weight,bias}``. Takes numpy arrays
 (or anything ``np.asarray`` accepts), so it needs no JAX.
 """
 from __future__ import annotations

@@ -66,9 +66,27 @@ def test_main_trains_one_epoch_on_cpu(tmp_path, extra):
     assert best_val == pytest.approx(ep["valid_f1"])
 
 
+def test_gat_trains_one_epoch_on_cpu(tmp_path):
+    """``--model gat`` on the resident path (hot-block attention; the cold
+    residual through the plain versions of the edge-stream attention
+    kernels): finite losses, lr warmup on by default."""
+    save = str(tmp_path / "save")
+    assert tcli.main(TINY + ["--model", "gat", "--device", "cpu", "--test",
+                             "--save_dir", save]) == 0
+    recs = [json.loads(l) for l in open(os.path.join(save,
+                                                     "metrics.jsonl"))]
+    ep = recs[0]
+    assert len(ep["step_losses"]) == math.ceil(720 / 64)
+    assert all(math.isfinite(v) for v in ep["step_losses"])
+    assert 0.0 <= recs[-1]["test_f1"] <= 1.0
+    params, _, _, _ = load_checkpoint(save, "latest")
+    assert params["encoder.layers.0.self.weight"].shape == (16, 16)
+    assert params["linear.weight"].shape == (5, 16)
+
+
 @pytest.mark.parametrize("flag", [
     ["--adj_format", "blocked"], ["--adj_format", "hot"],
-    ["--adj_format", "pattern"], ["--model", "gat"],
+    ["--adj_format", "pattern"], ["--model", "gat", "--adj_format", "coo"],
     ["--sampler", "subgraph"], ["--feature_cache"],
     ["--resident_parts", "2"], ["--n_devices", "2"],
     ["--steps_per_dispatch", "4"], ["--locality_sampling"], ["--resume"],

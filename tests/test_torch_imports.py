@@ -24,6 +24,8 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     names = _modules()
     assert "gnn_tpu_torch.ops.edgestream" in names
+    assert "gnn_tpu_torch.ops.esattn" in names
+    assert "gnn_tpu_torch.models.gat" in names
     assert "gnn_tpu_torch.cli" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"

@@ -10,8 +10,10 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from gnn_tpu.models import gat as jgat
 from gnn_tpu.models import gnn as jgnn
 from gnn_tpu.ops import sparse as jsp
+from gnn_tpu_torch.models import gat as tgat
 from gnn_tpu_torch.models import gnn as tgnn
 from gnn_tpu_torch.ops import sparse as tsp
 from gnn_tpu_torch.weights import params_from_flax
@@ -41,8 +43,20 @@ def _batch(rng, orders, widths):
     return jadjs, tadjs, sampled
 
 
+def _jax_layer(model, h, order, lp, x, adj, sampled):
+    """One flax encoder layer applied on its own."""
+    if model == "gat":
+        if order == 0:   # flax: elu(Dense(gcs_i)(x))
+            return jax.nn.elu(x @ lp["params"]["kernel"]
+                              + lp["params"]["bias"])
+        return jgat.GATConv(n_out=h, impl="edge").apply(lp, x, adj, sampled)
+    conv = {"graphsage": jgnn.SageConv, "gcn": jgnn.GraphConv,
+            "gin": jgnn.GINConv}[model](n_out=h, order=order)
+    return conv.apply(lp, x, adj, sampled)
+
+
 @pytest.mark.parametrize("orders", [(1, 1), (1, 0, 1)])
-@pytest.mark.parametrize("model", ["graphsage", "gcn", "gin"])
+@pytest.mark.parametrize("model", ["graphsage", "gcn", "gin", "gat"])
 def test_model_matches_flax(model, orders):
     rng = np.random.RandomState(0)
     f, h, c = 20, 16, 5
@@ -56,11 +70,20 @@ def test_model_matches_flax(model, orders):
     jadjs, tadjs, sampled = _batch(rng, orders, widths)
     x = rng.randn(widths[0], f).astype(np.float32)
 
-    jnet = jgnn.build_model(model, h, orders, c, dropout=0.0)
+    if model == "gat":
+        # COO layers take GAT's per-edge route (the tile route needs K2)
+        jnet = jgnn.GNN(encoder=jgat.GATEncoder(
+            nhid=h, orders=orders, dropout=0.0, impl="edge"),
+            num_classes=c, dropout=0.0)
+        tnet = tgnn.GNN(tgat.GATEncoder(f, h, orders, 0.0, impl="edge"), c,
+                        0.0)
+    else:
+        jnet = jgnn.build_model(model, h, orders, c, dropout=0.0)
+        tnet = tgnn.build_model(model, h, orders, c, n_feats=f,
+                                dropout=0.0)
     params = jnet.init(jax.random.PRNGKey(1), jnp.asarray(x), jadjs,
                        [jnp.asarray(s) for s in sampled])
     params = jax.tree_util.tree_map(np.asarray, params)
-    tnet = tgnn.build_model(model, h, orders, c, n_feats=f, dropout=0.0)
     missing = tnet.load_state_dict(params_from_flax(params), strict=True)
     assert not missing.missing_keys and not missing.unexpected_keys
     tnet.eval()
@@ -69,10 +92,9 @@ def test_model_matches_flax(model, orders):
     xl = x
     tsam = [torch.from_numpy(s) for s in sampled]
     for i, o in enumerate(orders):
-        conv = {"graphsage": jgnn.SageConv, "gcn": jgnn.GraphConv,
-                "gin": jgnn.GINConv}[model](n_out=h, order=o)
-        jy = conv.apply({"params": params["params"]["encoder"][f"gcs_{i}"]},
-                        jnp.asarray(xl), jadjs[i], jnp.asarray(sampled[i]))
+        lp = {"params": params["params"]["encoder"][f"gcs_{i}"]}
+        jy = _jax_layer(model, h, o, lp, jnp.asarray(xl), jadjs[i],
+                        jnp.asarray(sampled[i]))
         with torch.no_grad():
             ty = tnet.encoder.layers[i](torch.from_numpy(xl), tadjs[i],
                                         tsam[i])

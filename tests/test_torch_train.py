@@ -5,8 +5,11 @@ cold path on (the JAX side runs the Pallas kernel in interpret mode, the
 port its plain version on the CPU), dropout 0, and the same initial
 parameters (copied from flax). Each epoch is one step on a 64-node
 target set, so each epoch's loss is one step's loss; the val pass after
-the last step is compared too. Tolerance: rtol = 1e-4, atol = 1e-5 —
-float32 sums in another order, carried through four Adam steps."""
+the last step is compared too. GraphSAGE runs a constant lr; GAT (hot-
+block attention, the edge-stream attention on its cold residual) a
+linear warmup over 3 of the 4 steps. Tolerance: rtol = 1e-4, atol =
+1e-5 — float32 sums in another order, carried through four Adam
+steps."""
 import numpy as np
 import jax
 import pytest
@@ -34,10 +37,9 @@ from gnn_tpu_torch.weights import params_from_flax
 STEPS = 4
 
 
-def test_training_steps_match_jax(small_graph):
-    g = small_graph
+def _steps_match_jax(g, model, lr, lr_warmup):
     orders, c = (1, 1), g.num_classes
-    lap = build_laplacian(g.adj_full, "graphsage")
+    lap = build_laplacian(g.adj_full, model)
     prob = compute_sample_prob(lap, g.train_nodes, sum(orders))
     kw = dict(batch_size=64, samp_num=128, orders=orders,
               num_nodes=lap.shape[0], num_classes=c,
@@ -49,10 +51,11 @@ def test_training_steps_match_jax(small_graph):
     d, dt = build_hot_dense(lap, jspec, np.float32)
     jpipe = JPipe(JCfg(hot_spec=jspec, **kw), lap, g.labels,
                   world_size=1, pool_num=2, seed=3)
-    jtr = JTrainer(jbuild("graphsage", 32, orders, c, dropout=0.0), jpipe,
-                   g.feats, mesh=make_mesh(1), lr=0.01,
+    jtr = JTrainer(jbuild(model, 32, orders, c, dropout=0.0), jpipe,
+                   g.feats, mesh=make_mesh(1), lr=lr,
                    sigmoid_loss=True, seed=3,
-                   resident_graph=jbuild_rg(lap, jspec, d, dt))
+                   resident_graph=jbuild_rg(lap, jspec, d, dt),
+                   lr_warmup=lr_warmup)
     jtr._init_params(jtr._peek_batch(targets))
     init = jax.tree_util.tree_map(np.asarray, jtr.params)
 
@@ -60,13 +63,13 @@ def test_training_steps_match_jax(small_graph):
     td, tdt = tbuild_hd(lap, tspec, torch.float32, "cpu")
     tpipe = TPipe(TCfg(hot_spec=tspec, **kw), lap, g.labels, pool_num=2,
                   seed=3)
-    tnet = tbuild("graphsage", 32, orders, c, n_feats=g.feats.shape[1],
+    tnet = tbuild(model, 32, orders, c, n_feats=g.feats.shape[1],
                   dropout=0.0)
     tnet.load_state_dict(params_from_flax(init))
-    ttr = TTrainer(tnet, tpipe, g.feats, lr=0.01,
+    ttr = TTrainer(tnet, tpipe, g.feats, lr=lr,
                    sigmoid_loss=True, seed=3,
                    resident_graph=tbuild_rg(lap, tspec, td, tdt),
-                   device="cpu")
+                   lr_warmup=lr_warmup, device="cpu")
     try:
         jl = [jtr.train_epoch(targets, epoch=e).train_loss
               for e in range(STEPS)]
@@ -81,3 +84,15 @@ def test_training_steps_match_jax(small_graph):
     finally:
         tpipe.close()
         jtr.close()
+
+
+def test_training_steps_match_jax(small_graph):
+    _steps_match_jax(small_graph, "graphsage", lr=0.01, lr_warmup=0)
+
+
+def test_gat_training_steps_match_jax(small_graph):
+    """GAT on the resident hot-block path with the cold residual through
+    the edge-stream attention (Pallas in interpret mode vs the port's
+    plain versions), and a linear lr warmup: the port's warmup schedule
+    against optax's ``linear_schedule``."""
+    _steps_match_jax(small_graph, "gat", lr=0.01, lr_warmup=3)

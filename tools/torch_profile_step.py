@@ -2,14 +2,17 @@
 """Profile the PyTorch port's training step on one NVIDIA GPU.
 
     python3 tools/torch_profile_step.py [--warmup 5] [--steps 10] [CLI flags]
+    python3 tools/torch_profile_step.py --model gat
 
 Sets up the configuration `gnn_tpu_torch.cli` would train (its defaults
-unless CLI flags are given), runs ``--warmup`` steps, then ``--steps``
-steps under ``torch.profiler``, and prints:
+unless CLI flags are given, e.g. ``--model gat``), runs ``--warmup``
+steps, then ``--steps`` steps under ``torch.profiler``, and prints:
 
 * per step: seconds waiting for the sampler, moving the batch to the
   card, and running the step (ending with the loss read back);
 * the device busy share over the window (kernel time / wall time);
+* device time per step by kind of kernel (dense matmuls, the port's
+  hand-written kernels, everything else);
 * the kernels by total device time per step, with their shares.
 """
 from __future__ import annotations
@@ -24,6 +27,16 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+
+# kernel-name patterns of each kind, first match wins (the hand-written
+# kernels' names come from gnn_tpu_torch/csrc)
+KINDS = [
+    ("edge-stream attention K3/K4 (edge_attention.cu)",
+     ("edge_kernel", "row_reduce_kernel", "agg_kernel")),
+    ("edge-stream SpMM K1 (edge_stream.cu)", ("edge_stream_kernel",)),
+    ("dense matmuls (cuBLAS / CUTLASS)",
+     ("gemm", "gemv", "nvjet", "cutlass", "xmma", "sm90_")),
+]
 
 
 def main() -> int:
@@ -94,6 +107,14 @@ def main() -> int:
           f"{split[2] / n * 1e3:.3f} ms")
     print(f"device busy {busy / n * 1e3:.3f} ms/step = "
           f"{busy / wall:.3f} of wall (idle {1 - busy / wall:.3f})")
+    kinds = collections.Counter()
+    for name, us in by_name.items():
+        kind = next((k for k, pats in KINDS
+                     if any(p in name for p in pats)), "everything else")
+        kinds[kind] += us
+    print("device time per step by kind:")
+    for kind, us in kinds.most_common():
+        print(f"  {us / n / 1e3:9.4f} ms  {us / 1e6 / busy:6.3f}  {kind}")
     print("kernels by device time per step:")
     for name, us in by_name.most_common(25):
         print(f"  {us / n / 1e3:9.4f} ms  {us / 1e6 / busy:6.3f}  "
