@@ -9,33 +9,47 @@ Phases (any failure exits non-zero without the final result line):
 2. build every CUDA kernel of the port from ``gnn_tpu_torch/csrc`` (one
    nvcc per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card at the
-   main paths' shapes, taken from one batch of the default configuration
-   (synthetic 100k nodes / degree 50 / 602 features / 41 classes, batch
-   2048, samp_num 8192, orders 1,1,1, hot_k 16384; GraphSAGE and GAT
-   sample the same row-normalized graph, so their batches are the same):
-   the edge-stream SpMM (K1) forward and transpose at each aggregating
-   layer's width, plus one per-edge-values case; the four edge-stream
-   attention kernels (K3 row max, K4 terms, bwd_q, bwd_kv) at each GAT
-   layer's width (512, one head), plus one 4-head case and one case at
-   50x magnitudes. Each case prints its error, the kernel's time (CUDA
-   events), the plain version's time, the bound (the larger of the bytes
-   over the memory rate and the float32 flops over the float32 rate) and,
-   for K1, the time of ``torch.sparse.mm`` over a CSR of the same
-   weighted edges (a yardstick the port never calls);
+   main paths' shapes. The resident paths' shapes come from one batch of
+   the default configuration (synthetic 100k nodes / degree 50 / 602
+   features / 41 classes, batch 2048, samp_num 8192, orders 1,1,1, hot_k
+   16384; GraphSAGE and GAT sample the same row-normalized graph, so
+   their batches are the same): the edge-stream SpMM (K1) forward and
+   transpose at each aggregating layer's width, plus one per-edge-values
+   case; the four edge-stream attention kernels (K3 row max, K4 terms,
+   bwd_q, bwd_kv) at each GAT layer's width (512, one head), plus one
+   4-head case and one case at 50x magnitudes. The stream SpMM (K2) runs
+   at the three layers of one blocked batch (50k nodes / degree 30,
+   batch 512, samp_num 2048; widths 602 / 1024 / 1024) over ``block_*``
+   and over the transposed ``block_*_t``, and K2 in both orientations and
+   the stream SDDMM (K5) at GAT's tile layer of one default pattern batch
+   (2048 x 10240, all 1280 tiles, width 512), plus a 4-head case, a case
+   with empty row tiles and one with BlockedAdj padding tiles. Each case
+   prints its error, the kernel's time (CUDA events), the plain version's
+   time, the bound (the larger of the bytes over the memory rate and the
+   float32 flops over the float32 rate) and, where one PyTorch call
+   computes the same function, that call's time (a yardstick the port
+   never calls): ``torch.sparse.mm`` over a CSR of K1's weighted edges,
+   over a BSR of K2's tiles (a CSR of their nonzeros where the card's
+   PyTorch refuses BSR), ``torch.sparse.sampled_addmm`` over a CSR of
+   every entry of K5's tiles;
 4. a small input (3000 nodes) through the whole training path on the
-   card and on the CPU, for GraphSAGE and for GAT, where the CPU path is
-   the one the tests hold against the JAX package: the step losses must
-   agree;
-5. the main paths: ``gnn_tpu_torch.cli.main`` with its defaults plus
-   ``--n_devices 1 --epoch_num 1 --test`` (GraphSAGE), then the same with
-   ``--model gat`` — each one full-width epoch, the val pass and the full
-   test sweep, with every launch counter set to 0 just before the run and
-   read just after;
+   card and on the CPU, for GraphSAGE and GAT on the resident path,
+   GraphSAGE on the blocked format and GAT on the pattern transport (the
+   tile route on every layer), where the CPU path is the one the tests
+   hold against the JAX package: the step losses must agree;
+5. the main paths through ``gnn_tpu_torch.cli.main``, each with every
+   launch counter set to 0 just before the run and read just after: the
+   defaults plus ``--n_devices 1 --epoch_num 1 --test`` (GraphSAGE), the
+   same with ``--model gat``, ``--adj_format blocked`` on the 50k-node
+   graph (one epoch and the val pass, no test sweep: each batch packs
+   about 0.3 GB of tiles on the host), and ``--model gat --adj_format
+   pattern`` at the defaults (one epoch, val, test sweep);
 6. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import shutil
@@ -56,20 +70,41 @@ F32_FLOPS_PER_S = 67e12
 REL_TOL = 1e-4
 # step losses of the small-input run on the card vs on the CPU
 AGREE_RTOL = 1e-3
-KERNEL_SOURCES = ["edge_stream", "edge_attention"]
-REPLACES = "gnn_tpu/ops/pallas_edgestream.py:572"
-SOURCE = "gnn_tpu_torch/csrc/edge_stream.cu"
-# the edge-stream attention kernels: JSON name, launch-counter key, the
-# TPU kernel each replaces
-ATTN_SOURCE = "gnn_tpu_torch/csrc/edge_attention.cu"
-ATTN_KERNELS = [
-    ("cold_attention_rowmax", "rowmax", "gnn_tpu/ops/pallas_esattn.py:321"),
-    ("cold_attention_terms", "terms", "gnn_tpu/ops/pallas_esattn.py:429"),
-    ("cold_attention_terms.bwd_q", "bwd_q",
+KERNEL_SOURCES = ["edge_stream", "edge_attention", "stream_spmm"]
+# every kernel of the port: JSON name, (module, launch-counter key), its
+# source, the TPU kernel it replaces
+KERNELS = [
+    ("edge_stream_spmm.forward", ("edgestream", "forward"),
+     "gnn_tpu_torch/csrc/edge_stream.cu",
+     "gnn_tpu/ops/pallas_edgestream.py:572"),
+    ("edge_stream_spmm.transpose", ("edgestream", "transpose"),
+     "gnn_tpu_torch/csrc/edge_stream.cu",
+     "gnn_tpu/ops/pallas_edgestream.py:572"),
+    ("cold_attention_rowmax", ("esattn", "rowmax"),
+     "gnn_tpu_torch/csrc/edge_attention.cu",
+     "gnn_tpu/ops/pallas_esattn.py:321"),
+    ("cold_attention_terms", ("esattn", "terms"),
+     "gnn_tpu_torch/csrc/edge_attention.cu",
      "gnn_tpu/ops/pallas_esattn.py:429"),
-    ("cold_attention_terms.bwd_kv", "bwd_kv",
+    ("cold_attention_terms.bwd_q", ("esattn", "bwd_q"),
+     "gnn_tpu_torch/csrc/edge_attention.cu",
      "gnn_tpu/ops/pallas_esattn.py:429"),
+    ("cold_attention_terms.bwd_kv", ("esattn", "bwd_kv"),
+     "gnn_tpu_torch/csrc/edge_attention.cu",
+     "gnn_tpu/ops/pallas_esattn.py:429"),
+    ("stream_spmm.forward", ("spmm", "forward"),
+     "gnn_tpu_torch/csrc/stream_spmm.cu", "gnn_tpu/ops/pallas_spmm.py:132"),
+    ("stream_spmm.transpose", ("spmm", "transpose"),
+     "gnn_tpu_torch/csrc/stream_spmm.cu", "gnn_tpu/ops/pallas_spmm.py:132"),
+    ("stream_sddmm", ("sddmm", "sddmm"),
+     "gnn_tpu_torch/csrc/stream_spmm.cu", "gnn_tpu/ops/pallas_sddmm.py:36"),
 ]
+ATTN_KEYS = ["rowmax", "terms", "bwd_q", "bwd_kv"]
+# the blocked main path: the JAX package's records' smaller configuration
+# for this format (50k nodes, samp_num 2048)
+BLOCKED_ARGS = ["--adj_format", "blocked", "--dataset",
+                "synthetic:nodes=50000,deg=30", "--samp_num", "2048",
+                "--batch_size", "512"]
 
 
 def log(msg):
@@ -155,8 +190,39 @@ def main_path_batch(save_dir, device):
     adjs = prepare_adjs(batch, ResidentGraph.from_host(host, device))
     widths = [graph.feats.shape[1]] + [(1 + o) * a.nhid
                                        for o in orders[:-1]]
+    # the same targets on the pattern transport (GAT's tile layer)
+    pcfg = SamplerConfig(batch_size=a.batch_size, samp_num=a.samp_num,
+                         orders=orders, num_nodes=lap.shape[0],
+                         num_classes=graph.num_classes, adj_format="pattern")
+    pattern = to_device_batch(ladies_sample(
+        pcfg, 7, tgt[: a.batch_size], lap, graph.labels), device).adjs
     del dense, dense_t, host
-    return adjs, widths
+    return adjs, widths, pattern
+
+
+def blocked_batch(device):
+    """One batch of the blocked main path (``BLOCKED_ARGS``) on the
+    device, and its layers' widths."""
+    import numpy as np
+
+    from gnn_tpu_torch import cli
+    from gnn_tpu_torch.data.loaders import load_dataset
+    from gnn_tpu_torch.sampling.ladies import SamplerConfig, ladies_sample
+    from gnn_tpu_torch.train.stepfns import to_device_batch
+    from gnn_tpu_torch.utils.normalize import build_laplacian
+
+    a = cli.build_parser().parse_args(BLOCKED_ARGS)
+    orders = tuple(int(t) for t in a.orders.split(","))
+    graph = load_dataset(a.dataset, a.data_dir)
+    lap = build_laplacian(graph.adj_full, a.model)
+    cfg = SamplerConfig(batch_size=a.batch_size, samp_num=a.samp_num,
+                        orders=orders, num_nodes=lap.shape[0],
+                        num_classes=graph.num_classes, adj_format="blocked")
+    tgt = np.random.default_rng(1).permutation(graph.train_nodes)
+    mb = ladies_sample(cfg, 7, tgt[: a.batch_size], lap, graph.labels)
+    widths = [graph.feats.shape[1]] + [(1 + o) * a.nhid
+                                       for o in orders[:-1]]
+    return to_device_batch(mb, device).adjs, widths
 
 
 def check_edge_stream(adjs, widths, device):
@@ -267,7 +333,7 @@ def check_attention(adjs, device, nhid):
     gen = torch.Generator(device=device).manual_seed(1)
     totals = {key: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
                         max_rel_err=0.0, bytes=0.0, flops=0.0)
-              for _, key, _ in ATTN_KERNELS}
+              for key in ATTN_KEYS}
     cases = [(f"layer{l}", adj, 1, 1.0) for l, adj in enumerate(adjs)]
     cases += [("layer1 H=4", adjs[1], 4, 1.0), ("layer1 x50", adjs[1], 1,
                                                 50.0)]
@@ -313,7 +379,7 @@ def check_attention(adjs, device, nhid):
                         6 * e * n),
               "bwd_kv": (qkv + 4 * (2 * R * H + R * n) + 4 * nb
                          + 8 * C * n, 8 * e * n)}
-        for _, key, _ in ATTN_KERNELS:
+        for key in ATTN_KEYS:
             kern, plain = fns[key]
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -359,13 +425,181 @@ def check_attention(adjs, device, nhid):
     return totals
 
 
-def check_agreement(model):
+def _library_spmm(dense, bm, bk, x):
+    """The yardstick for K2: one ``torch.sparse.mm`` over a BSR tensor of
+    the same ``(bm, bk)`` tiles, or over a CSR of their nonzeros where the
+    card's PyTorch refuses BSR. Returns ``(fn, label)``."""
+    import torch
+    try:
+        bsr = dense.to_sparse_bsr((bm, bk))
+        torch.sparse.mm(bsr, x)
+        torch.cuda.synchronize()
+        return (lambda: torch.sparse.mm(bsr, x)), "BSR"
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        log(f"  (torch.sparse.mm refuses BSR here: {str(e)[:100]}; CSR)")
+        torch.cuda.synchronize()
+        csr = dense.to_sparse_csr()
+        return (lambda: torch.sparse.mm(csr, x)), "CSR"
+
+
+def _stream_dense(stream, transpose):
+    """The stream's matrix (or its transpose), dense, on its device."""
+    import torch
+    n_rt, n_ct = stream.nrows // stream.bm, stream.ncols // stream.bk
+    d = torch.zeros((n_rt, n_ct, stream.bm, stream.bk),
+                    device=stream.vals.device)
+    rc = stream.blk_rc.long()
+    d.index_put_((rc >> 16, rc & 0xFFFF), stream.vals, accumulate=True)
+    d = d.permute(0, 2, 1, 3).reshape(stream.nrows, stream.ncols)
+    return d.t().contiguous() if transpose else d
+
+
+def check_tile_kernels(blocked, bwidths, pattern, device, nhid):
+    """Phase 3: the stream SpMM (K2, both orientations) and SDDMM (K5)
+    against their plain versions: at the three blocked layers over
+    ``block_*`` and over ``block_*_t``; at GAT's tile layer of one default
+    pattern batch (attention-like tile values: the layer's 0/1 mask times
+    positive random numbers), one head and four; a stream whose odd row
+    tiles have no entry; a blocked layer with padding tiles. Returns, per
+    kernel, the per-step sums over one step of each main path that runs
+    it (``mult`` = launches of that case per step)."""
+    import torch
+
+    from gnn_tpu_torch.models.gat import _coo_to_tilewise
+    from gnn_tpu_torch.ops import sddmm as tsd
+    from gnn_tpu_torch.ops import spmm as tsm
+    gen = torch.Generator(device=device).manual_seed(2)
+    names = ("stream_spmm.forward", "stream_spmm.transpose", "stream_sddmm")
+    totals = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                      max_abs_err=0.0, bytes=0.0, flops=0.0) for n in names}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    cases = []   # (label, kernel name, stream, F, transpose, mult)
+    for l, (adj, f) in enumerate(zip(blocked, bwidths)):
+        for t, (cols, vals, bm, bk) in enumerate(
+                ((adj.block_cols, adj.block_vals, adj.bm, adj.bk),
+                 (adj.block_cols_t, adj.block_vals_t, adj.bk, adj.bm))):
+            rc, v = tsm._blocked_to_stream_arrays(cols, vals)
+            nrows = cols.shape[0] * bm
+            ncols = adj.ncols if t == 0 else adj.nrows
+            # the backward runs over block_*_t on layers 1 and 2 only (the
+            # features take no gradient)
+            mult = 1 if t == 0 or l > 0 else 0
+            cases.append((f"blocked L{l} {'block_*' if t == 0 else 'block_*_t'}",
+                          "stream_spmm.forward",
+                          tsm.StreamBlocks(blk_rc=rc, vals=v, nrows=nrows,
+                                           ncols=ncols, bm=bm, bk=bk),
+                          f, False, mult))
+    top = pattern[-1]
+    blk_rc, t_order, mask = _coo_to_tilewise(top)
+    att = mask * (torch.rand(mask.shape, generator=gen, device=device)
+                  + 0.5) / 64.0
+    gat = tsm.StreamBlocks(blk_rc=blk_rc, vals=att, nrows=top.nrows,
+                           ncols=top.ncols, bm=128, bk=128, t_order=t_order)
+    for heads in (1, 4):
+        f = nhid // heads
+        main = 2 if heads == 1 else 0   # launches per step of each
+        cases.append((f"GAT tile H={heads}", "stream_spmm.forward", gat, f,
+                      False, main))
+        cases.append((f"GAT tile H={heads}", "stream_spmm.transpose", gat, f,
+                      True, main))
+        cases.append((f"GAT tile H={heads}", "stream_sddmm", gat, f, False,
+                      main))
+    # every odd row tile without an entry: those rows must read 0
+    keep = ((blk_rc >> 16) % 2) == 0
+    holes = tsm.StreamBlocks(blk_rc=blk_rc[keep].contiguous(),
+                             vals=att[keep].contiguous(), nrows=top.nrows,
+                             ncols=top.ncols, bm=128, bk=128)
+    cases.append(("empty row tiles", "stream_spmm.forward", holes, nhid,
+                  False, 0))
+    cases.append(("empty row tiles", "stream_spmm.transpose", holes, nhid,
+                  True, 0))
+    # BlockedAdj padding: three more zero tiles at column tile 0 per row
+    b2 = blocked[2]
+    n_rt = b2.block_cols.shape[0]
+    rc, v = tsm._blocked_to_stream_arrays(
+        torch.cat([b2.block_cols, b2.block_cols.new_zeros((n_rt, 3))], 1),
+        torch.cat([b2.block_vals,
+                   b2.block_vals.new_zeros((n_rt, 3, b2.bm, b2.bk))], 1))
+    cases.append(("blocked L2 + 3 pad tiles/row", "stream_spmm.forward",
+                  tsm.StreamBlocks(blk_rc=rc, vals=v, nrows=b2.nrows,
+                                   ncols=b2.ncols, bm=b2.bm, bk=b2.bk),
+                  bwidths[2], False, 0))
+
+    for label, name, st, f, transpose, mult in cases:
+        nb, bm, bk = st.blk_rc.shape[0], st.bm, st.bk
+        if name == "stream_sddmm":
+            xa, ya = rnd(st.nrows, f), rnd(st.ncols, f)
+            kern = lambda: tsd.stream_sddmm(st.blk_rc, xa, ya, bm, bk)
+            plain = lambda: tsd.sddmm_reference(st.blk_rc, xa, ya, bm, bk)
+            nbytes = 4 * nb + 4 * (st.nrows + st.ncols) * f + 4 * nb * bm * bk
+            # every entry of the tiles, as a CSR for sampled_addmm
+            occ = torch.zeros((st.nrows // bm, st.ncols // bk), device=device)
+            rc = st.blk_rc.long()
+            occ[rc >> 16, rc & 0xFFFF] = 1.0
+            pat = occ.repeat_interleave(bm, 0).repeat_interleave(bk, 1)
+            csr = pat.to_sparse_csr()
+            del pat, occ
+            yt = ya.t()
+            lib = lambda: torch.sparse.sampled_addmm(csr, xa, yt, beta=0.0)
+            lib_label = "sampled_addmm"
+        else:
+            n_in = st.nrows if transpose else st.ncols
+            n_out = st.ncols if transpose else st.nrows
+            xa = rnd(n_in, f)
+            kern = lambda: tsm.stream_spmm(st, xa, transpose)
+            plain = lambda: tsm.stream_spmm_ref(st, xa, transpose)
+            nbytes = (4 * nb * bm * bk + 4 * nb * (2 if transpose else 1)
+                      + 4 * (n_in + n_out) * f)
+            dense = _stream_dense(st, transpose)
+            lib, lib_label = _library_spmm(dense, bk if transpose else bm,
+                                           bm if transpose else bk, xa)
+            del dense
+        flops = 2 * nb * bm * bk * f
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel = _max_err(got, want, label, name)
+        if label == "empty row tiles" and not transpose:
+            odd = got.reshape(-1, 128, f)[1::2]
+            if torch.count_nonzero(odd):
+                fail(f"{name} {label}: rows of row tiles without an entry "
+                     f"are not 0")
+        del got, want
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, reps=3)
+        library_ms = time_ms(lib, reps=3)
+        t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+        t_flops = flops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_flops)
+        log(f"{name:21s} {label:28s} {'T' if transpose else ' '} "
+            f"R={st.nrows} C={st.ncols} F={f} tiles={nb} "
+            f"max_abs_err={err:.3e} max_rel_err={rel:.3e} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+            f"({lib_label}) bound_ms={bound_ms:.4f} "
+            f"({'bytes' if t_bytes >= t_flops else 'operations'})")
+        tot = totals[name]
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        tot["ms"] += mult * ms
+        tot["plain_ms"] += mult * plain_ms
+        tot["library_ms"] += mult * library_ms
+        tot["bound_ms"] += mult * bound_ms
+        tot["bytes"] += mult * t_bytes
+        tot["flops"] += mult * t_flops
+        if name == "stream_sddmm":
+            del csr
+        torch.cuda.empty_cache()
+    return totals
+
+
+def check_agreement(model, adj_format="resident"):
     """Phase 4: a small input through the port's whole training path on
     the card (CUDA kernels, cuBLAS) and on the CPU (plain versions — the
     path the CPU tests hold against the JAX package): same batches, same
-    initial weights, dropout 0, float32 hot block, stream tiles on. The
-    step losses must agree to AGREE_RTOL (float32 sums in another order,
-    carried through Adam steps)."""
+    initial weights, dropout 0; on the resident path a float32 hot block
+    with stream tiles on. The step losses must agree to AGREE_RTOL
+    (float32 sums in another order, carried through Adam steps)."""
     import numpy as np
     import torch
 
@@ -381,22 +615,26 @@ def check_agreement(model):
 
     g = make_powerlaw_graph(3000, 12, 40, 7, seed=0)
     lap = build_laplacian(g.adj_full, model)
+    resident = adj_format == "resident"
     spec = HotSpec.from_sample_prob(
-        compute_sample_prob(lap, g.train_nodes, 2), 512)
+        compute_sample_prob(lap, g.train_nodes, 2), 512) if resident \
+        else None
     out = {}
     for dev in ("cuda", "cpu"):
-        d, dt = build_hot_dense(lap, spec, torch.float32, dev)
+        rg = None
+        if resident:
+            d, dt = build_hot_dense(lap, spec, torch.float32, dev)
+            rg = build_resident_graph(lap, spec, d, dt)
         cfg = SamplerConfig(batch_size=128, samp_num=256, orders=(1, 1),
                             num_nodes=lap.shape[0], num_classes=7,
-                            adj_format="resident", hot_spec=spec,
-                            resident_val_free=True,
-                            resident_stream_tiles=True)
+                            adj_format=adj_format, hot_spec=spec,
+                            resident_val_free=resident,
+                            resident_stream_tiles=resident)
         pipe = BatchPipeline(cfg, lap, g.labels, pool_num=2, seed=0)
         net = build_model(model, 64, (1, 1), 7, n_feats=40, dropout=0.0,
                           seed=0)
         tr = Trainer(net, pipe, g.feats, lr=0.01, sigmoid_loss=False,
-                     resident_graph=build_resident_graph(lap, spec, d, dt),
-                     device=dev)
+                     resident_graph=rg, device=dev)
         try:
             m = tr.train_epoch(g.train_nodes, epoch=0)
             f1, vloss = tr.evaluate(g.valid_nodes, 128, "val")
@@ -405,7 +643,8 @@ def check_agreement(model):
         out[dev] = (np.asarray(m.step_losses), f1, vloss)
     lc, lp = out["cuda"][0], out["cpu"][0]
     rel = float(np.max(np.abs(lc - lp) / np.abs(lp)))
-    log(f"agreement {model} (3000 nodes, {len(lc)} steps): cuda losses "
+    log(f"agreement {model} {adj_format} (3000 nodes, {len(lc)} steps): "
+        f"cuda losses "
         f"{lc[0]:.5f}..{lc[-1]:.5f}, cpu {lp[0]:.5f}..{lp[-1]:.5f}, max "
         f"rel diff {rel:.2e}; val F1 cuda {out['cuda'][1]:.4f} cpu "
         f"{out['cpu'][1]:.4f}; val loss cuda {out['cuda'][2]:.5f} cpu "
@@ -417,79 +656,92 @@ def check_agreement(model):
         fail(f"{model}: small-input loss did not fall: {lc}")
 
 
-# the kernel launches each main path needs per training step
-PER_STEP = {
-    "graphsage": {"forward": 3, "transpose": 2},
-    "gat": {"rowmax": 3, "terms": 3, "bwd_q": 3, "bwd_kv": 3},
-}
+# the main paths: CLI arguments, and the kernel launches each needs per
+# training step (the blocked path runs K2's forward orientation 3 times
+# forward and twice over the transposed blocks in the backward)
+MAIN_PATHS = [
+    ("graphsage", ["--test"],
+     {"edge_stream_spmm.forward": 3, "edge_stream_spmm.transpose": 2}),
+    ("gat", ["--model", "gat", "--test"],
+     {"cold_attention_rowmax": 3, "cold_attention_terms": 3,
+      "cold_attention_terms.bwd_q": 3, "cold_attention_terms.bwd_kv": 3}),
+    ("blocked", BLOCKED_ARGS, {"stream_spmm.forward": 5}),
+    ("gat pattern", ["--model", "gat", "--adj_format", "pattern", "--test"],
+     {"stream_sddmm": 2, "stream_spmm.forward": 2,
+      "stream_spmm.transpose": 2}),
+]
 
 
-def run_main_path(save_dir, model):
-    """Phase 5: the default CLI run of ``model``, one epoch + val + test
-    sweep, with every launch counter set to 0 just before and read just
-    after; returns its kernel launch counts."""
+def _counters():
+    """JSON name -> (launch Counter, key) of every kernel."""
+    return {name: (importlib.import_module(
+        f"gnn_tpu_torch.ops.{mod}").launches, key)
+        for name, (mod, key), _, _ in KERNELS}
+
+
+def run_main_path(save_dir, label, argv, per_step):
+    """Phase 5: one CLI run (one epoch + val, + the test sweep where
+    ``argv`` asks for it), with every launch counter set to 0 just before
+    and read just after; returns its kernel launch counts by JSON name."""
     import math
 
     import torch
 
     from gnn_tpu_torch import cli
-    from gnn_tpu_torch.ops import edgestream, esattn
 
     metrics = os.path.join(save_dir, "metrics.jsonl")
     n_before = sum(1 for _ in open(metrics)) if os.path.exists(metrics) else 0
-    edgestream.launches.clear()
-    esattn.launches.clear()
+    counters = _counters()
+    for c, _ in counters.values():
+        c.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rc = cli.main(["--model", model, "--n_devices", "1", "--epoch_num", "1",
-                   "--test", "--save_dir", save_dir])
+    rc = cli.main(argv + ["--n_devices", "1", "--epoch_num", "1",
+                          "--save_dir", save_dir])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    ours, others = ((edgestream, esattn) if model == "graphsage"
-                    else (esattn, edgestream))
-    counts, others = dict(ours.launches), dict(others.launches)
+    counts = {name: c[key] for name, (c, key) in counters.items()}
     if rc != 0:
-        fail(f"{model}: cli.main returned {rc}")
+        fail(f"{label}: cli.main returned {rc}")
     recs = [json.loads(l) for l in open(metrics)][n_before:]
     ep = next(r for r in recs if "step_losses" in r)
-    test_f1 = next(r["test_f1"] for r in recs if "test_f1" in r)
+    test_f1 = next((r["test_f1"] for r in recs if "test_f1" in r), None)
     losses, times = ep["step_losses"], ep["step_times"]
     steps = len(losses)
-    log(f"main path {model}: {steps} steps in {wall:.1f}s wall (set-up, "
-        f"epoch, val, test sweep)")
+    log(f"main path {label}: {steps} steps in {wall:.1f}s wall (set-up, "
+        f"epoch, val{', test sweep' if test_f1 is not None else ''})")
     log("step losses: " + " ".join(f"{v:.4f}" for v in losses))
     log("step seconds: " + " ".join(f"{v:.3f}" for v in times))
     steady = sorted(times[1:]) or times
     log(f"median step seconds (after the first): "
         f"{steady[len(steady) // 2]:.4f}")
-    log(f"val F1 {ep['valid_f1']:.4f}  val loss {ep['valid_loss']:.4f}  "
-        f"test F1 {test_f1:.4f}")
+    log(f"val F1 {ep['valid_f1']:.4f}  val loss {ep['valid_loss']:.4f}"
+        + (f"  test F1 {test_f1:.4f}" if test_f1 is not None else ""))
     log(f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    log(f"kernel launches on the {model} main path: {counts} "
-        f"(other kernels: {others})")
+    log(f"kernel launches on the {label} main path: "
+        f"{ {k: v for k, v in counts.items() if v} }")
     if steps == 0 or not all(math.isfinite(v) for v in losses):
-        fail(f"{model}: non-finite or missing losses: {losses}")
+        fail(f"{label}: non-finite or missing losses: {losses}")
     last5 = sum(losses[-5:]) / len(losses[-5:])
     if not last5 < losses[0]:
-        fail(f"{model}: loss did not fall: first {losses[0]}, last-5 mean "
+        fail(f"{label}: loss did not fall: first {losses[0]}, last-5 mean "
              f"{last5}")
-    for key, per_step in PER_STEP[model].items():
-        if counts.get(key, 0) < per_step * steps:
-            fail(f"{model}: {key} launches {counts.get(key, 0)} < "
-                 f"{per_step} x {steps}")
-    if not (0.0 <= test_f1 <= 1.0):
-        fail(f"{model}: test F1 out of range: {test_f1}")
+    for name, n in per_step.items():
+        if counts[name] < n * steps:
+            fail(f"{label}: {name} launches {counts[name]} < {n} x {steps}")
+    if test_f1 is not None and not (0.0 <= test_f1 <= 1.0):
+        fail(f"{label}: test F1 out of range: {test_f1}")
     return counts
 
 
-def _kernel_entry(name, source, replaces, launches, t, library_ms):
+def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": int(launches),
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": ("bytes" if t["bytes"] >= t["flops"]
                          else "operations"),
-            "library_ms": library_ms}
+            "library_ms": t.get("library_ms")}
 
 
 def main() -> int:
@@ -522,27 +774,37 @@ def main() -> int:
     log(f"kernel build: {secs:.1f}s "
         f"({ {k: round(v, 1) for k, v in cuda_build.BUILD_SECONDS.items()} })")
 
+    nhid = cli.build_parser().parse_args([]).nhid
     save_dir = tempfile.mkdtemp(prefix="gnn_tpu_torch_smoke_")
     try:
-        adjs, widths = main_path_batch(save_dir, device)
+        adjs, widths, pattern = main_path_batch(save_dir, device)
         k1 = check_edge_stream(adjs, widths, device)
-        attn = check_attention(adjs, device,
-                               cli.build_parser().parse_args([]).nhid)
+        attn = check_attention(adjs, device, nhid)
         del adjs
+        blocked, bwidths = blocked_batch(device)
+        tiles = check_tile_kernels(blocked, bwidths, pattern, device, nhid)
+        del blocked, pattern
         torch.cuda.empty_cache()
-        check_agreement("graphsage")
-        check_agreement("gat")
-        counts = {**run_main_path(save_dir, "graphsage"),
-                  **run_main_path(save_dir, "gat")}
+        for model, fmt in (("graphsage", "resident"), ("gat", "resident"),
+                           ("graphsage", "blocked"), ("gat", "pattern")):
+            check_agreement(model, fmt)
+        counts = dict.fromkeys((k[0] for k in KERNELS), 0)
+        for label, argv, per_step in MAIN_PATHS:
+            for name, n in run_main_path(save_dir, label, argv,
+                                         per_step).items():
+                counts[name] += n
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
 
-    kernels = [_kernel_entry(f"edge_stream_spmm.{d}", SOURCE, REPLACES,
-                             counts.get(d, 0), k1[d], k1[d]["library_ms"])
-               for d in ("forward", "transpose")]
-    kernels += [_kernel_entry(name, ATTN_SOURCE, replaces,
-                              counts.get(key, 0), attn[key], None)
-                for name, key, replaces in ATTN_KERNELS]
+    measured = {f"edge_stream_spmm.{d}": k1[d]
+                for d in ("forward", "transpose")}
+    measured.update({name: {**attn[key], "library_ms": None}
+                     for name, (_, key), _, _ in KERNELS
+                     if key in ATTN_KEYS})
+    measured.update(tiles)
+    kernels = [_kernel_entry(name, source, replaces, counts[name],
+                             measured[name])
+               for name, _, source, replaces in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

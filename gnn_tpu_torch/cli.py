@@ -12,7 +12,11 @@ orders 1,1,1, LADIES with samp_num 8192, batch 2048, sigmoid BCE, Adam
 through the edge-stream CUDA kernel (``--resident_stream auto`` = on for
 ``cuda``). ``--model gat`` trains the same path with hot-block attention
 and the edge-stream attention kernels for the cold residual (lr 0.002
-with a linear warmup). Flags whose paths are not ported yet raise
+with a linear warmup). ``--adj_format blocked`` ships dense tiles and
+aggregates them with the stream-SpMM kernel (K2); ``--model gat
+--adj_format pattern`` (or ``coo``) ships the edge pattern and runs the
+per-edge route or, where the layer's tile mask is small enough, the tile
+route (SDDMM K5 + K2). Flags whose paths are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -72,7 +76,10 @@ def build_parser() -> argparse.ArgumentParser:
                             "pattern"],
                    help="'resident' = device-resident hot block + cold "
                         "residual (default); 'coo' = index_add_ "
-                        "aggregation")
+                        "aggregation; 'blocked' = dense-tile stream "
+                        "(K2); 'pattern' = pattern-only edges for "
+                        "attention models (GAT default off the resident "
+                        "path)")
     p.add_argument("--hot_k", type=int, default=16384,
                    help="hot-subgraph size (top-K nodes by sample_prob)")
     p.add_argument("--resident_parts", type=int, default=0,
@@ -136,12 +143,8 @@ def _check_ported(args) -> None:
     multi = "multi-device over torch.distributed"
     resume = "resume, the locality tuner, op timing and profiling"
     todo = [
-        (args.adj_format in ("blocked", "hot", "pattern"),
-         f"--adj_format {args.adj_format}", formats),
+        (args.adj_format == "hot", "--adj_format hot", formats),
         (args.sampler == "subgraph", "--sampler subgraph", formats),
-        (args.model == "gat" and args.adj_format != "resident",
-         f"--model gat with --adj_format {args.adj_format}",
-         "the GAT tile route with K2"),
         (args.feature_cache, "--feature_cache", multi),
         (args.resident_parts > 1, "--resident_parts", multi),
         (args.n_devices > 1, "--n_devices > 1", multi),
@@ -157,6 +160,20 @@ def _check_ported(args) -> None:
             raise NotImplementedError(
                 f"{flag} is not ported to gnn_tpu_torch yet (ROADMAP: "
                 f"{item})")
+
+
+def resolve_adj_format(args) -> None:
+    """The JAX package's format rules: ``pattern`` is attention-only, and
+    GAT turns ``hot`` (whose shipped values it never reads) into
+    ``pattern``."""
+    if args.adj_format == "pattern" and args.model != "gat":
+        raise SystemExit("--adj_format pattern is attention-only (the "
+                         "aggregation weights are computed on device); "
+                         "use coo/hot/resident for graphsage/gcn/gin")
+    if args.model == "gat" and args.adj_format == "hot":
+        print("--model gat ships pattern-only edges; overriding "
+              "--adj_format hot -> pattern", flush=True)
+        args.adj_format = "pattern"
 
 
 def train(args):
@@ -176,6 +193,7 @@ def train(args):
     from gnn_tpu_torch.train.trainer import Trainer
     from gnn_tpu_torch.utils.normalize import build_laplacian
 
+    resolve_adj_format(args)
     _check_ported(args)
     device = resolve_device(args.device)
     orders = tuple(int(t) for t in args.orders.split(","))

@@ -5,7 +5,7 @@ A dot-product-attention GAT: per head, ``score(r, c) = (q_r · k_c) /
 sqrt(d)`` restricted to the sampled edges, a row-wise softmax, and the
 attention-weighted sum of ``v``; then ``elu(agg + self(x[sampled]))``.
 
-Two device strategies are ported:
+Three device strategies:
 
 * ``HotDenseAdj`` input (resident mode) — :func:`hot_attention_aggregate`:
   dense scores, softmax terms and aggregation over the resident block's
@@ -14,14 +14,21 @@ Two device strategies are ported:
   attention kernels K3/K4 (`gnn_tpu_torch.ops.esattn`) when the batch
   ships stream tiles, or the per-edge route on a cold COO, or nothing
   when the layer has no cold edge. One row-wise softmax spans both parts.
-* ``impl="edge"`` on a :class:`~gnn_tpu_torch.ops.sparse.COOAdj` —
-  :func:`edge_attention_aggregate`: per-edge gathers and segment ops,
-  O(nnz) memory.
+* ``impl="tile"`` — :func:`tile_attention_aggregate`: every ``(bm, bk)``
+  tile of the layer with a 0/1 edge mask, scores through the stream
+  SDDMM (K5), a row-wise softmax over each row tile's tiles, aggregation
+  through the stream SpMM (K2); the backward runs K5 and K2 in both
+  orientations (:class:`_TileScores`, :class:`_TileAggregate`).
+* ``impl="edge"`` — :func:`edge_attention_aggregate`: per-edge gathers
+  and segment ops, O(nnz) memory.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the tile route (``impl="tile"``, and ``"auto"`` where it resolves
-to it: it needs K2), the pattern-only transport (``PatternAdj``) and the
-part-sharded resident graph.
+``"auto"`` picks the tile route while the dense tile mask holds at most
+``_TILE_MASK_LIMIT`` floats. Both routes take a value-carrying
+:class:`~gnn_tpu_torch.ops.sparse.COOAdj`, the pattern-only
+:class:`~gnn_tpu_torch.ops.sparse.PatternAdj` or a
+:class:`~gnn_tpu_torch.ops.sparse.BlockedAdj`. The part-sharded resident
+graph is not ported yet and raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -35,7 +42,9 @@ from torch import nn
 from gnn_tpu_torch.models.gnn import Dense, _dropout
 from gnn_tpu_torch.ops import esattn
 from gnn_tpu_torch.ops.hotdense import HotDenseAdj, _take_rows_fill
-from gnn_tpu_torch.ops.sparse import COOAdj
+from gnn_tpu_torch.ops.sddmm import stream_sddmm
+from gnn_tpu_torch.ops.sparse import BlockedAdj, PatternAdj
+from gnn_tpu_torch.ops.spmm import StreamBlocks, stream_spmm
 
 # Per-edge chunk width of the per-edge routes: bounds the [chunk, n_out]
 # gather temporaries (the JAX package's lax.scan chunk)
@@ -46,10 +55,8 @@ _EDGE_CHUNK = 131_072
 _TILE_MASK_LIMIT = 64 * 1024 * 1024
 
 _NEG_INF = float("-inf")
-_TILE_ROUTE = ("GAT's tile route (impl='tile') is not ported yet (ROADMAP "
-               "queue 3: the GAT tile route with K2)")
 _SHARDED = ("part-sharded resident attention is not ported yet (ROADMAP "
-            "queue 4: multi-device over torch.distributed)")
+            "queue 3: multi-device over torch.distributed)")
 
 
 def _scale(d: int) -> float:
@@ -58,12 +65,17 @@ def _scale(d: int) -> float:
 
 
 def _edges_of(adj):
-    """``(rows, cols, live)`` of a value-carrying COO layer (live =
-    nonzero value)."""
-    if not isinstance(adj, COOAdj):
-        raise NotImplementedError(
-            f"GAT on {type(adj).__name__} is not ported yet (PatternAdj: "
-            f"ROADMAP queue 1: format leftovers and the subgraph sampler)")
+    """``(rows, cols, live)`` of a sampled layer: a value-carrying COO
+    (live = nonzero value), the pattern-only transport (rows re-expanded
+    from the per-row counts), or the blocked layout (every nonzero tile
+    entry, all live)."""
+    if isinstance(adj, PatternAdj):
+        return adj.expand()
+    if isinstance(adj, BlockedAdj):
+        rt, b, lr, lc = torch.nonzero(adj.block_vals, as_tuple=True)
+        rows = rt * adj.bm + lr
+        cols = adj.block_cols[rt, b].long() * adj.bk + lc
+        return rows, cols, torch.ones_like(rows, dtype=torch.bool)
     return adj.rows.long(), adj.cols.long(), adj.vals != 0
 
 
@@ -107,7 +119,7 @@ def _edge_aggregate(att, rows, cols, v, nrows, H):
 
 
 def edge_attention_aggregate(adj, q_pad, k, v, n_heads: int):
-    """Multi-head edge-softmax attention over a padded COO layer, O(nnz)
+    """Multi-head edge-softmax attention over a sampled layer, O(nnz)
     memory: per-edge scores, a segment softmax over each output row, and
     the per-edge aggregation."""
     H = n_heads
@@ -122,6 +134,129 @@ def edge_attention_aggregate(adj, q_pad, k, v, n_heads: int):
     denom = att.new_zeros((adj.nrows, H)).index_add(0, rows, att)
     att = att / denom.index_select(0, rows).clamp_min(1e-20)
     return _edge_aggregate(att, rows, cols, v, adj.nrows, H)
+
+
+def _coo_to_tilewise(adj, bm: int = 128, bk: int = 128):
+    """Every ``(bm, bk)`` tile of the layer, rt-major (``blk_rc`` int32
+    [n_rt * n_ct]), with its 0/1 edge mask ``[n_rt * n_ct, bm, bk]``
+    (float32), and ``t_order``, the same tiles in column-tile order. The
+    JAX package builds all tiles too: which ones are occupied is data it
+    cannot shape a traced array by."""
+    n_rt, n_ct = adj.nrows // bm, adj.ncols // bk
+    rows, cols, live = _edges_of(adj)
+    dev = rows.device
+    rt = torch.arange(n_rt, dtype=torch.int32, device=dev)
+    ct = torch.arange(n_ct, dtype=torch.int32, device=dev)
+    blk_rc = ((rt[:, None] << 16) | ct[None, :]).reshape(-1)
+    t_order = (rt[None, :] * n_ct + ct[:, None]).reshape(-1)
+    flat = ((((rows // bm) * n_ct + cols // bk) * bm + rows % bm) * bk
+            + cols % bk)
+    mask = torch.zeros(n_rt * n_ct * bm * bk, device=dev)
+    mask.scatter_reduce_(0, flat, live.float(), "amax")
+    return blk_rc, t_order, mask.reshape(n_rt * n_ct, bm, bk)
+
+
+def masked_tile_softmax(blk_rc, scores, mask, n_rt: int):
+    """Row-wise softmax over the edge scores of a tile stream
+    (``scores``/``mask`` [NB, bm, bk]); each row's max and sum reduce over
+    the tiles of its row tile. Rows with no live entry get all zeros
+    (their max reads as 0, their sum clamps to 1e-20). The max is a
+    softmax shift whose gradient cancels, so it stays out of the graph."""
+    rt = (blk_rc >> 16).long()
+    live = mask > 0
+    neg = torch.where(live, scores,
+                      torch.full((), _NEG_INF, device=scores.device))
+    bm = scores.shape[1]
+    row_max = torch.full((n_rt, bm), _NEG_INF, device=scores.device)
+    row_max = row_max.scatter_reduce(
+        0, rt[:, None].expand(-1, bm), neg.detach().amax(dim=2), "amax")
+    row_max = torch.where(torch.isfinite(row_max), row_max,
+                          torch.zeros((), device=scores.device))
+    # the masked entries are -inf before the exp: exp gives 0 and its
+    # gradient 0 * 0, never 0 * inf
+    shifted = torch.exp(neg - row_max.index_select(0, rt)[:, :, None])
+    shifted = torch.where(live, shifted,
+                          torch.zeros((), device=scores.device))
+    row_sum = scores.new_zeros((n_rt, bm)).index_add(0, rt,
+                                                     shifted.sum(dim=2))
+    denom = row_sum.index_select(0, rt)[:, :, None].clamp_min(1e-20)
+    return shifted / denom
+
+
+class _TileScores(torch.autograd.Function):
+    """``S = K5(q, k)`` on every tile of the stream; backward
+    ``dq = K2(dS, k)`` and ``dk = K2^T(dS, q)``."""
+
+    @staticmethod
+    def forward(ctx, blk_rc, t_order, q, k, bm: int, bk: int):
+        ctx.save_for_backward(blk_rc, t_order, q, k)
+        ctx.bm, ctx.bk = bm, bk
+        return stream_sddmm(blk_rc, q, k, bm, bk)
+
+    @staticmethod
+    def backward(ctx, ds):
+        blk_rc, t_order, q, k = ctx.saved_tensors
+        ds_stream = StreamBlocks(blk_rc=blk_rc, vals=ds.contiguous(),
+                                 nrows=q.shape[0], ncols=k.shape[0],
+                                 bm=ctx.bm, bk=ctx.bk, t_order=t_order)
+        dq = dk = None
+        if ctx.needs_input_grad[2]:
+            dq = stream_spmm(ds_stream, k)
+        if ctx.needs_input_grad[3]:
+            dk = stream_spmm(ds_stream, q, transpose=True)
+        return None, None, dq, dk, None, None
+
+
+class _TileAggregate(torch.autograd.Function):
+    """``y = K2(att, v)``; backward ``d att = K5(g, v)`` and
+    ``dv = K2^T(att, g)``."""
+
+    @staticmethod
+    def forward(ctx, blk_rc, t_order, att, v, nrows: int, bm: int,
+                bk: int):
+        ctx.save_for_backward(blk_rc, t_order, att, v)
+        ctx.nrows, ctx.bm, ctx.bk = nrows, bm, bk
+        return stream_spmm(StreamBlocks(blk_rc=blk_rc, vals=att,
+                                        nrows=nrows, ncols=v.shape[0],
+                                        bm=bm, bk=bk, t_order=t_order), v)
+
+    @staticmethod
+    def backward(ctx, g):
+        blk_rc, t_order, att, v = ctx.saved_tensors
+        g = g.contiguous()
+        d_att = dv = None
+        if ctx.needs_input_grad[2]:
+            d_att = stream_sddmm(blk_rc, g, v, ctx.bm, ctx.bk)
+        if ctx.needs_input_grad[3]:
+            dv = stream_spmm(StreamBlocks(blk_rc=blk_rc, vals=att,
+                                          nrows=ctx.nrows, ncols=v.shape[0],
+                                          bm=ctx.bm, bk=ctx.bk,
+                                          t_order=t_order), g,
+                             transpose=True)
+        return None, None, d_att, dv, None, None, None
+
+
+def tile_attention_aggregate(adj, q_pad, k, v, n_heads: int, bm: int = 128,
+                             bk: int = 128):
+    """Multi-head attention over every tile of a layer: per head, scores
+    through K5 (divided by ``sqrt(d)``), the masked tile softmax, and the
+    aggregation through K2; heads run one after another."""
+    H = n_heads
+    d = k.shape[1] // H
+    n_rt = adj.nrows // bm
+    blk_rc, t_order, mask = _coo_to_tilewise(adj, bm, bk)
+    sqrt_d = float(np.sqrt(np.float32(d)))
+    heads = []
+    for h in range(H):
+        cols = slice(h * d, (h + 1) * d)
+        scores = _TileScores.apply(blk_rc, t_order,
+                                   q_pad[:, cols].contiguous(),
+                                   k[:, cols].contiguous(), bm, bk) / sqrt_d
+        att = masked_tile_softmax(blk_rc, scores, mask, n_rt)
+        heads.append(_TileAggregate.apply(blk_rc, t_order, att,
+                                          v[:, cols].contiguous(),
+                                          adj.nrows, bm, bk))
+    return heads[0] if H == 1 else torch.cat(heads, dim=1)
 
 
 def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
@@ -261,9 +396,13 @@ class GATConv(nn.Module):
                 n_tiles = (adj.nrows // self.bm) * (adj.ncols // self.bk)
                 impl = ("tile" if n_tiles * self.bm * self.bk
                         <= _TILE_MASK_LIMIT else "edge")
-            if impl != "edge":
-                raise NotImplementedError(_TILE_ROUTE)
-            agg = edge_attention_aggregate(adj, q_pad, k, v, self.n_heads)
+            if impl == "edge":
+                agg = edge_attention_aggregate(adj, q_pad, k, v,
+                                               self.n_heads)
+            else:
+                agg = tile_attention_aggregate(adj, q_pad, k, v,
+                                               self.n_heads, self.bm,
+                                               self.bk)
         return F.elu(agg + self.self(x.index_select(0, sampled)))
 
 

@@ -12,7 +12,7 @@ layer's LADIES debias vector and the cold residual ship
 Two payloads of the default "lite" mode are ported: the edge-stream tile
 payload (packed coords for the CUDA kernel) and the forward cold COO.
 Full expansion (``ship_cold=False``) and the part-sharded resident graph
-wait (ROADMAP queue 1).
+wait (ROADMAP queues 1 and 3).
 
 PyTorch has no counterpart of JAX's out-of-range index modes, so they
 are spelled out: ``mode="fill"`` lookups index a table with one extra

@@ -4,7 +4,7 @@
 :class:`ReplicatedFeatures` keeps the whole feature table on the card
 and gathers each batch's input rows with ``index_select``. The
 placement-driven sharded cache waits for the multi-device slice
-(ROADMAP queue 1).
+(ROADMAP queue 3).
 """
 from __future__ import annotations
 

@@ -11,7 +11,9 @@ produce bit-identical batches from one seed. The native C++ core and the
 numpy fallback draw DIFFERENT numbers (each is deterministic), so batch
 identity with the JAX package needs both on the same path.
 
-The subgraph sampler is not ported yet (ROADMAP queue 1).
+Formats: ``coo``, ``blocked`` (tiled, K2), ``pattern`` (GAT's
+pattern-only transport) and ``resident``. ``hot`` and the subgraph
+sampler are not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -70,7 +72,7 @@ class SamplerConfig:
     num_classes: int
     sampler: str = "ladies"
     scale_factor: float = 1.0
-    adj_format: str = "coo"        # 'coo' | 'resident'
+    adj_format: str = "coo"   # 'coo' | 'blocked' | 'pattern' | 'resident'
     hot_spec: Optional[object] = dataclasses.field(
         default=None, repr=False, compare=False)
     node_pad_multiple: int = 128
@@ -82,6 +84,9 @@ class SamplerConfig:
     resident_val_free: bool = False
     # ship the cold residual as packed tiles for the edge-stream kernel
     resident_stream_tiles: bool = False
+    # tile shape of the blocked format
+    bm: int = 128
+    bk: int = 128
 
     def layer_caps(self) -> List[int]:
         """Static per-level node-count caps, bottom-up (level L = the
@@ -160,6 +165,16 @@ def _pack_adj(cfg: SamplerConfig, rows, cols, vals, n_rows, n_cols,
                                  val_free=cfg.resident_val_free,
                                  stream_tiles=cfg.resident_stream_tiles,
                                  tiles_pre=tiles_pre)
+    if cfg.adj_format == "pattern":
+        # attention transport: values never ship (GAT computes per-edge
+        # scores on the device); cols int16 + per-row counts only
+        nnz_pad = bucket_size(max(len(rows), 1))
+        return sparse_ops.pack_pattern(rows, cols, n_rows, n_cols,
+                                       r_cap, c_cap, nnz_pad,
+                                       compress=cfg.compress)
+    if cfg.adj_format == "blocked":
+        return sparse_ops.pack_blocked(rows, cols, vals, n_rows, n_cols,
+                                       r_cap, c_cap, bm=cfg.bm, bk=cfg.bk)
     if cfg.adj_format == "coo":
         nnz_pad = bucket_size(max(len(rows), 1))
         return sparse_ops.pack_coo(rows, cols, vals, n_rows, n_cols,

@@ -1,6 +1,6 @@
 """Metrics registry / structured logging and the per-epoch metrics
 record: the counterpart of `gnn_tpu.train.metrics` (the locality
-scale-factor tuner waits, ROADMAP queue 1).
+scale-factor tuner waits, ROADMAP queue 2).
 
 The reference's observability is one per-epoch print
 (``main.py:196``); the registry keeps the same measurements as

@@ -19,7 +19,8 @@ from gnn_tpu_torch.sampling.ladies import MiniBatch
 class DeviceBatch:
     """The device-side slice of a :class:`MiniBatch`."""
 
-    adjs: list                  # per-layer COOAdj | ResidentLayerRef | None
+    # per-layer COOAdj | BlockedAdj | PatternAdj | ResidentLayerRef | None
+    adjs: list
     sampled_nodes: list         # int32 [R_cap_l] per layer
     input_nodes: torch.Tensor   # int32 [C_cap_0]
     input_mask: torch.Tensor    # f32 [C_cap_0]
@@ -28,6 +29,9 @@ class DeviceBatch:
 
 
 def to_device_batch(mb: MiniBatch, device) -> DeviceBatch:
+    """Copy a host batch to ``device``: every adjacency's numpy arrays
+    become tensors of the same dtype (int16 cols stay int16), 0-d counts
+    Python ints."""
     def t(a):
         return torch.from_numpy(a).to(device)
     return DeviceBatch(
@@ -39,7 +43,7 @@ def to_device_batch(mb: MiniBatch, device) -> DeviceBatch:
 
 def prepare_adjs(batch: DeviceBatch, resident_graph) -> List[object]:
     """The batch's adjacency list: rebuilt from the device-resident
-    graph in resident mode, else as shipped (COO)."""
+    graph in resident mode, else as shipped (COO, blocked, pattern)."""
     if resident_graph is not None:
         from gnn_tpu_torch.ops.residentgraph import materialize_adjs
         return materialize_adjs(resident_graph, batch.adjs,

@@ -1,6 +1,7 @@
 """The port's CLI (gnn_tpu_torch.cli): the JAX package's flags and
-defaults plus ``--device``, a one-epoch CPU run end to end, and
-``NotImplementedError`` for the flags whose paths are not ported."""
+defaults plus ``--device``, CPU runs end to end on every ported format,
+the JAX package's format rules, and ``NotImplementedError`` for the flags
+whose paths are not ported."""
 import json
 import math
 import os
@@ -85,9 +86,38 @@ def test_gat_trains_one_epoch_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--adj_format", "blocked"], ["--adj_format", "hot"],
-    ["--adj_format", "pattern"], ["--model", "gat", "--adj_format", "coo"],
-    ["--sampler", "subgraph"], ["--feature_cache"],
+    ["--adj_format", "blocked"], ["--model", "gat", "--adj_format", "pattern"],
+    ["--model", "gat", "--adj_format", "coo"]])
+def test_ported_formats_train(tmp_path, flag):
+    """The tile-stream formats on the CPU (K2/K5's plain versions): two
+    epochs with finite, falling losses."""
+    save = str(tmp_path / "save")
+    assert tcli.main(TINY + ["--device", "cpu", "--epoch_num", "2",
+                             "--save_dir", save] + flag) == 0
+    recs = [json.loads(l) for l in open(os.path.join(save,
+                                                     "metrics.jsonl"))]
+    losses = recs[0]["step_losses"] + recs[1]["step_losses"]
+    assert len(losses) == 2 * math.ceil(720 / 64)
+    assert all(math.isfinite(v) for v in losses)
+    assert recs[1]["train_loss"] < recs[0]["train_loss"]
+
+
+def test_format_rules_match_jax(tmp_path, capsys):
+    """``--model gat --adj_format hot`` becomes ``pattern``, as in the JAX
+    CLI; ``pattern`` without an attention model exits with its
+    message."""
+    args = tcli.build_parser().parse_args(["--model", "gat", "--adj_format",
+                                           "hot"])
+    tcli.resolve_adj_format(args)
+    assert args.adj_format == "pattern"
+    assert "overriding --adj_format hot -> pattern" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="attention-only"):
+        tcli.main(TINY + ["--device", "cpu", "--save_dir", str(tmp_path),
+                          "--adj_format", "pattern"])
+
+
+@pytest.mark.parametrize("flag", [
+    ["--adj_format", "hot"], ["--sampler", "subgraph"], ["--feature_cache"],
     ["--resident_parts", "2"], ["--n_devices", "2"],
     ["--steps_per_dispatch", "4"], ["--locality_sampling"], ["--resume"],
     ["--profile_dir", "prof"], ["--op_timing"]])

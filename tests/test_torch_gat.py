@@ -12,6 +12,11 @@ copied from flax by ``params_from_flax``.
 * Twins of the JAX package's regression tests: finite gradients at 50x
   magnitudes, a fully hot layer, one hot score matmul per forward.
 * The per-edge route on a COO layer against the JAX per-edge route.
+* The tile route (K5 and K2's plain versions) on a COO and a pattern
+  layer against the JAX tile route, heads 1 and 4, same tolerances;
+  ``"auto"`` picks the JAX route on both sides of the mask limit; the
+  pattern and blocked transports give the COO result (1e-5); finite
+  gradients at 50x magnitudes.
 """
 import dataclasses
 
@@ -230,20 +235,137 @@ def test_edge_route_matches_jax(small_graph, heads):
                                    err_msg=name)
 
 
-def test_unported_routes_raise(small_graph):
-    """The tile route (K2), "auto" where it resolves to it, and a
-    part-sharded resident layer raise NotImplementedError naming the
-    ROADMAP."""
+def _sampled_layer(graph, seed=11):
+    """Layer 0 of one sampled COO batch (JAX sampler, native core) as
+    host arrays: ``(rows, cols, vals, n_valid_rows, n_valid_cols, nrows,
+    ncols)`` of its live edges, and the layer's sampled nodes."""
+    lap = build_laplacian(graph.adj_full, "graphsage")
+    cfg = jlad.SamplerConfig(batch_size=64, samp_num=128, orders=(1, 1),
+                             num_nodes=lap.shape[0],
+                             num_classes=graph.num_classes, compress=False)
+    mb = jlad.ladies_sample(cfg, seed, graph.train_nodes[:64], lap,
+                            graph.labels)
+    a = mb.adjs[0]
+    vals = np.asarray(a.vals)
+    n = int(np.count_nonzero(vals))
+    args = (np.asarray(a.rows)[:n], np.asarray(a.cols)[:n], vals[:n],
+            int(a.n_valid_rows), int(a.n_valid_cols), a.nrows, a.ncols)
+    return args, np.asarray(mb.sampled_nodes[0])
+
+
+def _packed(args, transport):
+    """The same edges packed by both packages: ``(jax adj, port adj)``
+    (``blocked`` exists on the port side only: the JAX GAT does not take
+    it)."""
+    from gnn_tpu.ops import sparse as jsp
     from gnn_tpu_torch.ops import sparse as tsp
-    coo = tsp.to_device(tsp.pack_coo(
-        np.arange(4, dtype=np.int32), np.arange(4, dtype=np.int32),
-        np.ones(4, np.float32), 4, 4, 128, 128), "cpu")
-    x = torch.randn(128, 8)
-    sampled = torch.arange(128, dtype=torch.int32)
-    for impl in ("tile", "auto"):
-        conv = tgat.GATConv(8, 16, impl=impl)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            conv(x, coo, sampled)
+    if transport == "coo":
+        return (jax.tree_util.tree_map(jnp.asarray, jsp.pack_coo(*args)),
+                tsp.to_device(tsp.pack_coo(*args), "cpu"))
+    if transport == "pattern":
+        pargs = (args[0], args[1]) + args[3:]
+        return (jax.tree_util.tree_map(jnp.asarray,
+                                       jsp.pack_pattern(*pargs)),
+                tsp.to_device(tsp.pack_pattern(*pargs), "cpu"))
+    return None, tsp.to_device(tsp.pack_blocked(*args), "cpu")
+
+
+@pytest.mark.parametrize("transport", ["coo", "pattern"])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_tile_route_matches_jax(small_graph, heads, transport):
+    """``impl="tile"`` (scores through K5's plain version, the masked
+    tile softmax, aggregation through K2's; the backward through both in
+    both orientations) against the JAX tile route: output and every
+    parameter gradient."""
+    args, sampled = _sampled_layer(small_graph)
+    ja, ta = _packed(args, transport)
+    rng = np.random.RandomState(6)
+    x = rng.randn(args[6], 16).astype(np.float32)
+    jconv = jgat.GATConv(n_out=32, n_heads=heads, impl="tile")
+    variables = jconv.init(jax.random.PRNGKey(2), jnp.asarray(x), ja,
+                           jnp.asarray(sampled))
+    n_rows = args[3]
+    want, jgrads = _flax_grads_and_out(jconv, variables, jnp.asarray(x), ja,
+                                       jnp.asarray(sampled), n_rows)
+    got, tgrads = _port_grads_and_out(
+        _port_conv(variables, 16, 32, heads, impl="tile"), x, ta, sampled,
+        n_rows)
+    np.testing.assert_allclose(got[:n_rows], want[:n_rows], **OUT_TOL)
+    assert set(tgrads) == set(jgrads)
+    for name, g in tgrads.items():
+        np.testing.assert_allclose(g, jgrads[name].numpy(), **GRAD_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("limit_delta,route", [(0, "tile"), (-1, "edge")])
+def test_auto_picks_the_jax_route(small_graph, monkeypatch, limit_delta,
+                                  route):
+    """``"auto"`` takes the tile route while the layer's dense tile mask
+    holds at most ``_TILE_MASK_LIMIT`` floats, on both sides of the limit,
+    as the JAX GATConv does."""
+    args, sampled = _sampled_layer(small_graph)
+    ja, ta = _packed(args, "coo")
+    floats = args[5] * args[6]          # every tile of the padded layer
+    x = np.random.RandomState(7).randn(args[6], 16).astype(np.float32)
+    jconv = jgat.GATConv(n_out=16)
+    variables = jconv.init(jax.random.PRNGKey(0), jnp.asarray(x), ja,
+                           jnp.asarray(sampled))
+    for mod in (jgat, tgat):
+        monkeypatch.setattr(mod, "_TILE_MASK_LIMIT", floats + limit_delta)
+    seen = []
+    for mod, names in ((jgat, ("_coo_to_tilewise",
+                               "edge_attention_aggregate")),
+                       (tgat, ("tile_attention_aggregate",
+                               "edge_attention_aggregate"))):
+        for name in names:
+            def rec(*a, _f=getattr(mod, name), _n=name, _m=mod, **k):
+                seen.append((_m.__name__, "edge" if "edge" in _n else "tile"))
+                return _f(*a, **k)
+            monkeypatch.setattr(mod, name, rec)
+    jconv.apply(variables, jnp.asarray(x), ja, jnp.asarray(sampled))
+    tgat.GATConv(16, 16)(torch.from_numpy(x), ta, torch.from_numpy(sampled))
+    assert seen == [(jgat.__name__, route), (tgat.__name__, route)]
+
+
+@pytest.mark.parametrize("impl", ["tile", "edge"])
+def test_pattern_and_blocked_transports_give_the_coo_result(small_graph,
+                                                            impl):
+    """The same edges shipped as a value-carrying COO, as the pattern
+    transport, or as blocked tiles give the same attention output."""
+    args, sampled = _sampled_layer(small_graph)
+    x = torch.from_numpy(
+        np.random.RandomState(8).randn(args[6], 16).astype(np.float32))
+    conv = tgat.GATConv(16, 32, n_heads=2, impl=impl,
+                        generator=torch.Generator().manual_seed(0))
+    s = torch.from_numpy(sampled)
+    with torch.no_grad():
+        want = conv(x, _packed(args, "coo")[1], s)
+        for transport in ("pattern", "blocked"):
+            got = conv(x, _packed(args, transport)[1], s)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_tile_route_grads_finite_at_large_magnitudes(small_graph):
+    """50x features push q·k far past exp's float32 range: the tile
+    softmax masks to -inf before the exp, and rows without an edge get
+    zero attention, so every gradient stays finite."""
+    args, sampled = _sampled_layer(small_graph)
+    _, ta = _packed(args, "pattern")
+    x = torch.from_numpy(50.0 * np.random.RandomState(9).randn(
+        args[6], 16).astype(np.float32))
+    conv = tgat.GATConv(16, 32, n_heads=2, impl="tile",
+                        generator=torch.Generator().manual_seed(0))
+    out = conv(x, ta, torch.from_numpy(sampled))
+    loss = (out ** 2).sum()
+    loss.backward()
+    assert torch.isfinite(loss)
+    for name, p in conv.named_parameters():
+        assert torch.isfinite(p.grad).all(), name
+
+
+def test_unported_routes_raise(small_graph):
+    """A part-sharded resident layer raises NotImplementedError naming
+    the ROADMAP."""
     _, ta, _, _ = _layers(small_graph, True)
     sharded = dataclasses.replace(ta)
     sharded.part_axis = "part"

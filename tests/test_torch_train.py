@@ -7,7 +7,9 @@ parameters (copied from flax). Each epoch is one step on a 64-node
 target set, so each epoch's loss is one step's loss; the val pass after
 the last step is compared too. GraphSAGE runs a constant lr; GAT (hot-
 block attention, the edge-stream attention on its cold residual) a
-linear warmup over 3 of the 4 steps. Tolerance: rtol = 1e-4, atol =
+linear warmup over 3 of the 4 steps. The same comparison runs GraphSAGE
+on the blocked format and GAT on the pattern transport (the tile route
+on both layers), with no hot block. Tolerance: rtol = 1e-4, atol =
 1e-5 — float32 sums in another order, carried through four Adam
 steps."""
 import numpy as np
@@ -37,38 +39,39 @@ from gnn_tpu_torch.weights import params_from_flax
 STEPS = 4
 
 
-def _steps_match_jax(g, model, lr, lr_warmup):
+def _steps_match_jax(g, model, lr, lr_warmup, adj_format="resident"):
     orders, c = (1, 1), g.num_classes
     lap = build_laplacian(g.adj_full, model)
-    prob = compute_sample_prob(lap, g.train_nodes, sum(orders))
     kw = dict(batch_size=64, samp_num=128, orders=orders,
-              num_nodes=lap.shape[0], num_classes=c,
-              adj_format="resident", resident_val_free=True,
-              resident_stream_tiles=True)
+              num_nodes=lap.shape[0], num_classes=c, adj_format=adj_format)
     targets = g.train_nodes[:64]
+    resident = adj_format == "resident"
+    jkw, tkw, jrg, trg = {}, {}, None, None
+    if resident:
+        kw.update(resident_val_free=True, resident_stream_tiles=True)
+        prob = compute_sample_prob(lap, g.train_nodes, sum(orders))
+        jspec = JHotSpec.from_sample_prob(prob, 256)
+        d, dt = build_hot_dense(lap, jspec, np.float32)
+        jrg, jkw = jbuild_rg(lap, jspec, d, dt), dict(hot_spec=jspec)
+        tspec = THotSpec.from_sample_prob(prob, 256)
+        td, tdt = tbuild_hd(lap, tspec, torch.float32, "cpu")
+        trg, tkw = tbuild_rg(lap, tspec, td, tdt), dict(hot_spec=tspec)
 
-    jspec = JHotSpec.from_sample_prob(prob, 256)
-    d, dt = build_hot_dense(lap, jspec, np.float32)
-    jpipe = JPipe(JCfg(hot_spec=jspec, **kw), lap, g.labels,
+    jpipe = JPipe(JCfg(**jkw, **kw), lap, g.labels,
                   world_size=1, pool_num=2, seed=3)
     jtr = JTrainer(jbuild(model, 32, orders, c, dropout=0.0), jpipe,
                    g.feats, mesh=make_mesh(1), lr=lr,
-                   sigmoid_loss=True, seed=3,
-                   resident_graph=jbuild_rg(lap, jspec, d, dt),
+                   sigmoid_loss=True, seed=3, resident_graph=jrg,
                    lr_warmup=lr_warmup)
     jtr._init_params(jtr._peek_batch(targets))
     init = jax.tree_util.tree_map(np.asarray, jtr.params)
 
-    tspec = THotSpec.from_sample_prob(prob, 256)
-    td, tdt = tbuild_hd(lap, tspec, torch.float32, "cpu")
-    tpipe = TPipe(TCfg(hot_spec=tspec, **kw), lap, g.labels, pool_num=2,
-                  seed=3)
+    tpipe = TPipe(TCfg(**tkw, **kw), lap, g.labels, pool_num=2, seed=3)
     tnet = tbuild(model, 32, orders, c, n_feats=g.feats.shape[1],
                   dropout=0.0)
     tnet.load_state_dict(params_from_flax(init))
     ttr = TTrainer(tnet, tpipe, g.feats, lr=lr,
-                   sigmoid_loss=True, seed=3,
-                   resident_graph=tbuild_rg(lap, tspec, td, tdt),
+                   sigmoid_loss=True, seed=3, resident_graph=trg,
                    lr_warmup=lr_warmup, device="cpu")
     try:
         jl = [jtr.train_epoch(targets, epoch=e).train_loss
@@ -96,3 +99,18 @@ def test_gat_training_steps_match_jax(small_graph):
     plain versions), and a linear lr warmup: the port's warmup schedule
     against optax's ``linear_schedule``."""
     _steps_match_jax(small_graph, "gat", lr=0.01, lr_warmup=3)
+
+
+def test_blocked_training_steps_match_jax(small_graph):
+    """GraphSAGE on ``adj_format="blocked"``: the port's blocked plain
+    version (K2's counterpart on the CPU) against the JAX package's
+    blocked aggregation, forward and over the packed transposed tiles."""
+    _steps_match_jax(small_graph, "graphsage", lr=0.01, lr_warmup=0,
+                     adj_format="blocked")
+
+
+def test_gat_pattern_training_steps_match_jax(small_graph):
+    """GAT on the pattern transport: both layers take the tile route
+    (K5 + K2 plain versions on the port's side), with the lr warmup."""
+    _steps_match_jax(small_graph, "gat", lr=0.01, lr_warmup=3,
+                     adj_format="pattern")

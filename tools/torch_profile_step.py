@@ -3,9 +3,13 @@
 
     python3 tools/torch_profile_step.py [--warmup 5] [--steps 10] [CLI flags]
     python3 tools/torch_profile_step.py --model gat
+    python3 tools/torch_profile_step.py --model gat --adj_format pattern
+    python3 tools/torch_profile_step.py --adj_format blocked \
+        --dataset synthetic:nodes=50000,deg=30 --samp_num 2048 --batch_size 512
 
 Sets up the configuration `gnn_tpu_torch.cli` would train (its defaults
-unless CLI flags are given, e.g. ``--model gat``), runs ``--warmup``
+unless CLI flags are given, e.g. ``--model gat`` or ``--adj_format
+blocked``), runs ``--warmup``
 steps, then ``--steps`` steps under ``torch.profiler``, and prints:
 
 * per step: seconds waiting for the sampler, moving the batch to the
@@ -31,6 +35,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 # kernel-name patterns of each kind, first match wins (the hand-written
 # kernels' names come from gnn_tpu_torch/csrc)
 KINDS = [
+    ("tile-stream SpMM / SDDMM K2/K5 (stream_spmm.cu)",
+     ("stream_spmm_kernel", "stream_sddmm_kernel")),
     ("edge-stream attention K3/K4 (edge_attention.cu)",
      ("edge_kernel", "row_reduce_kernel", "agg_kernel")),
     ("edge-stream SpMM K1 (edge_stream.cu)", ("edge_stream_kernel",)),
