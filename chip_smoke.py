@@ -15,35 +15,47 @@ Phases (any failure exits non-zero without the final result line):
    16384; GraphSAGE and GAT sample the same row-normalized graph, so
    their batches are the same): the edge-stream SpMM (K1) forward and
    transpose at each aggregating layer's width, plus one per-edge-values
-   case; the four edge-stream attention kernels (K3 row max, K4 terms,
-   bwd_q, bwd_kv) at each GAT layer's width (512, one head), plus one
-   4-head case and one case at 50x magnitudes. The stream SpMM (K2) runs
-   at the three layers of one blocked batch (50k nodes / degree 30,
-   batch 512, samp_num 2048; widths 602 / 1024 / 1024) over ``block_*``
-   and over the transposed ``block_*_t``, and K2 in both orientations and
-   the stream SDDMM (K5) at GAT's tile layer of one default pattern batch
+   case; the segment-grid SpMM (K6) on the same three cold residuals,
+   forward on the pack and transpose on the (cols, rows)-swapped pack,
+   against its plain version and against K1 (the same function); the
+   four edge-stream attention kernels (K3 row max, K4 terms, bwd_q,
+   bwd_kv) at each GAT layer's width (512, one head), plus one 4-head
+   case and one case at 50x magnitudes. The stream SpMM (K2) runs at the
+   three layers of one blocked batch (50k nodes / degree 30, batch 512,
+   samp_num 2048; widths 602 / 1024 / 1024) over ``block_*`` and over
+   the transposed ``block_*_t``, and K2 in both orientations and the
+   stream SDDMM (K5) at GAT's tile layer of one default pattern batch
    (2048 x 10240, all 1280 tiles, width 512), plus a 4-head case, a case
    with empty row tiles and one with BlockedAdj padding tiles. Each case
    prints its error, the kernel's time (CUDA events), the plain version's
    time, the bound (the larger of the bytes over the memory rate and the
    float32 flops over the float32 rate) and, where one PyTorch call
    computes the same function, that call's time (a yardstick the port
-   never calls): ``torch.sparse.mm`` over a CSR of K1's weighted edges,
-   over a BSR of K2's tiles (a CSR of their nonzeros where the card's
-   PyTorch refuses BSR), ``torch.sparse.sampled_addmm`` over a CSR of
-   every entry of K5's tiles;
+   never calls): ``torch.sparse.mm`` over a CSR of K1's and K6's
+   weighted edges, over a BSR of K2's tiles (a CSR of their nonzeros
+   where the card's PyTorch refuses BSR), ``torch.sparse.sampled_addmm``
+   over a CSR of every entry of K5's tiles;
 4. a small input (3000 nodes) through the whole training path on the
-   card and on the CPU, for GraphSAGE and GAT on the resident path,
-   GraphSAGE on the blocked format and GAT on the pattern transport (the
-   tile route on every layer), where the CPU path is the one the tests
-   hold against the JAX package: the step losses must agree;
-5. the main paths through ``gnn_tpu_torch.cli.main``, each with every
-   launch counter set to 0 just before the run and read just after: the
+   card and on the CPU, where the CPU path is the one the tests hold
+   against the JAX package: the step losses must agree. Cases: GraphSAGE
+   and GAT on the resident path, GraphSAGE on the blocked format, GAT on
+   the pattern transport (the tile route on every layer), GraphSAGE on
+   the hot format, GraphSAGE and GAT on the resident path with the
+   subgraph sampler, and GraphSAGE on the resident path with full
+   expansion (``resident_ship_cold=False``);
+5. the main paths, each with every launch counter set to 0 just before
+   the run and read just after. Through ``gnn_tpu_torch.cli.main``: the
    defaults plus ``--n_devices 1 --epoch_num 1 --test`` (GraphSAGE), the
    same with ``--model gat``, ``--adj_format blocked`` on the 50k-node
    graph (one epoch and the val pass, no test sweep: each batch packs
-   about 0.3 GB of tiles on the host), and ``--model gat --adj_format
-   pattern`` at the defaults (one epoch, val, test sweep);
+   about 0.3 GB of tiles on the host), ``--model gat --adj_format
+   pattern`` at the defaults (one epoch, val, test sweep), and, one
+   epoch and the val pass each, ``--adj_format hot`` and ``--sampler
+   subgraph`` at the defaults (the subgraph run must launch K1 in both
+   directions every step); every run's loss must fall. Then the probe
+   path (``tools/torch_edgestream_probe.py``'s
+   functions on one default batch: the COO, K1 and K6 on each layer's
+   cold residual, both directions), which must launch K6;
 6. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -98,6 +110,9 @@ KERNELS = [
      "gnn_tpu_torch/csrc/stream_spmm.cu", "gnn_tpu/ops/pallas_spmm.py:132"),
     ("stream_sddmm", ("sddmm", "sddmm"),
      "gnn_tpu_torch/csrc/stream_spmm.cu", "gnn_tpu/ops/pallas_sddmm.py:36"),
+    ("edge_stream_spmm_seg", ("edgestream", "seg"),
+     "gnn_tpu_torch/csrc/edge_stream.cu",
+     "gnn_tpu/ops/pallas_edgestream.py:373"),
 ]
 ATTN_KEYS = ["rowmax", "terms", "bwd_q", "bwd_kv"]
 # the blocked main path: the JAX package's records' smaller configuration
@@ -119,22 +134,20 @@ def fail(msg):
 def time_ms(fn, reps=10, rounds=5):
     """Median over ``rounds`` of the mean time of ``reps`` back-to-back
     calls, by CUDA events (after warm-up)."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    per = []
-    for _ in range(rounds):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        per.append(a.elapsed_time(b) / reps)
-    per.sort()
-    return per[len(per) // 2]
+    from gnn_tpu_torch.utils.timing import cuda_time_ms
+    return cuda_time_ms(fn, reps, rounds)
+
+
+def load_probe():
+    """``tools/torch_edgestream_probe.py`` as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_edgestream_probe.py")
+    spec = importlib.util.spec_from_file_location("torch_edgestream_probe",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def build_kernels():
@@ -149,54 +162,20 @@ def build_kernels():
 
 def main_path_batch(save_dir, device):
     """One batch of the default configuration, its layers rebuilt on the
-    device (the same set-up `gnn_tpu_torch.cli` runs)."""
-    import numpy as np
-    import torch
-
-    from gnn_tpu_torch import cli
-    from gnn_tpu_torch.data.loaders import load_dataset
-    from gnn_tpu_torch.ops.hotdense import HotSpec, build_hot_dense_cached
-    from gnn_tpu_torch.ops.residentgraph import (ResidentGraph,
-                                                 build_resident_graph)
-    from gnn_tpu_torch.placement.engine import compute_sample_prob
+    device (the probe's set-up, the same one `gnn_tpu_torch.cli` runs),
+    and the same targets on the pattern transport (GAT's tile layer)."""
     from gnn_tpu_torch.sampling.ladies import SamplerConfig, ladies_sample
-    from gnn_tpu_torch.train.stepfns import prepare_adjs, to_device_batch
-    from gnn_tpu_torch.utils.normalize import build_laplacian
+    from gnn_tpu_torch.train.stepfns import to_device_batch
 
-    a = cli.build_parser().parse_args([])
-    orders = tuple(int(t) for t in a.orders.split(","))
-    graph = load_dataset(a.dataset, a.data_dir)
-    lap = build_laplacian(graph.adj_full, a.model)
-    depth = sum(orders)
-    prob = compute_sample_prob(lap, graph.train_nodes, depth)
-    # the CLI's cache names, so the main path reuses this set-up
-    np.save(os.path.join(save_dir, f"synthetic.sampprob.L{depth}.npy"),
-            prob)
-    spec = HotSpec.from_sample_prob(prob, a.hot_k)
-    dense, dense_t = build_hot_dense_cached(
-        lap, spec, dtype=torch.bfloat16, device=device,
-        cache_path=os.path.join(save_dir,
-                                f"synthetic.hotcoo.L{depth}.K{a.hot_k}.npz"))
-    host = build_resident_graph(lap, spec, dense, dense_t,
-                                val_dtype="bfloat16")
-    cfg = SamplerConfig(batch_size=a.batch_size, samp_num=a.samp_num,
-                        orders=orders, num_nodes=lap.shape[0],
-                        num_classes=graph.num_classes, adj_format="resident",
-                        hot_spec=spec, resident_val_free=host["val_free"],
-                        resident_stream_tiles=True)
-    tgt = np.random.default_rng(1).permutation(graph.train_nodes)
-    mb = ladies_sample(cfg, 7, tgt[: a.batch_size], lap, graph.labels)
-    batch = to_device_batch(mb, device)
-    adjs = prepare_adjs(batch, ResidentGraph.from_host(host, device))
-    widths = [graph.feats.shape[1]] + [(1 + o) * a.nhid
-                                       for o in orders[:-1]]
-    # the same targets on the pattern transport (GAT's tile layer)
+    adjs, widths, ctx = load_probe().default_batch(save_dir, device)
+    a = ctx.args
     pcfg = SamplerConfig(batch_size=a.batch_size, samp_num=a.samp_num,
-                         orders=orders, num_nodes=lap.shape[0],
-                         num_classes=graph.num_classes, adj_format="pattern")
+                         orders=ctx.orders, num_nodes=ctx.lap.shape[0],
+                         num_classes=ctx.graph.num_classes,
+                         adj_format="pattern")
     pattern = to_device_batch(ladies_sample(
-        pcfg, 7, tgt[: a.batch_size], lap, graph.labels), device).adjs
-    del dense, dense_t, host
+        pcfg, 7, ctx.targets[: a.batch_size], ctx.lap, ctx.graph.labels),
+        device).adjs
     return adjs, widths, pattern
 
 
@@ -304,6 +283,76 @@ def check_edge_stream(adjs, widths, device):
                 t["bytes"] += nbytes / MEM_BYTES_PER_S
                 t["flops"] += flops / F32_FLOPS_PER_S
     return totals
+
+
+def check_seg(adjs, widths, device):
+    """Phase 3: the segment-grid SpMM (K6) against its plain version and
+    against K1 on the same tiles (the same function), at the default
+    batch's cold residuals: forward on the pack, transpose on the
+    (cols, rows)-swapped pack with the factors swapped (the probe's
+    cases). Returns the sums over one probe pass (every layer, both
+    directions)."""
+    import torch
+
+    from gnn_tpu_torch.ops.edgestream import (edge_stream_spmm,
+                                              edge_stream_spmm_seg,
+                                              edge_stream_spmm_seg_ref)
+    probe = load_probe()
+    gen = torch.Generator(device=device).manual_seed(3)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+               max_abs_err=0.0, bytes=0.0, flops=0.0)
+    for c in probe.seg_cases(adjs, widths):
+        e = int(c.rows.shape[0])
+        for transpose in (False, True):
+            d = "transpose" if transpose else "forward"
+            tiles, seg, rv, nf = ((c.tiles_t, c.seg_t, c.nf, c.rv)
+                                  if transpose else
+                                  (c.tiles, c.seg, c.rv, c.nf))
+            n_in, n_out, f = tiles.ncols, tiles.nrows, c.f
+            x = torch.randn((n_in, f), generator=gen, device=device)
+            kern = lambda: edge_stream_spmm_seg(tiles, seg, x, rv, nf)
+            plain = lambda: edge_stream_spmm_seg_ref(tiles, seg, x, rv, nf)
+            y, ref = kern(), plain()
+            k1 = edge_stream_spmm(c.tiles, x, c.rv, c.nf, transpose)
+            torch.cuda.synchronize()
+            label = f"layer{c.layer} {d}"
+            err, rel = _max_err(y, ref, label, "edge_stream_spmm_seg")
+            err_k1, rel_k1 = _max_err(y, k1, label,
+                                      "edge_stream_spmm_seg vs K1")
+            del y, ref, k1
+            nb = int(tiles.blk_rc.shape[0])
+            ns = probe.n_segments(seg, nb)
+            ms = time_ms(kern)
+            plain_ms = time_ms(plain, reps=3)
+            # library yardstick: cuSPARSE CSR SpMM over the same weights
+            r_, c_ = (c.cols, c.rows) if transpose else (c.rows, c.cols)
+            csr = torch.sparse_coo_tensor(
+                torch.stack([r_, c_]), c.rv[c.rows] * c.nf[c.cols],
+                (n_out, n_in)).coalesce().to_sparse_csr()
+            library_ms = time_ms(lambda: torch.sparse.mm(csr, x))
+            del csr
+            nbytes = (2 * e + 16 * nb + 4 * ns + 4 * (n_in + n_out) * f
+                      + 4 * (n_in + n_out))
+            flops = 2 * e * f + (n_in + n_out) * f
+            t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+            t_flops = flops / F32_FLOPS_PER_S * 1e3
+            bound_ms = max(t_bytes, t_flops)
+            log(f"K6 {d:9s} layer{c.layer} R={n_out} C={n_in} F={f} "
+                f"cold_edges={e} entries={nb} segments={ns} "
+                f"max_abs_err={err:.3e} max_rel_err={rel:.3e} "
+                f"vs K1 max_rel_err={rel_k1:.3e} ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                f"bound_ms={bound_ms:.4f} "
+                f"({'bytes' if t_bytes >= t_flops else 'operations'})")
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["library_ms"] += library_ms
+            tot["bound_ms"] += bound_ms
+            tot["bytes"] += t_bytes
+            tot["flops"] += t_flops
+    torch.cuda.empty_cache()
+    return tot
 
 
 def _max_err(y, ref, name, what):
@@ -593,13 +642,16 @@ def check_tile_kernels(blocked, bwidths, pattern, device, nhid):
     return totals
 
 
-def check_agreement(model, adj_format="resident"):
+def check_agreement(model, adj_format="resident", sampler="ladies",
+                    ship_cold=True):
     """Phase 4: a small input through the port's whole training path on
     the card (CUDA kernels, cuBLAS) and on the CPU (plain versions — the
     path the CPU tests hold against the JAX package): same batches, same
-    initial weights, dropout 0; on the resident path a float32 hot block
-    with stream tiles on. The step losses must agree to AGREE_RTOL
-    (float32 sums in another order, carried through Adam steps)."""
+    initial weights, dropout 0; on the resident and hot paths a float32
+    hot block, on the resident path stream tiles on (off under full
+    expansion, ``ship_cold=False``, which rebuilds the cold COO on the
+    device). The step losses must agree to AGREE_RTOL (float32 sums in
+    another order, carried through Adam steps)."""
     import numpy as np
     import torch
 
@@ -617,24 +669,31 @@ def check_agreement(model, adj_format="resident"):
     lap = build_laplacian(g.adj_full, model)
     resident = adj_format == "resident"
     spec = HotSpec.from_sample_prob(
-        compute_sample_prob(lap, g.train_nodes, 2), 512) if resident \
-        else None
+        compute_sample_prob(lap, g.train_nodes, 2), 512) \
+        if adj_format in ("hot", "resident") else None
+    label = (f"{model} {adj_format}"
+             + (f" {sampler}" if sampler != "ladies" else "")
+             + ("" if ship_cold else " full expansion"))
     out = {}
     for dev in ("cuda", "cpu"):
-        rg = None
-        if resident:
+        rg = hot = None
+        if spec is not None:
             d, dt = build_hot_dense(lap, spec, torch.float32, dev)
-            rg = build_resident_graph(lap, spec, d, dt)
+            if resident:
+                rg = build_resident_graph(lap, spec, d, dt)
+            else:
+                hot = (d, dt)
         cfg = SamplerConfig(batch_size=128, samp_num=256, orders=(1, 1),
                             num_nodes=lap.shape[0], num_classes=7,
-                            adj_format=adj_format, hot_spec=spec,
-                            resident_val_free=resident,
-                            resident_stream_tiles=resident)
+                            sampler=sampler, adj_format=adj_format,
+                            hot_spec=spec, resident_val_free=resident,
+                            resident_ship_cold=ship_cold,
+                            resident_stream_tiles=resident and ship_cold)
         pipe = BatchPipeline(cfg, lap, g.labels, pool_num=2, seed=0)
         net = build_model(model, 64, (1, 1), 7, n_feats=40, dropout=0.0,
                           seed=0)
         tr = Trainer(net, pipe, g.feats, lr=0.01, sigmoid_loss=False,
-                     resident_graph=rg, device=dev)
+                     resident_graph=rg, hot_dense=hot, device=dev)
         try:
             m = tr.train_epoch(g.train_nodes, epoch=0)
             f1, vloss = tr.evaluate(g.valid_nodes, 128, "val")
@@ -643,22 +702,36 @@ def check_agreement(model, adj_format="resident"):
         out[dev] = (np.asarray(m.step_losses), f1, vloss)
     lc, lp = out["cuda"][0], out["cpu"][0]
     rel = float(np.max(np.abs(lc - lp) / np.abs(lp)))
-    log(f"agreement {model} {adj_format} (3000 nodes, {len(lc)} steps): "
+    log(f"agreement {label} (3000 nodes, {len(lc)} steps): "
         f"cuda losses "
         f"{lc[0]:.5f}..{lc[-1]:.5f}, cpu {lp[0]:.5f}..{lp[-1]:.5f}, max "
         f"rel diff {rel:.2e}; val F1 cuda {out['cuda'][1]:.4f} cpu "
         f"{out['cpu'][1]:.4f}; val loss cuda {out['cuda'][2]:.5f} cpu "
         f"{out['cpu'][2]:.5f}")
     if not (np.all(np.isfinite(lc)) and rel <= AGREE_RTOL):
-        fail(f"{model}: cuda and cpu training disagree: max rel diff "
+        fail(f"{label}: cuda and cpu training disagree: max rel diff "
              f"{rel:.3e}")
     if not lc[-1] < lc[0]:
-        fail(f"{model}: small-input loss did not fall: {lc}")
+        fail(f"{label}: small-input loss did not fall: {lc}")
+
+
+# phase 4's cases: (model, adj_format, sampler, ship_cold)
+AGREEMENTS = [
+    ("graphsage", "resident", "ladies", True),
+    ("gat", "resident", "ladies", True),
+    ("graphsage", "blocked", "ladies", True),
+    ("gat", "pattern", "ladies", True),
+    ("graphsage", "hot", "ladies", True),
+    ("graphsage", "resident", "subgraph", True),
+    ("graphsage", "resident", "ladies", False),
+    ("gat", "resident", "subgraph", True),
+]
 
 
 # the main paths: CLI arguments, and the kernel launches each needs per
 # training step (the blocked path runs K2's forward orientation 3 times
-# forward and twice over the transposed blocks in the backward)
+# forward and twice over the transposed blocks in the backward; the hot
+# format's cold COO runs no kernel of the port's)
 MAIN_PATHS = [
     ("graphsage", ["--test"],
      {"edge_stream_spmm.forward": 3, "edge_stream_spmm.transpose": 2}),
@@ -669,6 +742,9 @@ MAIN_PATHS = [
     ("gat pattern", ["--model", "gat", "--adj_format", "pattern", "--test"],
      {"stream_sddmm": 2, "stream_spmm.forward": 2,
       "stream_spmm.transpose": 2}),
+    ("hot", ["--adj_format", "hot"], {}),
+    ("subgraph", ["--sampler", "subgraph"],
+     {"edge_stream_spmm.forward": 3, "edge_stream_spmm.transpose": 2}),
 ]
 
 
@@ -677,6 +753,14 @@ def _counters():
     return {name: (importlib.import_module(
         f"gnn_tpu_torch.ops.{mod}").launches, key)
         for name, (mod, key), _, _ in KERNELS}
+
+
+def _reset_counters():
+    """Every launch counter set to 0; returns them by JSON name."""
+    counters = _counters()
+    for c, _ in counters.values():
+        c.clear()
+    return counters
 
 
 def run_main_path(save_dir, label, argv, per_step):
@@ -691,9 +775,7 @@ def run_main_path(save_dir, label, argv, per_step):
 
     metrics = os.path.join(save_dir, "metrics.jsonl")
     n_before = sum(1 for _ in open(metrics)) if os.path.exists(metrics) else 0
-    counters = _counters()
-    for c, _ in counters.values():
-        c.clear()
+    counters = _reset_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc = cli.main(argv + ["--n_devices", "1", "--epoch_num", "1",
@@ -731,6 +813,36 @@ def run_main_path(save_dir, label, argv, per_step):
             fail(f"{label}: {name} launches {counts[name]} < {n} x {steps}")
     if test_f1 is not None and not (0.0 <= test_f1 <= 1.0):
         fail(f"{label}: test F1 out of range: {test_f1}")
+    return counts
+
+
+def run_probe_path(save_dir, device):
+    """Phase 5: the probe (``tools/torch_edgestream_probe.py``) on one
+    default batch, with every launch counter set to 0 just before and
+    read just after: the COO, K1 and K6 on each layer's cold residual,
+    both directions. Fails unless K6 launched and every K1 / K6 result
+    agrees with the COO one to REL_TOL. Returns the launch counts."""
+    import torch
+    probe = load_probe()
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    adjs, widths, _ = probe.default_batch(save_dir, device)
+    recs = probe.run_probe(probe.seg_cases(adjs, widths), iters=16,
+                           log=log)
+    torch.cuda.synchronize()
+    counts = {name: c[key] for name, (c, key) in counters.items()}
+    log(f"probe path: {len(recs)} layer-directions in "
+        f"{time.perf_counter() - t0:.1f}s wall; kernel launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for r in recs:
+        for k in ("k1", "k6"):
+            if not (r[f"{k}_finite"]
+                    and r[f"{k}_err"] <= REL_TOL * r["scale"] + 1e-6):
+                fail(f"probe layer {r['layer']} {r['direction']}: {k} "
+                     f"max abs err {r[f'{k}_err']:.3e} vs max |coo| "
+                     f"{r['scale']:.3e}")
+    if counts["edge_stream_spmm_seg"] == 0:
+        fail("probe path: K6 was never launched")
     return counts
 
 
@@ -779,20 +891,22 @@ def main() -> int:
     try:
         adjs, widths, pattern = main_path_batch(save_dir, device)
         k1 = check_edge_stream(adjs, widths, device)
+        seg = check_seg(adjs, widths, device)
         attn = check_attention(adjs, device, nhid)
         del adjs
         blocked, bwidths = blocked_batch(device)
         tiles = check_tile_kernels(blocked, bwidths, pattern, device, nhid)
         del blocked, pattern
         torch.cuda.empty_cache()
-        for model, fmt in (("graphsage", "resident"), ("gat", "resident"),
-                           ("graphsage", "blocked"), ("gat", "pattern")):
-            check_agreement(model, fmt)
+        for case in AGREEMENTS:
+            check_agreement(*case)
         counts = dict.fromkeys((k[0] for k in KERNELS), 0)
         for label, argv, per_step in MAIN_PATHS:
             for name, n in run_main_path(save_dir, label, argv,
                                          per_step).items():
                 counts[name] += n
+        for name, n in run_probe_path(save_dir, device).items():
+            counts[name] += n
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
 
@@ -802,6 +916,7 @@ def main() -> int:
                      for name, (_, key), _, _ in KERNELS
                      if key in ATTN_KEYS})
     measured.update(tiles)
+    measured["edge_stream_spmm_seg"] = seg
     kernels = [_kernel_entry(name, source, replaces, counts[name],
                              measured[name])
                for name, _, source, replaces in KERNELS]

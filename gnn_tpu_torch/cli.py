@@ -16,7 +16,11 @@ with a linear warmup). ``--adj_format blocked`` ships dense tiles and
 aggregates them with the stream-SpMM kernel (K2); ``--model gat
 --adj_format pattern`` (or ``coo``) ships the edge pattern and runs the
 per-edge route or, where the layer's tile mask is small enough, the tile
-route (SDDMM K5 + K2). Flags whose paths are not ported yet raise
+route (SDDMM K5 + K2). ``--adj_format hot`` keeps only the hot blocks on
+the card and ships each layer's hot-slot plumbing and cold COO (with its
+col-sorted transpose copy) from the host; ``--sampler subgraph`` samples
+one node set per batch and shares one square adjacency across the deeper
+layers, on any format. Flags whose paths are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -75,13 +79,15 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["coo", "blocked", "hot", "resident",
                             "pattern"],
                    help="'resident' = device-resident hot block + cold "
-                        "residual (default); 'coo' = index_add_ "
-                        "aggregation; 'blocked' = dense-tile stream "
-                        "(K2); 'pattern' = pattern-only edges for "
-                        "attention models (GAT default off the resident "
-                        "path)")
+                        "residual (default); 'hot' = the same blocks with "
+                        "each layer's plumbing and cold COO shipped from "
+                        "the host; 'coo' = index_add_ aggregation; "
+                        "'blocked' = dense-tile stream (K2); 'pattern' = "
+                        "pattern-only edges for attention models (GAT "
+                        "default off the resident path)")
     p.add_argument("--hot_k", type=int, default=16384,
-                   help="hot-subgraph size (top-K nodes by sample_prob)")
+                   help="hot-subgraph size (top-K nodes by sample_prob) "
+                        "for --adj_format hot / resident")
     p.add_argument("--resident_parts", type=int, default=0,
                    help="shard the resident state over this many "
                         "devices (not ported yet)")
@@ -139,12 +145,9 @@ def resolve_training_defaults(args, steps_per_epoch: int = 10**9) -> int:
 
 def _check_ported(args) -> None:
     """Raise NotImplementedError for flags whose paths are not ported."""
-    formats = "format leftovers and the subgraph sampler"
     multi = "multi-device over torch.distributed"
     resume = "resume, the locality tuner, op timing and profiling"
     todo = [
-        (args.adj_format == "hot", "--adj_format hot", formats),
-        (args.sampler == "subgraph", "--sampler subgraph", formats),
         (args.feature_cache, "--feature_cache", multi),
         (args.resident_parts > 1, "--resident_parts", multi),
         (args.n_devices > 1, "--n_devices > 1", multi),
@@ -212,11 +215,11 @@ def train(args):
         cache_dir=args.save_dir, dataset=args.dataset.replace("/", "_"))
 
     hot_spec = None
+    hot_dense = None
     resident_graph = None
-    if args.adj_format == "resident":
+    if args.adj_format in ("hot", "resident"):
         from gnn_tpu_torch.ops.hotdense import (HotSpec,
                                                 build_hot_dense_cached)
-        from gnn_tpu_torch.ops.residentgraph import build_resident_graph
         from gnn_tpu_torch.placement.engine import compute_sample_prob
         os.makedirs(args.save_dir, exist_ok=True)
         dsname = args.dataset.replace("/", "_").replace(":", "_")
@@ -239,9 +242,13 @@ def train(args):
         print(f"hot block: K={hot_spec.k} "
               f"({2 * dense.numel() * dense.element_size() / 2**20:.0f} "
               f"MiB resident incl. transpose)", flush=True)
-        resident_graph = build_resident_graph(
-            lap, hot_spec, dense, dense_t,
-            val_dtype="bfloat16" if bf16 else np.float32)
+        if args.adj_format == "resident":
+            from gnn_tpu_torch.ops.residentgraph import build_resident_graph
+            resident_graph = build_resident_graph(
+                lap, hot_spec, dense, dense_t,
+                val_dtype="bfloat16" if bf16 else np.float32)
+        else:
+            hot_dense = (dense, dense_t)
 
     val_free = bool(resident_graph and resident_graph["val_free"])
     stream_tiles = (args.adj_format == "resident" and (
@@ -267,7 +274,8 @@ def train(args):
     trainer = Trainer(net, pipe, graph.feats, lr=args.lr,
                       sigmoid_loss=args.sigmoid_loss, seed=args.seed,
                       feature_source=source, resident_graph=resident_graph,
-                      lr_warmup=lr_warmup, device=device)
+                      hot_dense=hot_dense, lr_warmup=lr_warmup,
+                      device=device)
     rank_chunks = None
     if args.local_shuffle and args.pagraph:
         rank_chunks = placement.train_nodes_per_dev

@@ -15,6 +15,13 @@ hand-written CUDA kernel ``gnn_tpu_torch/csrc/edge_stream.cu`` on CUDA
 tensors. On CPU tensors it runs the plain PyTorch version
 :func:`edge_stream_spmm_ref`, which decodes every edge to global
 ``(row, col)`` and aggregates with ``index_add_``.
+
+The segment-grid variant (K6): :func:`segment_tiles` groups a pack's
+entries into segments (runs of one row tile whose edges fit a fixed
+coord window) and :func:`edge_stream_spmm_seg` computes the forward
+product with one unit of parallel work per segment (plain version
+:func:`edge_stream_spmm_seg_ref`). It is rank-1 only; its transpose is
+the same call on a (cols, rows)-swapped pack with the factors swapped.
 """
 from __future__ import annotations
 
@@ -34,8 +41,9 @@ BLK_ROWS = 8
 # deployed per-entry edge cap (heavier tiles split across entries)
 ECAP = 256
 
-# kernel launches by direction ("forward" / "transpose"); incremented
-# only where the CUDA kernel is launched
+# kernel launches by direction ("forward" / "transpose") and of the
+# segment-grid kernel ("seg"); incremented only where a CUDA kernel is
+# launched
 launches: collections.Counter = collections.Counter()
 
 
@@ -239,6 +247,42 @@ def repad_tiles(coords: np.ndarray, blk_rc: np.ndarray, off: np.ndarray,
     return c2, blk2, off2, t2, v2
 
 
+def segment_tiles(blk_rc: np.ndarray, off: np.ndarray,
+                  ns_pad: Optional[int] = None) -> np.ndarray:
+    """Group a tile set's entries into segments for the segment-grid
+    kernel (K6). A segment is a maximal run of consecutive entries that
+    share one row tile and whose edges fit the TPU kernel's coord window
+    ``[base, base + 2 * BLK_ROWS * EC)`` anchored at its first entry.
+    Every row tile gets a segment, even one that holds only its zero-edge
+    sentinel; other zero-count entries never force a split. Returns
+    ``seg_ptr`` int32 ``[ns_pad + 1]`` (entry-index boundaries; trailing
+    padding segments start at ``nb`` and are empty)."""
+    nb = blk_rc.shape[0]
+    win = BLK_ROWS * EC
+    rt = blk_rc.astype(np.int64) >> 16
+    o = off[0, :nb].astype(np.int64)
+    c = off[1, :nb].astype(np.int64)
+    starts = [0]
+    cur_base = (o[0] // win) if nb else 0
+    for j in range(1, nb):
+        if rt[j] != rt[starts[-1]]:
+            starts.append(j)
+            cur_base = o[j] // win
+        elif c[j] == 0:
+            continue
+        elif o[j] + c[j] > (cur_base + 2) * win:
+            starts.append(j)
+            cur_base = o[j] // win
+    ns = len(starts)
+    if ns_pad is None:
+        ns_pad = max(_round_up(ns, 8), 8)
+    if ns > ns_pad:
+        raise ValueError(f"{ns} segments > ns_pad {ns_pad}")
+    seg_ptr = np.full(ns_pad + 1, nb, np.int32)
+    seg_ptr[:ns] = starts
+    return seg_ptr
+
+
 def decode_edges(tiles: EdgeTiles):
     """Global ``(rows, cols, w)`` of every packed edge, as tensors on
     the tiles' device (``w`` = per-edge values, ones when there are
@@ -365,3 +409,94 @@ def edge_stream_spmm(tiles: EdgeTiles, x: torch.Tensor, rv: torch.Tensor,
     in_fac, out_fac = (rv, nf) if transpose else (nf, rv)
     xs = (x.float() * in_fac.float()[:, None]).contiguous()
     return _launch(tiles, xs, transpose) * out_fac.float()[:, None]
+
+
+def edge_stream_spmm_seg_ref(tiles: EdgeTiles, seg_ptr: torch.Tensor,
+                             x: torch.Tensor, rv: torch.Tensor,
+                             nf: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`edge_stream_spmm_seg`: decode the
+    edges of every entry a segment covers and aggregate them with
+    ``index_add_``. Rows that no covered edge reaches read 0."""
+    nb = tiles.blk_rc.shape[0]
+    ptr = seg_ptr.long().clamp(0, nb)
+    lo, hi = ptr[:-1], ptr[1:]
+    live = lo < hi
+    # +1 at each segment's first entry, -1 past its last: entries with
+    # a positive running sum are covered
+    edge = torch.zeros(nb + 1, dtype=torch.long, device=ptr.device)
+    edge.index_add_(0, lo[live], torch.ones_like(lo[live]))
+    edge.index_add_(0, hi[live], -torch.ones_like(hi[live]))
+    covered = torch.cumsum(edge, 0)[:nb] > 0
+    off = tiles.off.clone()
+    off[1, :nb] = torch.where(covered, off[1, :nb], torch.zeros_like(
+        off[1, :nb]))
+    return edge_stream_spmm_ref(dataclasses.replace(tiles, off=off), x, rv,
+                                nf)
+
+
+def _seg_kernel():
+    from gnn_tpu_torch.ops import cuda_build
+    lib = cuda_build.load("edge_stream")
+    fn = lib.edge_stream_spmm_seg_f32
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, p, p, p, i, i, i, i, p]
+        fn.restype = i
+    return fn
+
+
+def edge_stream_spmm_seg(tiles: EdgeTiles, seg_ptr: torch.Tensor,
+                         x: torch.Tensor, rv: torch.Tensor,
+                         nf: torch.Tensor, f_tile: int = 0) -> torch.Tensor:
+    """K6: ``y = rv * (A01 @ (nf * x))`` over the segments of
+    ``seg_ptr`` (from :func:`segment_tiles`: non-decreasing, each segment
+    inside one row tile). Output float32 ``[nrows, F]``. For the
+    transpose, pack the edges with rows and cols swapped, take that
+    pack's ``segment_tiles`` and call with ``(nf, rv)``.
+
+    Rank-1 values only: raises on ``tiles.vals``. ``f_tile`` is the TPU
+    kernel's feature-tiling hint, kept for signature parity; it does not
+    change the result. CUDA tensors launch the hand-written kernel; CPU
+    tensors take the plain version."""
+    if tiles.vals is not None:
+        raise ValueError("edge_stream_spmm_seg is rank-1 only; per-edge "
+                         "values take edge_stream_spmm")
+    assert rv.shape == (tiles.nrows,), rv.shape
+    assert nf.shape == (tiles.ncols,), nf.shape
+    if x.device.type == "cpu":
+        return edge_stream_spmm_seg_ref(tiles, seg_ptr, x, rv, nf)
+    if x.device.type != "cuda":
+        raise ValueError(f"edge_stream_spmm_seg: unsupported device "
+                         f"{x.device}")
+    dev = x.device
+    nb = tiles.blk_rc.shape[0]
+    if tiles.bm not in (128, 256) or tiles.bk not in (128, 256):
+        raise ValueError(f"edge_stream_spmm_seg: tile dims {tiles.bm}x"
+                         f"{tiles.bk} not in {{128, 256}}")
+    xs = (x.float() * nf.float()[:, None]).contiguous()
+    f = xs.shape[1]
+    _check("x", xs, torch.float32, dev, (tiles.ncols, f))
+    _check("coords", tiles.coords, torch.int16, dev)
+    _check("blk_rc", tiles.blk_rc, torch.int32, dev, (nb,))
+    _check("off", tiles.off, torch.int32, dev, (2, nb + 1))
+    _check("seg_ptr", seg_ptr, torch.int32, dev)
+    if seg_ptr.dim() != 1 or seg_ptr.shape[0] < 1:
+        raise ValueError(f"edge_stream_spmm_seg: seg_ptr has shape "
+                         f"{tuple(seg_ptr.shape)}")
+    ns = seg_ptr.shape[0] - 1
+    y = torch.empty((tiles.nrows, f), dtype=torch.float32, device=dev)
+    # one partial slab per segment, written only by segments that share
+    # their row tile with another
+    slab = torch.empty((max(ns, 1), tiles.bm, f), dtype=torch.float32,
+                       device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _seg_kernel()(tiles.coords.data_ptr(), tiles.blk_rc.data_ptr(),
+                        tiles.off.data_ptr(), seg_ptr.data_ptr(), nb, ns,
+                        xs.data_ptr(), y.data_ptr(), slab.data_ptr(),
+                        tiles.nrows // tiles.bm, f, tiles.bm, tiles.bk,
+                        stream)
+    if err != 0:
+        raise RuntimeError(f"edge_stream_spmm_seg: CUDA launch failed "
+                           f"(cudaError {err})")
+    launches["seg"] += 1
+    return y * rv.float()[:, None]

@@ -12,6 +12,13 @@ resident on the device. Each sampled layer splits into
     cold:   the residual edges, through the edge-stream CUDA kernel
             (`gnn_tpu_torch.ops.edgestream`) or a COO ``index_add_``
 
+Two ways to feed it: the resident rebuild
+(`gnn_tpu_torch.ops.residentgraph`) derives each layer on the device,
+and ``adj_format="hot"`` packs each layer on the host
+(:func:`pack_hotdense`: the cold COO, its col-sorted transpose copy and
+the k-sized slot plumbing ship every step); :func:`bind_dense` then
+attaches the resident blocks to the shipped layers.
+
 The JAX package marks absent slots and rows with out-of-range sentinels
 (``colpos = ncols``, ``rowpos = nrows``, ``*_cmp_idx = 1 << 30``) and
 reads them with ``jnp.take(mode="fill")``, which returns zeros. PyTorch
@@ -23,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -108,7 +115,8 @@ class HotDenseAdj:
     the layer's output set, cols its input set)."""
 
     # cold residual as COO (zero-length when the edge-stream tiles carry
-    # it); rows_t/cols_t/vals_t are the same arrays (no col-sorted copy)
+    # it); rows_t/cols_t/vals_t are its col-sorted copy (host pack) or the
+    # same arrays (resident rebuild, ``t_sorted`` False)
     rows: torch.Tensor
     cols: torch.Tensor
     vals: torch.Tensor
@@ -132,6 +140,9 @@ class HotDenseAdj:
     nrows: int
     ncols: int
     k: int
+    # False when rows_t/cols_t/vals_t are the forward arrays (no
+    # col-sorted copy)
+    t_sorted: bool = True
     # edge-stream tile payload for the cold residual (None = COO path)
     es_coords: Optional[torch.Tensor] = None  # int16 [n_cr, EC]
     es_rc: Optional[torch.Tensor] = None      # int32 [nb]
@@ -146,6 +157,117 @@ class HotDenseAdj:
     @property
     def shape(self):
         return (self.nrows, self.ncols)
+
+
+def _pad_sorted_coo(r, c, v, nnz_pad, pad_row, ridx, cidx):
+    rr = np.full(nnz_pad, pad_row, ridx)
+    cc = np.zeros(nnz_pad, cidx)
+    vv = np.zeros(nnz_pad, np.float32)
+    rr[: len(r)] = r
+    cc[: len(c)] = c
+    vv[: len(v)] = v
+    return rr, cc, vv
+
+
+def pack_hotdense(spec: HotSpec, rows: np.ndarray, cols: np.ndarray,
+                  vals: np.ndarray, prev: np.ndarray, after: np.ndarray,
+                  normfact: np.ndarray, n_valid_rows: int,
+                  n_valid_cols: int, nrows_pad: int, ncols_pad: int,
+                  nnz_pad: Optional[int] = None,
+                  compress: bool = True) -> HotDenseAdj:
+    """Split a sampled layer's COO into hot-block plumbing + the cold COO
+    and its col-sorted transpose copy (numpy, the JAX package's arrays;
+    ``compress`` keeps bfloat16-rounded values in float32).
+
+    ``rows``/``cols`` are row-sorted local indices into ``prev``/
+    ``after``; ``vals`` already carry ``lap_val * normfact[col]``. The
+    split runs in the native core when it loads and ``vals`` is float32,
+    else in numpy/scipy."""
+    from gnn_tpu_torch.sampling.ladies import bucket_size
+
+    prev_slots = spec.slot_of_node[prev]
+    after_slots = spec.slot_of_node[after]
+
+    colpos = np.full(spec.k, ncols_pad, np.int32)
+    nfh = np.zeros(spec.k, np.float32)
+    hot_c = np.flatnonzero(after_slots >= 0)
+    colpos[after_slots[hot_c]] = hot_c
+    nfh[after_slots[hot_c]] = normfact[hot_c]
+    nf_col = np.zeros(ncols_pad, np.float32)
+    nf_col[hot_c] = normfact[hot_c]
+
+    rowpos = np.full(spec.k, nrows_pad, np.int32)
+    hot_r = np.flatnonzero(prev_slots >= 0)
+    rowpos[prev_slots[hot_r]] = hot_r
+
+    # batch-present compaction; absent rows/cols read a fixed far
+    # out-of-range sentinel
+    sentinel = np.int32(1 << 30)
+    rh_pad = bucket_size(max(len(hot_r), 1), 128)
+    present_row_slots = np.zeros(rh_pad, np.int32)
+    present_row_slots[: len(hot_r)] = prev_slots[hot_r]
+    row_cmp_idx = np.full(nrows_pad, sentinel, np.int32)
+    row_cmp_idx[hot_r] = np.arange(len(hot_r), dtype=np.int32)
+    ch_pad = bucket_size(max(len(hot_c), 1), 128)
+    present_col_slots = np.zeros(ch_pad, np.int32)
+    present_col_slots[: len(hot_c)] = after_slots[hot_c]
+    col_cmp_idx = np.full(ncols_pad, sentinel, np.int32)
+    col_cmp_idx[hot_c] = np.arange(len(hot_c), dtype=np.int32)
+
+    # cold extraction keeps the sampler's row order; the col-sorted copy
+    # is a counting sort (native) or scipy's COO -> CSC
+    hot_r_flag = prev_slots >= 0
+    hot_c_flag = after_slots >= 0
+    lib = None
+    if np.asarray(vals).dtype == np.float32:
+        from gnn_tpu_torch import native as _native
+        lib = _native.get_lib()
+    if lib is not None:
+        from gnn_tpu_torch.native import hot_split_native
+        cr, cc, cv, cr_s, cc_s, cv_s = hot_split_native(
+            lib, rows, cols, vals, hot_r_flag, hot_c_flag, ncols_pad)
+    else:
+        hot_edge = hot_r_flag[rows] & hot_c_flag[cols]
+        cold = np.flatnonzero(~hot_edge)
+        cr, cc, cv = rows[cold], cols[cold], vals[cold]
+        if len(cr):
+            csc = sp.csc_matrix(
+                (cv, (cr.astype(np.int64), cc.astype(np.int64))),
+                shape=(nrows_pad, ncols_pad))
+            cc_s = np.repeat(np.arange(ncols_pad, dtype=np.int64),
+                             np.diff(csc.indptr))
+            cr_s, cv_s = csc.indices, csc.data
+        else:
+            cc_s = cr_s = cv_s = np.zeros(0, np.int64)
+    if len(cr) and not np.all(np.diff(cr) >= 0):
+        raise ValueError("pack_hotdense expects row-sorted input edges")
+    if nnz_pad is None:
+        nnz_pad = bucket_size(max(len(cr), 1))
+    ridx = np.int16 if (compress and nrows_pad <= 32768) else np.int32
+    cidx = np.int16 if (compress and ncols_pad <= 32768) else np.int32
+    if compress:
+        from gnn_tpu_torch.ops.sparse import round_bf16
+        cv, cv_s = round_bf16(cv), round_bf16(cv_s)
+    rr, ccol, vv = _pad_sorted_coo(cr, cc, cv, nnz_pad, nrows_pad - 1,
+                                   ridx, cidx)
+    # the transpose copy's segment ids (cols) pad at the top end too
+    ct, rt, vt = _pad_sorted_coo(cc_s, cr_s, cv_s, nnz_pad, ncols_pad - 1,
+                                 cidx, ridx)
+    return HotDenseAdj(
+        rows=rr, cols=ccol, vals=vv, rows_t=rt, cols_t=ct, vals_t=vt,
+        colpos=colpos, nfh=nfh, rowpos=rowpos, nf_col=nf_col,
+        present_row_slots=present_row_slots, row_cmp_idx=row_cmp_idx,
+        present_col_slots=present_col_slots, col_cmp_idx=col_cmp_idx,
+        n_valid_rows=int(n_valid_rows), n_valid_cols=int(n_valid_cols),
+        dense=None, dense_t=None, nrows=int(nrows_pad),
+        ncols=int(ncols_pad), k=spec.k)
+
+
+def bind_dense(adjs: List[object], dense, dense_t) -> List[object]:
+    """A new adjacency list whose hot layers carry the resident blocks
+    (the shipped layers never hold them)."""
+    return [dataclasses.replace(a, dense=dense, dense_t=dense_t)
+            if isinstance(a, HotDenseAdj) else a for a in adjs]
 
 
 def _take_rows_fill(a: torch.Tensor, idx: torch.Tensor,

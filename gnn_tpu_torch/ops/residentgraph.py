@@ -9,10 +9,12 @@ layer's LADIES debias vector and the cold residual ship
 :func:`materialize_adjs` rebuilds every layer's
 :class:`~gnn_tpu_torch.ops.hotdense.HotDenseAdj` on the device.
 
-Two payloads of the default "lite" mode are ported: the edge-stream tile
-payload (packed coords for the CUDA kernel) and the forward cold COO.
-Full expansion (``ship_cold=False``) and the part-sharded resident graph
-wait (ROADMAP queues 1 and 3).
+Three payloads: the default "lite" mode's edge-stream tile payload
+(packed coords for the CUDA kernel) and its forward cold COO, and full
+expansion (``ship_cold=False``), where nothing per-edge ships and the
+device rebuilds the cold COO from the resident CSR by span expansion,
+column filter, hot/cold split and compaction. The part-sharded resident
+graph waits (ROADMAP queue 3).
 
 PyTorch has no counterpart of JAX's out-of-range index modes, so they
 are spelled out: ``mode="fill"`` lookups index a table with one extra
@@ -349,9 +351,65 @@ def materialize_layer(g: ResidentGraph, ref: ResidentLayerRef,
                              torch.zeros((), device=dev))
         return _finish_layer(g, ref, rows_g, cols_g, rr.int(), cc.int(),
                              vv)
-    raise NotImplementedError(
-        "resident full expansion (ship_cold=False) is not ported yet "
-        "(ROADMAP queue 1: format leftovers and the subgraph sampler)")
+    if getattr(g, "part_axis", None) is not None:
+        raise NotImplementedError(
+            "full expansion on a part-sharded resident graph is not ported "
+            "yet (ROADMAP queue 3: multi-device over torch.distributed)")
+    return _expand_layer(g, ref, rows_g, cols_g)
+
+
+def _expand_layer(g: ResidentGraph, ref: ResidentLayerRef, rows_g,
+                  cols_g) -> HotDenseAdj:
+    """Full expansion: the layer's cold COO from the resident CSR, in the
+    order the host slice emits it (row-major, ascending column)."""
+    nrows, ncols, n = ref.nrows, ref.ncols, g.n
+    e_cap, nnz = ref.e_cap, ref.nnz_cold
+    dev = rows_g.device
+    e_tot = g.col_idx.shape[0]
+    # the rows' CSR spans; the pad row id n reads row_ptr[n] twice
+    # (degree 0), as JAX's clipped take does
+    rp_lo = g.row_ptr.long().index_select(0, rows_g.clamp(0, n))
+    rp_hi = g.row_ptr.long().index_select(0, (rows_g + 1).clamp(0, n))
+    deg = rp_hi - rp_lo
+    starts = torch.cumsum(deg, 0) - deg
+    e_used = starts[-1] + deg[-1]
+    # local row of every edge slot: +1 at each row's first slot
+    # (starts <= e_used <= e_cap, so every start lands in the e_cap + 1
+    # table)
+    seg = torch.zeros(e_cap + 1, dtype=torch.long, device=dev)
+    seg.index_add_(0, starts.clamp(max=e_cap), torch.ones_like(starts))
+    lr = (torch.cumsum(seg[:e_cap], 0) - 1).clamp(0, nrows - 1)
+    slot = torch.arange(e_cap, device=dev)
+    e_valid = slot < e_used
+    eptr = rp_lo.index_select(0, lr) + (slot - starts.index_select(0, lr))
+    # slots past the CSR read column 0 and value 0 (JAX: mode="fill")
+    in_csr = (eptr >= 0) & (eptr < e_tot)
+    eptr_c = eptr.clamp(0, max(e_tot - 1, 0))
+    gcol = torch.where(in_csr, g.col_idx.long().index_select(0, eptr_c),
+                       torch.zeros_like(eptr))
+    ev = torch.where(in_csr, g.val.float().index_select(0, eptr_c),
+                     torch.zeros((), device=dev))
+    # global -> local column table; pad columns (cols_g == n) land in the
+    # extra entry n, which no edge's column reaches
+    tab = torch.full((n + 1,), -1, dtype=torch.long, device=dev)
+    tab[cols_g] = torch.arange(ncols, device=dev)
+    lc = tab.index_select(0, gcol)
+    keep = e_valid & (lc >= 0)
+    lc_safe = torch.where(keep, lc, torch.zeros_like(lc))
+    w = ev * ref.normfact.index_select(0, lc_safe)
+    # hot-hot edges live in the resident block
+    r_hot = g.slot_lookup(rows_g) >= 0
+    c_hot = g.slot_lookup(cols_g) >= 0
+    edge_hot = r_hot.index_select(0, lr) & c_hot.index_select(0, lc_safe)
+    cold = keep & ~edge_hot
+    # compact the cold edges (positions are monotone); pads sit at row
+    # nrows - 1 with value 0, as pack_hotdense's
+    pos = torch.cumsum(cold.long(), 0) - 1
+    pos = torch.where(cold, pos, torch.full_like(pos, nnz))
+    rr = _scatter_drop(nnz, nrows - 1, pos, lr, torch.int32, dev)
+    cc = _scatter_drop(nnz, 0, pos, lc_safe, torch.int32, dev)
+    vv = _scatter_drop(nnz, 0.0, pos, w, torch.float32, dev)
+    return _finish_layer(g, ref, rows_g, cols_g, rr, cc, vv)
 
 
 def _finish_layer(g: ResidentGraph, ref: ResidentLayerRef, rows_g, cols_g,
@@ -405,7 +463,7 @@ def _finish_layer(g: ResidentGraph, ref: ResidentLayerRef, rows_g, cols_g,
         col_cmp_idx=col_cmp_idx.int(),
         n_valid_rows=ref.n_valid_rows, n_valid_cols=ref.n_valid_cols,
         dense=g.dense, dense_t=g.dense_t, nrows=nrows, ncols=ncols, k=k,
-        **es_kw)
+        t_sorted=False, **es_kw)
 
 
 def materialize_adjs(g: ResidentGraph, adjs, sampled_nodes,

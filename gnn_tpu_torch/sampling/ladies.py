@@ -1,5 +1,6 @@
-"""LADIES layer-wise importance sampling (host side): the counterpart of
-`gnn_tpu.sampling.ladies`, drawing the same random numbers.
+"""LADIES layer-wise importance sampling and the subgraph sampler (host
+side): the counterpart of `gnn_tpu.sampling.ladies`, drawing the same
+random numbers.
 
 Per layer: slice ``U = lap[prev, :]``; column probability = column nnz
 counts of ``U`` (reference ``sampler.py:117``), optionally skewed; sample
@@ -12,8 +13,10 @@ numpy fallback draw DIFFERENT numbers (each is deterministic), so batch
 identity with the JAX package needs both on the same path.
 
 Formats: ``coo``, ``blocked`` (tiled, K2), ``pattern`` (GAT's
-pattern-only transport) and ``resident``. ``hot`` and the subgraph
-sampler are not ported yet (ROADMAP queue 1).
+pattern-only transport), ``hot`` (host-packed hot-block plumbing + cold
+COO) and ``resident``. The subgraph sampler (:func:`subgraph_sample`)
+samples one node set for the top layer; every deeper layer is the same
+square adjacency, packed once and shared.
 """
 from __future__ import annotations
 
@@ -72,7 +75,8 @@ class SamplerConfig:
     num_classes: int
     sampler: str = "ladies"
     scale_factor: float = 1.0
-    adj_format: str = "coo"   # 'coo' | 'blocked' | 'pattern' | 'resident'
+    # 'coo' | 'blocked' | 'pattern' | 'hot' | 'resident'
+    adj_format: str = "coo"
     hot_spec: Optional[object] = dataclasses.field(
         default=None, repr=False, compare=False)
     node_pad_multiple: int = 128
@@ -175,14 +179,20 @@ def _pack_adj(cfg: SamplerConfig, rows, cols, vals, n_rows, n_cols,
     if cfg.adj_format == "blocked":
         return sparse_ops.pack_blocked(rows, cols, vals, n_rows, n_cols,
                                        r_cap, c_cap, bm=cfg.bm, bk=cfg.bk)
+    if cfg.adj_format == "hot":
+        if cfg.hot_spec is None:
+            raise ValueError("adj_format='hot' needs SamplerConfig.hot_spec "
+                             "(see gnn_tpu_torch.ops.hotdense.HotSpec)")
+        from gnn_tpu_torch.ops.hotdense import pack_hotdense
+        return pack_hotdense(cfg.hot_spec, rows, cols, vals, prev, after,
+                             normfact, n_rows, n_cols, r_cap, c_cap,
+                             compress=cfg.compress)
     if cfg.adj_format == "coo":
         nnz_pad = bucket_size(max(len(rows), 1))
         return sparse_ops.pack_coo(rows, cols, vals, n_rows, n_cols,
                                    r_cap, c_cap, nnz_pad,
                                    compress=cfg.compress)
-    raise NotImplementedError(
-        f"adj_format {cfg.adj_format!r} is not ported yet (ROADMAP queue "
-        f"1: format leftovers and the subgraph sampler)")
+    raise ValueError(f"unknown adj_format {cfg.adj_format!r}")
 
 
 def _layer_probability(U: sp.csr_matrix, skew_nodes, scale_factor):
@@ -191,6 +201,34 @@ def _layer_probability(U: sp.csr_matrix, skew_nodes, scale_factor):
     if scale_factor > 1 and skew_nodes is not None:
         pi[skew_nodes] = pi[skew_nodes] * scale_factor
     return pi / pi.sum()
+
+
+def _cold_only_mask(cfg: SamplerConfig, lib):
+    """uint8 hot-node mask when the native slice should emit only cold
+    edges (resident-lite), else None. Cached on the (frozen) HotSpec so
+    the same array rides every call: NativeCSR.ensure_split keys its
+    split copy on it."""
+    if (lib is None or cfg.adj_format != "resident"
+            or not cfg.resident_ship_cold or cfg.hot_spec is None):
+        return None
+    hot_node = getattr(cfg.hot_spec, "_hot_mask", None)
+    if hot_node is None:
+        hot_node = (cfg.hot_spec.slot_of_node >= 0).astype(np.uint8)
+        object.__setattr__(cfg.hot_spec, "_hot_mask", hot_node)
+    return hot_node
+
+
+def _tile_spec(cfg: SamplerConfig, hot_node, r_cap: int, c_cap: int):
+    """The native direct-to-tiles spec ``(n_rt, n_ct, log2 bm, log2 bk)``
+    and ``(bm, bk)`` when the cold slice should emit packed coords, else
+    ``(None, None)``."""
+    if not (hot_node is not None and cfg.resident_stream_tiles
+            and cfg.resident_val_free):
+        return None, None
+    from gnn_tpu_torch.ops.edgestream import tile_dims
+    es_bm, es_bk = tile_dims(r_cap, c_cap)
+    return (r_cap // es_bm, c_cap // es_bk, es_bm.bit_length() - 1,
+            es_bk.bit_length() - 1), (es_bm, es_bk)
 
 
 def ladies_sample(cfg: SamplerConfig, seed: int, batch_nodes: np.ndarray,
@@ -207,16 +245,7 @@ def ladies_sample(cfg: SamplerConfig, seed: int, batch_nodes: np.ndarray,
     adjs: List[Optional[object]] = []
     sampled: List[np.ndarray] = []
     lib, ngraph = _native_graph(lap_matrix)
-    # resident-lite: the native slice emits ONLY cold edges
-    hot_node = None
-    if (lib is not None and cfg.adj_format == "resident"
-            and cfg.resident_ship_cold and cfg.hot_spec is not None):
-        # cached on the (frozen) HotSpec so the same array rides every
-        # call — NativeCSR.ensure_split keys its split copy on it
-        hot_node = getattr(cfg.hot_spec, "_hot_mask", None)
-        if hot_node is None:
-            hot_node = (cfg.hot_spec.slot_of_node >= 0).astype(np.uint8)
-            object.__setattr__(cfg.hot_spec, "_hot_mask", hot_node)
+    hot_node = _cold_only_mask(cfg, lib)
 
     for d in range(n_layers):
         li = n_layers - d - 1
@@ -231,22 +260,15 @@ def ladies_sample(cfg: SamplerConfig, seed: int, batch_nodes: np.ndarray,
         tiles_pre = None
         if lib is not None:
             from gnn_tpu_torch.native import ladies_layer_native
-            tile_spec = None
-            if (hot_node is not None and cfg.resident_stream_tiles
-                    and cfg.resident_val_free):
-                # direct-to-tiles: the cold slice emits packed coords
-                from gnn_tpu_torch.ops.edgestream import tile_dims
-                es_bm, es_bk = tile_dims(r_cap, c_cap)
-                tile_spec = (r_cap // es_bm, c_cap // es_bk,
-                             es_bm.bit_length() - 1,
-                             es_bk.bit_length() - 1)
+            # direct-to-tiles: the cold slice emits packed coords
+            tile_spec, es_dims = _tile_spec(cfg, hot_node, r_cap, c_cap)
             out = ladies_layer_native(
                 lib, ngraph, prev, cfg.samp_num,
                 int(rng.integers(2 ** 63 - 1)), skew, cfg.scale_factor,
                 hot_node=hot_node, tile_spec=tile_spec)
             if tile_spec is not None:
                 after, normfact, coords, tile_cnt = out
-                tiles_pre = (coords, tile_cnt, es_bm, es_bk)
+                tiles_pre = (coords, tile_cnt, *es_dims)
                 rows = cols = np.zeros(0, np.int32)
                 vals = np.zeros(0, np.float32)
             else:
@@ -298,10 +320,103 @@ def _finalize_batch(cfg, caps, input_nodes, batch_nodes, adjs, sampled,
                      labels=labels, label_mask=lmask, batch_nodes=bn)
 
 
-def _subgraph_sample(*args, **kwargs):
-    raise NotImplementedError(
-        "the subgraph sampler is not ported yet (ROADMAP queue 1: "
-        "format leftovers and the subgraph sampler)")
+def subgraph_sample(cfg: SamplerConfig, seed: int, batch_nodes: np.ndarray,
+                    lap_matrix: sp.csr_matrix, labels_full: sp.csr_matrix,
+                    skewed_sampling_nodes: Optional[List[np.ndarray]] = None,
+                    ) -> MiniBatch:
+    """Subgraph sampler (reference ``sampler.py:7-86``): one node set
+    sampled from the top layer's distribution; every deeper layer is the
+    square ``lap[after][:, after]`` with the same debias weights, sliced
+    and packed once and shared (the same object) by all of them. The
+    sample and every slice run in the native core when it loads (cold-only
+    and direct-to-tiles in resident modes, as the LADIES layers)."""
+    rng = np.random.default_rng(seed)
+    caps = cfg.layer_caps()
+    orders_td = list(cfg.orders)[::-1]
+    n_layers = len(orders_td)
+    prev = np.asarray(batch_nodes, dtype=np.int64)
+    skew = None
+    if skewed_sampling_nodes is not None and cfg.scale_factor > 1:
+        # reference sampler.py:23-25 skews by the nodes resident on this
+        # device; callers pass that set as a one-layer skew list
+        skew = skewed_sampling_nodes[0]
+    lib, ngraph = _native_graph(lap_matrix)
+    hot_node = _cold_only_mask(cfg, lib)
+
+    if lib is not None:
+        from gnn_tpu_torch.native import sample_columns_native
+        after, normfact, pos = sample_columns_native(
+            lib, ngraph, prev, cfg.samp_num,
+            int(rng.integers(2 ** 63 - 1)), skew, cfg.scale_factor)
+    else:
+        U = lap_matrix[prev, :]
+        p = _layer_probability(U, skew, cfg.scale_factor)
+        s_num = min(int((p > 0).sum()), cfg.samp_num)
+        chosen = _gumbel_topk_without_replacement(rng, p, s_num)
+        after = np.unique(np.concatenate([chosen, prev]))
+        normfact = (1.0 / np.clip(s_num * p[after], 1e-10, 1.0)).astype(
+            np.float32)
+        pos = None
+    cap_bottom = caps[0]
+
+    def _slice_and_pack(row_set, r_cap):
+        """Pack ``lap[row_set][:, after]``."""
+        tiles_pre = None
+        if lib is not None:
+            from gnn_tpu_torch.native import slice_rows_native
+            tile_spec, es_dims = _tile_spec(cfg, hot_node, r_cap, cap_bottom)
+            out = slice_rows_native(lib, ngraph, row_set, pos, normfact,
+                                    hot_node=hot_node, tile_spec=tile_spec)
+            if tile_spec is not None:
+                tiles_pre = (*out, *es_dims)
+                rows = cols = np.zeros(0, np.int32)
+                vals = np.zeros(0, np.float32)
+            else:
+                rows, cols, vals = out
+        else:
+            rows, cols, vals = _slice_cols_to_coo(
+                lap_matrix[row_set, :], after, normfact)
+        return _pack_adj(cfg, rows, cols, vals, len(row_set), len(after),
+                         r_cap, cap_bottom, prev=row_set, after=after,
+                         normfact=normfact, lap_indptr=lap_matrix.indptr,
+                         cold_precomputed=hot_node is not None,
+                         tiles_pre=tiles_pre)
+
+    adjs: List[Optional[object]] = []
+    sampled: List[np.ndarray] = []
+    # top-down: order-0 layers keep their node set; the first aggregating
+    # layer maps the batch onto the sampled set
+    d = 0
+    while d < n_layers:
+        r_cap = caps[n_layers - d]
+        d += 1
+        if orders_td[d - 1] == 0:
+            adjs.append(None)
+            sampled.append(np.zeros(r_cap, np.int32))
+            continue
+        adjs.append(_slice_and_pack(prev, r_cap))
+        s_pad = np.zeros(r_cap, np.int32)
+        s_pad[: len(prev)] = np.searchsorted(after, prev)
+        sampled.append(s_pad)
+        break
+    sq_adj = None
+    for d in range(d, n_layers):
+        r_cap = caps[n_layers - d]
+        if sq_adj is None:
+            sq_adj = _slice_and_pack(after, r_cap)
+            sq_cap = r_cap
+        # uniform caps make every deeper layer the same padded square
+        assert r_cap == sq_cap, (r_cap, sq_cap)
+        adjs.append(sq_adj)
+        # deeper rows ARE the shared node set: sampled_nodes is the
+        # identity on valid rows (pad rows point at input 0)
+        s_pad = np.zeros(r_cap, np.int32)
+        s_pad[: len(after)] = np.arange(len(after), dtype=np.int32)
+        sampled.append(s_pad)
+    adjs.reverse()
+    sampled.reverse()
+    return _finalize_batch(cfg, caps, after, batch_nodes, adjs, sampled,
+                           labels_full)
 
 
-SAMPLERS = {"ladies": ladies_sample, "subgraph": _subgraph_sample}
+SAMPLERS = {"ladies": ladies_sample, "subgraph": subgraph_sample}

@@ -31,23 +31,37 @@ class DeviceBatch:
 def to_device_batch(mb: MiniBatch, device) -> DeviceBatch:
     """Copy a host batch to ``device``: every adjacency's numpy arrays
     become tensors of the same dtype (int16 cols stay int16), 0-d counts
-    Python ints."""
+    Python ints. An adjacency object that several layers share (the
+    subgraph sampler's square layer) is copied once and stays shared."""
     def t(a):
         return torch.from_numpy(a).to(device)
+    moved = {}
+    adjs = []
+    for a in mb.adjs:
+        if id(a) not in moved:
+            moved[id(a)] = to_device(a, device)
+        adjs.append(moved[id(a)])
     return DeviceBatch(
-        adjs=[to_device(a, device) for a in mb.adjs],
+        adjs=adjs,
         sampled_nodes=[t(s) for s in mb.sampled_nodes],
         input_nodes=t(mb.input_nodes), input_mask=t(mb.input_mask),
         labels=t(mb.labels), label_mask=t(mb.label_mask))
 
 
-def prepare_adjs(batch: DeviceBatch, resident_graph) -> List[object]:
-    """The batch's adjacency list: rebuilt from the device-resident
-    graph in resident mode, else as shipped (COO, blocked, pattern)."""
-    if resident_graph is not None:
+def prepare_adjs(batch: DeviceBatch, agg_state) -> List[object]:
+    """The batch's adjacency list. ``agg_state`` is the device-resident
+    aggregation state: a ``ResidentGraph`` (resident mode: every layer is
+    rebuilt from it), the hot blocks ``(dense, dense_t)`` (hot format:
+    bound into the shipped layers), or None (COO, blocked, pattern: as
+    shipped)."""
+    from gnn_tpu_torch.ops.residentgraph import ResidentGraph
+    if isinstance(agg_state, ResidentGraph):
         from gnn_tpu_torch.ops.residentgraph import materialize_adjs
-        return materialize_adjs(resident_graph, batch.adjs,
+        return materialize_adjs(agg_state, batch.adjs,
                                 batch.sampled_nodes, batch.input_nodes)
+    if agg_state is not None:
+        from gnn_tpu_torch.ops.hotdense import bind_dense
+        return bind_dense(list(batch.adjs), *agg_state)
     return list(batch.adjs)
 
 

@@ -33,8 +33,8 @@ class Trainer(EvalMixin):
     def __init__(self, net, pipeline, feats: np.ndarray, lr: float = 0.01,
                  sigmoid_loss: bool = True, seed: int = 0,
                  feature_source=None, resident_graph=None,
-                 lr_warmup: int = 0, grad_clip: float = 5.0,
-                 device="cuda"):
+                 hot_dense=None, lr_warmup: int = 0,
+                 grad_clip: float = 5.0, device="cuda"):
         self.device = resolve_device(device)
         self.net = net.to(self.device)
         self.pipeline = pipeline
@@ -49,12 +49,17 @@ class Trainer(EvalMixin):
                                           lr=self._lr_at(0))
         self.n_updates = 0
         # resident-graph mode: slot table, rank-1 factors and hot blocks
-        # live on the device; batches carry ResidentLayerRefs
+        # live on the device; batches carry ResidentLayerRefs. Hot format
+        # (``hot_dense=(dense, dense_t)``): only the blocks live there;
+        # batches carry host-packed HotDenseAdj layers
         self.agg_state = None
         if resident_graph is not None:
             from gnn_tpu_torch.ops.residentgraph import ResidentGraph
             self.agg_state = ResidentGraph.from_host(resident_graph,
                                                      self.device)
+        elif hot_dense is not None:
+            self.agg_state = tuple(torch.as_tensor(d).to(self.device)
+                                   for d in hot_dense)
         self._seed = seed
         # dropout draws from this generator, reseeded from (seed, epoch)
         self.generator = torch.Generator(device=self.device)

@@ -87,9 +87,11 @@ def test_gat_trains_one_epoch_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--adj_format", "blocked"], ["--model", "gat", "--adj_format", "pattern"],
-    ["--model", "gat", "--adj_format", "coo"]])
+    ["--model", "gat", "--adj_format", "coo"], ["--adj_format", "hot"],
+    ["--sampler", "subgraph"]])
 def test_ported_formats_train(tmp_path, flag):
-    """The tile-stream formats on the CPU (K2/K5's plain versions): two
+    """The tile-stream formats on the CPU (K2/K5's plain versions), the
+    hot format and the subgraph sampler (on the resident path): two
     epochs with finite, falling losses."""
     save = str(tmp_path / "save")
     assert tcli.main(TINY + ["--device", "cpu", "--epoch_num", "2",
@@ -117,7 +119,7 @@ def test_format_rules_match_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--adj_format", "hot"], ["--sampler", "subgraph"], ["--feature_cache"],
+    ["--feature_cache"],
     ["--resident_parts", "2"], ["--n_devices", "2"],
     ["--steps_per_dispatch", "4"], ["--locality_sampling"], ["--resume"],
     ["--profile_dir", "prof"], ["--op_timing"]])

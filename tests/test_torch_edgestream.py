@@ -230,3 +230,275 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case, transpose):
     assert tes.launches["transpose" if transpose else "forward"] == \
         before + 1
     torch.testing.assert_close(got, want, **TOL)
+
+
+# --- the segment-grid SpMM (K6) ---
+
+def _seg_case(seed):
+    """The JAX package's K6 test case for ``seed`` (random tile dims, a
+    few row/col tiles, up to 4% density, F 8 or 96)."""
+    rng = np.random.RandomState(50 + seed)
+    bm = int(rng.choice([128, 256]))
+    bk = int(rng.choice([128, 256]))
+    n_rt = rng.randint(1, 5)
+    n_ct = rng.randint(1, 5)
+    nr, nc = n_rt * bm, n_ct * bk
+    nnz = rng.randint(0, max(nr * nc // 25, 2))
+    key = rng.choice(nr * nc, size=nnz, replace=False) if nnz else \
+        np.zeros(0, np.int64)
+    rows = np.sort(key) // nc
+    cols = np.sort(key) % nc
+    rv = rng.rand(nr).astype(np.float32) + 0.5
+    nf = rng.rand(nc).astype(np.float32) + 0.5
+    f = int(rng.choice([8, 96]))
+    x = rng.randn(nc, f).astype(np.float32)
+    g = rng.randn(nr, f).astype(np.float32)
+    return bm, bk, nr, nc, rows, cols, rv, nf, x, g
+
+
+def _swapped(rows, cols, nr, nc, bm, bk):
+    """The transpose's pack: (cols, rows) swapped, sorted row-major."""
+    o = np.argsort(cols * nr + rows, kind="stable")
+    return tes.pack_edge_tiles(cols[o], rows[o], nc, nr, bm=bk, bk=bm)
+
+
+def _pallas_seg(tiles_np, segp, x, rv, nf):
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from gnn_tpu.ops.pallas_edgestream import (EdgeTiles,
+                                               edge_stream_spmm_seg)
+    t = EdgeTiles(coords=jnp.asarray(tiles_np.coords),
+                  blk_rc=jnp.asarray(tiles_np.blk_rc),
+                  off=jnp.asarray(tiles_np.off),
+                  t_order=jnp.asarray(tiles_np.t_order),
+                  nrows=tiles_np.nrows, ncols=tiles_np.ncols,
+                  bm=tiles_np.bm, bk=tiles_np.bk, ecap=tiles_np.ecap)
+    with pltpu.force_tpu_interpret_mode():
+        return np.asarray(edge_stream_spmm_seg(
+            t, jnp.asarray(segp), jnp.asarray(x), jnp.asarray(rv),
+            jnp.asarray(nf), interpret=True))
+
+
+def _seg_torch(tiles, segp, x, rv, nf, device="cpu"):
+    return tes.edge_stream_spmm_seg(
+        _to_torch(tiles, device), torch.from_numpy(segp).to(device),
+        torch.from_numpy(x).to(device), torch.from_numpy(rv).to(device),
+        torch.from_numpy(nf).to(device))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_segment_tiles_match_jax(case):
+    """The same seg_ptr, array for array: default padding, a wider pad,
+    and a too-small pad raises in both."""
+    from gnn_tpu.ops import pallas_edgestream as jes
+    nr, nc, _, dens, ecap, bm, bk, _ = case
+    _, rows, cols = _edges(5, nr, nc, dens)
+    t = tes.pack_edge_tiles(rows, cols, nr, nc, bm=bm, bk=bk, ecap=ecap,
+                            nb_pad=None)
+    a = tes.segment_tiles(t.blk_rc, t.off)
+    np.testing.assert_array_equal(a, jes.segment_tiles(t.blk_rc, t.off))
+    assert a.dtype == np.int32
+    wide = len(a) + 20
+    np.testing.assert_array_equal(tes.segment_tiles(t.blk_rc, t.off, wide),
+                                  jes.segment_tiles(t.blk_rc, t.off, wide))
+    ns = int(np.count_nonzero(a[:-1] < t.blk_rc.shape[0]))
+    with pytest.raises(ValueError):
+        tes.segment_tiles(t.blk_rc, t.off, ns - 1)
+
+
+def test_segment_tiles_split_heavy_row_tiles_like_jax():
+    """Row tiles whose edges overflow the coord window split into
+    several segments, identically in both packages."""
+    from gnn_tpu.ops import pallas_edgestream as jes
+    _, rows, cols = _edges(6, 512, 1024, 0.15)
+    t = tes.pack_edge_tiles(rows, cols, 512, 1024, bm=256, bk=256)
+    a = tes.segment_tiles(t.blk_rc, t.off)
+    np.testing.assert_array_equal(a, jes.segment_tiles(t.blk_rc, t.off))
+    ns = int(np.count_nonzero(a[:-1] < t.blk_rc.shape[0]))
+    assert ns > 2 * 2   # more segments than row tiles
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_seg_plain_version_matches_pallas(seed):
+    """K6's plain version against the Pallas K6 in interpret mode: the
+    forward on the pack, and the transpose as the same function on the
+    (cols, rows)-swapped pack with the factors swapped. rtol = atol =
+    1e-4 (the JAX test's: float32 sums in another order)."""
+    bm, bk, nr, nc, rows, cols, rv, nf, x, g = _seg_case(seed)
+    tiles = tes.pack_edge_tiles(rows, cols, nr, nc, bm=bm, bk=bk)
+    segp = tes.segment_tiles(tiles.blk_rc, tiles.off)
+    want = _pallas_seg(tiles, segp, x, rv, nf)
+    got = _seg_torch(tiles, segp, x, rv, nf)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    tiles_t = _swapped(rows, cols, nr, nc, bm, bk)
+    segp_t = tes.segment_tiles(tiles_t.blk_rc, tiles_t.off)
+    want_t = _pallas_seg(tiles_t, segp_t, g, nf, rv)
+    got_t = _seg_torch(tiles_t, segp_t, g, nf, rv)
+    np.testing.assert_allclose(got_t.numpy(), want_t, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("heavy", [False, True])
+def test_seg_plain_version_equals_k1_plain(heavy):
+    """The same function as K1's forward (and, on the swapped pack, its
+    transpose) on the same tiles, including row tiles split into several
+    segments."""
+    nr, nc, f, dens, bm, bk = ((512, 1024, 40, 0.15, 256, 256) if heavy
+                               else (384, 512, 24, 0.05, 128, 256))
+    rng, rows, cols = _edges(7, nr, nc, dens)
+    rv = (rng.rand(nr) + 0.5).astype(np.float32)
+    nf = (rng.rand(nc) + 0.5).astype(np.float32)
+    x = rng.randn(nc, f).astype(np.float32)
+    g = rng.randn(nr, f).astype(np.float32)
+    tiles = tes.pack_edge_tiles(rows, cols, nr, nc, bm=bm, bk=bk)
+    segp = tes.segment_tiles(tiles.blk_rc, tiles.off)
+    k1 = tes.edge_stream_spmm(_to_torch(tiles), torch.from_numpy(x),
+                              torch.from_numpy(rv), torch.from_numpy(nf))
+    np.testing.assert_allclose(_seg_torch(tiles, segp, x, rv, nf).numpy(),
+                               k1.numpy(), **TOL)
+    k1_t = tes.edge_stream_spmm(_to_torch(tiles), torch.from_numpy(g),
+                                torch.from_numpy(rv), torch.from_numpy(nf),
+                                transpose=True)
+    tiles_t = _swapped(rows, cols, nr, nc, bm, bk)
+    segp_t = tes.segment_tiles(tiles_t.blk_rc, tiles_t.off)
+    np.testing.assert_allclose(
+        _seg_torch(tiles_t, segp_t, g, nf, rv).numpy(), k1_t.numpy(), **TOL)
+
+
+def test_seg_rejects_per_edge_values():
+    nr, nc, _, dens, ecap, bm, bk, _ = CASES[4]
+    rng, rows, cols = _edges(8, nr, nc, dens)
+    tiles = tes.pack_edge_tiles(rows, cols, nr, nc, bm=bm, bk=bk,
+                                vals=(rng.rand(len(rows)) + 0.5).astype(
+                                    np.float32))
+    segp = tes.segment_tiles(tiles.blk_rc, tiles.off)
+    with pytest.raises(ValueError, match="rank-1"):
+        _seg_torch(tiles, segp, np.ones((nc, 4), np.float32),
+                   np.ones(nr, np.float32), np.ones(nc, np.float32))
+
+
+def test_seg_uncovered_row_tiles_read_zero():
+    """A seg_ptr that covers only row tile 0 (every later segment empty)
+    gives zeros on the other row tiles and K1's rows on row tile 0."""
+    rng, rows, cols = _edges(9, 384, 256, 0.1)
+    tiles = tes.pack_edge_tiles(rows, cols, 384, 256)
+    segp = tes.segment_tiles(tiles.blk_rc, tiles.off)
+    rt = tiles.blk_rc >> 16
+    end0 = int(np.searchsorted(rt, 1))
+    hand = np.full_like(segp, end0)
+    hand[0] = 0
+    x = rng.randn(256, 16).astype(np.float32)
+    ones_r, ones_c = np.ones(384, np.float32), np.ones(256, np.float32)
+    y = _seg_torch(tiles, hand, x, ones_r, ones_c).numpy()
+    k1 = tes.edge_stream_spmm(_to_torch(tiles), torch.from_numpy(x),
+                              torch.ones(384), torch.ones(256)).numpy()
+    assert np.count_nonzero(y[128:]) == 0
+    assert np.count_nonzero(k1[:128])
+    np.testing.assert_allclose(y[:128], k1[:128], **TOL)
+
+
+SEG_CUDA_CASES = [c for c in CASES if not c[7]] + [
+    (512, 1024, 602, 0.15, 256, 256, 256, False)]   # split row tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("case", SEG_CUDA_CASES)
+def test_cuda_seg_kernel_matches_plain_version(cuda_device, case,
+                                               transpose):
+    """K6's CUDA kernel vs its plain version on the card, forward and on
+    the swapped pack, with padding segments and duplicate edges.
+    Tolerance: 1e-4 of the output's magnitude (``chip_smoke.py``'s
+    REL_TOL): both sum up to a few hundred float32 products per row in
+    orders that vary from run to run (shared-memory atomics; index_add_
+    on the card), so an element that cancels can differ by more than
+    1e-5 absolutely."""
+    nr, nc, f, dens, ecap, bm, bk, _ = case
+    rng, rows, cols = _edges(10, nr, nc, dens, dup=True)
+    if transpose:
+        tiles = _swapped(rows, cols, nr, nc, bm, bk)
+        nr, nc = nc, nr
+    else:
+        tiles = tes.pack_edge_tiles(rows, cols, nr, nc, bm=bm, bk=bk)
+    segp = tes.segment_tiles(tiles.blk_rc, tiles.off)
+    segp = np.concatenate([segp, np.full(5, segp[-1], np.int32)])
+    t = _to_torch(tiles, cuda_device)
+    sp_t = torch.from_numpy(segp).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    rv = torch.rand(nr, generator=g, device=cuda_device) + 0.5
+    nf = torch.rand(nc, generator=g, device=cuda_device) + 0.5
+    x = torch.randn(nc, f, generator=g, device=cuda_device)
+    before = tes.launches["seg"]
+    got = tes.edge_stream_spmm_seg(t, sp_t, x, rv, nf)
+    want = tes.edge_stream_spmm_seg_ref(t, sp_t, x, rv, nf)
+    torch.cuda.synchronize()
+    assert tes.launches["seg"] == before + 1
+    _assert_rel_close(got, want)
+
+
+def _assert_rel_close(got, want, rel=1e-4):
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    assert torch.isfinite(got).all() and err <= rel * scale + 1e-6, \
+        (err, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_seg_uncovered_row_tiles_read_zero(cuda_device):
+    """On the card: a seg_ptr that covers only row tile 0 writes zeros on
+    the other row tiles (empty segments in a shared row tile, and a row
+    tile with no segment)."""
+    rng, rows, cols = _edges(9, 384, 256, 0.1)
+    tiles = tes.pack_edge_tiles(rows, cols, 384, 256)
+    rt = tiles.blk_rc >> 16
+    hand = np.full(9, int(np.searchsorted(rt, 1)), np.int32)
+    hand[0] = 0
+    t = _to_torch(tiles, cuda_device)
+    sp_t = torch.from_numpy(hand).to(cuda_device)
+    x = torch.from_numpy(rng.randn(256, 40).astype(np.float32)).to(
+        cuda_device)
+    ones_r = torch.ones(384, device=cuda_device)
+    ones_c = torch.ones(256, device=cuda_device)
+    got = tes.edge_stream_spmm_seg(t, sp_t, x, ones_r, ones_c)
+    want = tes.edge_stream_spmm_seg_ref(t, sp_t, x, ones_r, ones_c)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[128:]) == 0
+    _assert_rel_close(got, want)
+
+
+def test_probe_cases_hold_k6_against_k1_on_cpu(tmp_path):
+    """``tools/torch_edgestream_probe.py``'s set-up on a small graph on
+    the CPU: one resident stream-tile batch, and per layer the forward
+    pack and the swapped pack with their seg_ptr, on which K6's plain
+    version gives K1's forward and transpose."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "tools", "torch_edgestream_probe.py")
+    spec = importlib.util.spec_from_file_location("probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    argv = ["--dataset", "synthetic:nodes=3000,deg=12,feats=16,classes=5",
+            "--nhid", "16", "--orders", "1,1,1", "--samp_num", "512",
+            "--batch_size", "256", "--hot_k", "512"]
+    adjs, widths, ctx = probe.default_batch(str(tmp_path),
+                                            torch.device("cpu"), argv)
+    assert widths == [16, 32, 32] and ctx.orders == (1, 1, 1)
+    cases = probe.seg_cases(adjs, widths)
+    assert [c.layer for c in cases] == [0, 1, 2]
+    g = torch.Generator().manual_seed(0)
+    for c in cases:
+        nb = c.tiles.blk_rc.shape[0]
+        assert probe.n_segments(c.seg, nb) >= c.tiles.nrows // c.tiles.bm
+        assert (c.tiles_t.nrows, c.tiles_t.ncols) == (c.tiles.ncols,
+                                                      c.tiles.nrows)
+        x = torch.randn(c.tiles.ncols, 6, generator=g)
+        gy = torch.randn(c.tiles.nrows, 6, generator=g)
+        torch.testing.assert_close(
+            tes.edge_stream_spmm_seg(c.tiles, c.seg, x, c.rv, c.nf),
+            tes.edge_stream_spmm(c.tiles, x, c.rv, c.nf), **TOL)
+        torch.testing.assert_close(
+            tes.edge_stream_spmm_seg(c.tiles_t, c.seg_t, gy, c.nf, c.rv),
+            tes.edge_stream_spmm(c.tiles, gy, c.rv, c.nf, transpose=True),
+            **TOL)

@@ -1,4 +1,5 @@
-"""The PyTorch port imports no JAX and nothing of the JAX package.
+"""The PyTorch port, ``chip_smoke.py`` and the port's tools
+(``tools/torch_*.py``) import no JAX and nothing of the JAX package.
 
 The import check runs in a subprocess: this test session has already
 imported jax (tests/conftest.py)."""
@@ -27,6 +28,8 @@ def test_importing_every_module_loads_no_jax():
     assert "gnn_tpu_torch.ops.esattn" in names
     assert "gnn_tpu_torch.models.gat" in names
     assert "gnn_tpu_torch.cli" in names
+    assert "gnn_tpu_torch.ops.hotdense" in names
+    assert "gnn_tpu_torch.utils.timing" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
@@ -51,7 +54,13 @@ def test_sources_never_import_the_jax_package():
                 with open(path) as fh:
                     for m in pat.finditer(fh.read()):
                         hits.append(f"{path}: {m.group(0).strip()}")
-    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
-        for m in pat.finditer(fh.read()):
-            hits.append(f"chip_smoke.py: {m.group(0).strip()}")
+    scripts = ["chip_smoke.py"] + sorted(
+        os.path.join("tools", f) for f in os.listdir(os.path.join(ROOT,
+                                                                  "tools"))
+        if f.startswith("torch_") and f.endswith(".py"))
+    assert os.path.join("tools", "torch_edgestream_probe.py") in scripts
+    for rel in scripts:
+        with open(os.path.join(ROOT, rel)) as fh:
+            for m in pat.finditer(fh.read()):
+                hits.append(f"{rel}: {m.group(0).strip()}")
     assert not hits, hits

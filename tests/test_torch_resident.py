@@ -33,7 +33,7 @@ STATIC = ["nrows", "ncols", "k", "es_bm", "es_bk", "n_valid_rows",
           "n_valid_cols"]
 
 
-def _both(graph, stream, norm, weighted, orders=(1, 1)):
+def _both(graph, stream, norm, weighted, orders=(1, 1), ship_cold=True):
     lap = build_laplacian(graph.adj_full, "graphsage", norm=norm)
     if weighted:
         lap = lap.copy()
@@ -43,7 +43,7 @@ def _both(graph, stream, norm, weighted, orders=(1, 1)):
     kw = dict(batch_size=64, samp_num=128, orders=orders,
               num_nodes=lap.shape[0], num_classes=graph.num_classes,
               adj_format="resident", compress=False,
-              resident_ship_cold=True, resident_val_free=not weighted,
+              resident_ship_cold=ship_cold, resident_val_free=not weighted,
               resident_stream_tiles=stream)
     # JAX side
     jspec = jhd.HotSpec.from_sample_prob(prob, 256)
@@ -146,3 +146,70 @@ def test_bf16_hot_block_matches_jax(small_graph):
         np.testing.assert_allclose(
             tspmm(ta, torch.from_numpy(x)).numpy(),
             np.asarray(jspmm(ja, jnp.asarray(x))), rtol=1e-4, atol=1e-4)
+
+
+def _materialize_both(jg, jcfg, tg, tcfg, lap, graph, seed, tgt):
+    jmb = jlad.ladies_sample(jcfg, seed, tgt, lap, graph.labels)
+    tmb = tlad.ladies_sample(tcfg, seed, tgt, lap, graph.labels)
+    jadjs = jrg.materialize_adjs(
+        jg, list(jmb.adjs), [jnp.asarray(s) for s in jmb.sampled_nodes],
+        jnp.asarray(jmb.input_nodes))
+    tadjs = trg.materialize_adjs(
+        tg, [to_device(a, "cpu") for a in tmb.adjs],
+        [torch.from_numpy(s) for s in tmb.sampled_nodes],
+        torch.from_numpy(tmb.input_nodes))
+    return jadjs, tadjs
+
+
+@pytest.mark.parametrize("norm,weighted", [
+    ("row", False), ("sym", False), ("row", True)])
+def test_full_expansion_matches_jax(small_graph, norm, weighted):
+    """``resident_ship_cold=False``: the device rebuilds the cold COO from
+    the resident CSR (span expansion, column filter, hot/cold split,
+    compaction). Every rebuilt array equals the JAX package's, and the
+    layer's spmm and its transpose match JAX's and the lite mode's on the
+    same batch (the same draws)."""
+    lap, jg, jcfg, tg, tcfg = _both(small_graph, False, norm, weighted,
+                                    ship_cold=False)
+    _, _, _, lg, lcfg = _both(small_graph, False, norm, weighted)
+    tgt = small_graph.train_nodes[:64]
+    jadjs, tadjs = _materialize_both(jg, jcfg, tg, tcfg, lap, small_graph,
+                                     5, tgt)
+    _, ladjs = _materialize_both(jg, jcfg, lg, lcfg, lap, small_graph, 5,
+                                 tgt)
+    rng = np.random.default_rng(2)
+    for l, (ja, ta, la) in enumerate(zip(jadjs, tadjs, ladjs)):
+        assert not ta.t_sorted and ta.es_rc is None
+        for f in STATIC:
+            assert int(getattr(ta, f)) == int(getattr(ja, f)), (l, f)
+        for f in FIELDS + ["rows_t", "cols_t", "vals_t"]:
+            jv, tv = getattr(ja, f), getattr(ta, f)
+            assert (jv is None) == (tv is None), (l, f)
+            if jv is not None:
+                np.testing.assert_array_equal(
+                    tv.numpy(), np.asarray(jv).astype(tv.numpy().dtype),
+                    err_msg=f"layer {l} {f}")
+        assert int(np.count_nonzero(ta.vals.numpy())) > 0
+        x = torch.from_numpy(rng.normal(size=(ta.ncols, 8)).astype(
+            np.float32))
+        g = torch.from_numpy(rng.normal(size=(ta.nrows, 8)).astype(
+            np.float32))
+        y = tspmm(ta, x)
+        np.testing.assert_allclose(
+            y.numpy(), np.asarray(jspmm(ja, jnp.asarray(x.numpy()))), **TOL)
+        np.testing.assert_allclose(y.numpy(), tspmm(la, x).numpy(), **TOL)
+        np.testing.assert_allclose(tspmm_t(ta, g).numpy(),
+                                   tspmm_t(la, g).numpy(), **TOL)
+
+
+def test_full_expansion_on_a_sharded_graph_raises(small_graph):
+    """The part-sharded branch stays with the multi-device queue."""
+    lap, _, _, tg, tcfg = _both(small_graph, False, "row", False,
+                                ship_cold=False)
+    tmb = tlad.ladies_sample(tcfg, 5, small_graph.train_nodes[:64], lap,
+                             small_graph.labels)
+    ref = to_device(tmb.adjs[1], "cpu")
+    tg.part_axis = "part"
+    ids = torch.from_numpy(tmb.input_nodes).long()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+        trg.materialize_layer(tg, ref, ids[: ref.nrows], ids[: ref.ncols])

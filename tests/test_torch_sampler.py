@@ -54,27 +54,31 @@ def assert_same_batch(t, j):
                                f"adjs[{l}].{f.name}")
 
 
-def _cfgs(graph, adj_format, stream, orders=(1, 1)):
+def _cfgs(graph, adj_format, stream, orders=(1, 1), sampler="ladies",
+          ship_cold=True):
     lap = build_laplacian(graph.adj_full, "graphsage")
     prob = compute_sample_prob(lap, graph.train_nodes, sum(orders))
     kw = dict(batch_size=64, samp_num=128, orders=orders,
               num_nodes=lap.shape[0], num_classes=graph.num_classes,
               adj_format=adj_format, resident_val_free=True,
-              resident_stream_tiles=stream)
+              resident_stream_tiles=stream, sampler=sampler,
+              resident_ship_cold=ship_cold)
     jspec = tspec = None
-    if adj_format == "resident":
+    if adj_format in ("hot", "resident"):
         jspec = JHotSpec.from_sample_prob(prob, 256)
         tspec = THotSpec.from_sample_prob(prob, 256)
     return (lap, jlad.SamplerConfig(hot_spec=jspec, **kw),
             tlad.SamplerConfig(hot_spec=tspec, **kw))
 
 
-@pytest.mark.parametrize("adj_format,stream,orders", [
-    ("resident", True, (1, 1)), ("resident", False, (1, 1)),
-    ("resident", True, (1, 0, 1)), ("coo", False, (1, 1))])
+@pytest.mark.parametrize("adj_format,stream,orders,ship_cold", [
+    ("resident", True, (1, 1), True), ("resident", False, (1, 1), True),
+    ("resident", True, (1, 0, 1), True), ("coo", False, (1, 1), True),
+    ("hot", False, (1, 1), True), ("resident", False, (1, 1), False)])
 def test_ladies_sample_matches_jax(small_graph, adj_format, stream,
-                                   orders):
-    lap, jcfg, tcfg = _cfgs(small_graph, adj_format, stream, orders)
+                                   orders, ship_cold):
+    lap, jcfg, tcfg = _cfgs(small_graph, adj_format, stream, orders,
+                            ship_cold=ship_cold)
     for seed, lo in [(5, 0), (11, 200)]:
         tgt = small_graph.train_nodes[lo:lo + 64]
         jmb = jlad.ladies_sample(jcfg, seed, tgt, lap, small_graph.labels)
@@ -111,3 +115,46 @@ def test_pipeline_epochs_match_jax(small_graph):
     finally:
         tp.close()
         jp.pool.shutdown(wait=True, cancel_futures=True)
+
+
+@pytest.mark.parametrize("adj_format,stream,ship_cold", [
+    ("coo", False, True), ("hot", False, True), ("resident", False, True),
+    ("resident", True, True), ("resident", False, False)])
+def test_subgraph_sample_matches_jax(small_graph, adj_format, stream,
+                                     ship_cold):
+    """subgraph_sample gives the JAX package's batches (coo, hot, resident
+    lite, resident stream tiles, resident full expansion); every deeper
+    layer is one shared object in both packages."""
+    lap, jcfg, tcfg = _cfgs(small_graph, adj_format, stream, (1, 1, 1),
+                            sampler="subgraph", ship_cold=ship_cold)
+    assert tlad.SAMPLERS["subgraph"] is tlad.subgraph_sample
+    for seed, lo in [(5, 0), (11, 200)]:
+        tgt = small_graph.train_nodes[lo:lo + 64]
+        jmb = jlad.subgraph_sample(jcfg, seed, tgt, lap, small_graph.labels)
+        tmb = tlad.subgraph_sample(tcfg, seed, tgt, lap, small_graph.labels)
+        assert_same_batch(tmb, jmb)
+        assert jmb.adjs[0] is jmb.adjs[1] and tmb.adjs[0] is tmb.adjs[1]
+        assert tmb.adjs[1] is not tmb.adjs[2]
+        cap = tcfg.layer_caps()[0]
+        np.testing.assert_array_equal(
+            tmb.sampled_nodes[0][: tmb.n_input], np.arange(tmb.n_input))
+        assert all(a.nrows == a.ncols == cap for a in tmb.adjs[:2])
+
+
+def test_to_device_batch_keeps_the_shared_layer(small_graph):
+    """The subgraph sampler's square layer crosses to the device once:
+    the moved batch shares one adjacency object where the host batch
+    does, with the same arrays."""
+    import torch
+
+    from gnn_tpu_torch.train.stepfns import to_device_batch
+    lap, _, tcfg = _cfgs(small_graph, "hot", False, (1, 1, 1),
+                         sampler="subgraph")
+    tmb = tlad.subgraph_sample(tcfg, 5, small_graph.train_nodes[:64], lap,
+                               small_graph.labels)
+    b = to_device_batch(tmb, "cpu")
+    assert b.adjs[0] is b.adjs[1] and b.adjs[1] is not b.adjs[2]
+    for f in ("rows", "cols_t", "vals", "colpos"):
+        assert isinstance(getattr(b.adjs[0], f), torch.Tensor)
+        np.testing.assert_array_equal(getattr(b.adjs[0], f).numpy(),
+                                      getattr(tmb.adjs[0], f))

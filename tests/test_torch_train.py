@@ -9,9 +9,11 @@ the last step is compared too. GraphSAGE runs a constant lr; GAT (hot-
 block attention, the edge-stream attention on its cold residual) a
 linear warmup over 3 of the 4 steps. The same comparison runs GraphSAGE
 on the blocked format and GAT on the pattern transport (the tile route
-on both layers), with no hot block. Tolerance: rtol = 1e-4, atol =
-1e-5 — float32 sums in another order, carried through four Adam
-steps."""
+on both layers), with no hot block; GraphSAGE on the hot format (the
+host-packed cold COO and plumbing, the hot blocks bound on the device);
+and GraphSAGE and GAT on the resident path with the subgraph sampler.
+Tolerance: rtol = 1e-4, atol = 1e-5 — float32 sums in another order,
+carried through four Adam steps."""
 import numpy as np
 import jax
 import pytest
@@ -39,30 +41,35 @@ from gnn_tpu_torch.weights import params_from_flax
 STEPS = 4
 
 
-def _steps_match_jax(g, model, lr, lr_warmup, adj_format="resident"):
+def _steps_match_jax(g, model, lr, lr_warmup, adj_format="resident",
+                     sampler="ladies"):
     orders, c = (1, 1), g.num_classes
     lap = build_laplacian(g.adj_full, model)
     kw = dict(batch_size=64, samp_num=128, orders=orders,
-              num_nodes=lap.shape[0], num_classes=c, adj_format=adj_format)
+              num_nodes=lap.shape[0], num_classes=c, adj_format=adj_format,
+              sampler=sampler)
     targets = g.train_nodes[:64]
-    resident = adj_format == "resident"
-    jkw, tkw, jrg, trg = {}, {}, None, None
-    if resident:
-        kw.update(resident_val_free=True, resident_stream_tiles=True)
+    jkw, tkw, jrg, trg, jhot, thot = {}, {}, None, None, None, None
+    if adj_format in ("hot", "resident"):
         prob = compute_sample_prob(lap, g.train_nodes, sum(orders))
         jspec = JHotSpec.from_sample_prob(prob, 256)
         d, dt = build_hot_dense(lap, jspec, np.float32)
-        jrg, jkw = jbuild_rg(lap, jspec, d, dt), dict(hot_spec=jspec)
         tspec = THotSpec.from_sample_prob(prob, 256)
         td, tdt = tbuild_hd(lap, tspec, torch.float32, "cpu")
-        trg, tkw = tbuild_rg(lap, tspec, td, tdt), dict(hot_spec=tspec)
+        jkw, tkw = dict(hot_spec=jspec), dict(hot_spec=tspec)
+        if adj_format == "resident":
+            kw.update(resident_val_free=True, resident_stream_tiles=True)
+            jrg, trg = jbuild_rg(lap, jspec, d, dt), tbuild_rg(lap, tspec,
+                                                               td, tdt)
+        else:
+            jhot, thot = (d, dt), (td, tdt)
 
     jpipe = JPipe(JCfg(**jkw, **kw), lap, g.labels,
                   world_size=1, pool_num=2, seed=3)
     jtr = JTrainer(jbuild(model, 32, orders, c, dropout=0.0), jpipe,
                    g.feats, mesh=make_mesh(1), lr=lr,
                    sigmoid_loss=True, seed=3, resident_graph=jrg,
-                   lr_warmup=lr_warmup)
+                   hot_dense=jhot, lr_warmup=lr_warmup)
     jtr._init_params(jtr._peek_batch(targets))
     init = jax.tree_util.tree_map(np.asarray, jtr.params)
 
@@ -72,7 +79,7 @@ def _steps_match_jax(g, model, lr, lr_warmup, adj_format="resident"):
     tnet.load_state_dict(params_from_flax(init))
     ttr = TTrainer(tnet, tpipe, g.feats, lr=lr,
                    sigmoid_loss=True, seed=3, resident_graph=trg,
-                   lr_warmup=lr_warmup, device="cpu")
+                   hot_dense=thot, lr_warmup=lr_warmup, device="cpu")
     try:
         jl = [jtr.train_epoch(targets, epoch=e).train_loss
               for e in range(STEPS)]
@@ -114,3 +121,26 @@ def test_gat_pattern_training_steps_match_jax(small_graph):
     (K5 + K2 plain versions on the port's side), with the lr warmup."""
     _steps_match_jax(small_graph, "gat", lr=0.01, lr_warmup=3,
                      adj_format="pattern")
+
+
+def test_hot_format_training_steps_match_jax(small_graph):
+    """GraphSAGE on ``adj_format="hot"``: host-packed layers, the hot
+    blocks bound on the device, the cold residual through the shipped COO
+    (forward) and its col-sorted copy (backward)."""
+    _steps_match_jax(small_graph, "graphsage", lr=0.01, lr_warmup=0,
+                     adj_format="hot")
+
+
+def test_subgraph_training_steps_match_jax(small_graph):
+    """GraphSAGE on the resident path with the subgraph sampler: the
+    square deeper layer through the edge-stream tiles (K1's plain version
+    here, the Pallas kernel in interpret mode on the JAX side)."""
+    _steps_match_jax(small_graph, "graphsage", lr=0.01, lr_warmup=0,
+                     sampler="subgraph")
+
+
+def test_gat_subgraph_training_steps_match_jax(small_graph):
+    """GAT on the resident path with the subgraph sampler (the
+    edge-stream attention on square layers), with the lr warmup."""
+    _steps_match_jax(small_graph, "gat", lr=0.01, lr_warmup=3,
+                     sampler="subgraph")

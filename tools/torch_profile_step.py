@@ -6,10 +6,12 @@
     python3 tools/torch_profile_step.py --model gat --adj_format pattern
     python3 tools/torch_profile_step.py --adj_format blocked \
         --dataset synthetic:nodes=50000,deg=30 --samp_num 2048 --batch_size 512
+    python3 tools/torch_profile_step.py --adj_format hot
+    python3 tools/torch_profile_step.py --sampler subgraph
 
 Sets up the configuration `gnn_tpu_torch.cli` would train (its defaults
-unless CLI flags are given, e.g. ``--model gat`` or ``--adj_format
-blocked``), runs ``--warmup``
+unless CLI flags are given, e.g. ``--model gat``, ``--adj_format
+blocked`` / ``hot`` or ``--sampler subgraph``), runs ``--warmup``
 steps, then ``--steps`` steps under ``torch.profiler``, and prints:
 
 * per step: seconds waiting for the sampler, moving the batch to the
@@ -39,6 +41,7 @@ KINDS = [
      ("stream_spmm_kernel", "stream_sddmm_kernel")),
     ("edge-stream attention K3/K4 (edge_attention.cu)",
      ("edge_kernel", "row_reduce_kernel", "agg_kernel")),
+    ("segment-grid SpMM K6 (edge_stream.cu)", ("edge_stream_seg",)),
     ("edge-stream SpMM K1 (edge_stream.cu)", ("edge_stream_kernel",)),
     ("dense matmuls (cuBLAS / CUTLASS)",
      ("gemm", "gemv", "nvjet", "cutlass", "xmma", "sm90_")),
