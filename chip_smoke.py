@@ -15,7 +15,11 @@ Phases (any failure exits non-zero without the final result line):
    16384; GraphSAGE and GAT sample the same row-normalized graph, so
    their batches are the same): the edge-stream SpMM (K1) forward and
    transpose at each aggregating layer's width, plus one per-edge-values
-   case; the segment-grid SpMM (K6) on the same three cold residuals,
+   case, and apart from their sums the subgraph path's three layers (one
+   batch of ``--sampler subgraph``: the square layer shared by layers 0
+   and 1 at both widths, and the top layer); each K1 / K6 case prints its
+   thread-block count; the segment-grid SpMM (K6) on the same three cold
+   residuals,
    forward on the pack and transpose on the (cols, rows)-swapped pack,
    against its plain version and against K1 (the same function); the
    four edge-stream attention kernels (K3 row max, K4 terms, bwd_q,
@@ -76,9 +80,9 @@ from concurrent.futures import ThreadPoolExecutor
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 # relative tolerance: the kernel sums float32 products in another order
-# (shared-memory atomics) than the plain version (index_add_); a row sums
-# at most a few hundred terms, so differences stay near 1e-6 of the
-# output's magnitude — 1e-4 leaves room without hiding a wrong edge
+# (set by shared-memory int atomics) than the plain version (index_add_);
+# a row sums at most a few thousand terms, so differences stay near 1e-6
+# of the output's magnitude — 1e-4 leaves room without hiding a wrong edge
 REL_TOL = 1e-4
 # step losses of the small-input run on the card vs on the CPU
 AGREE_RTOL = 1e-3
@@ -204,32 +208,41 @@ def blocked_batch(device):
     return to_device_batch(mb, device).adjs, widths
 
 
-def check_edge_stream(adjs, widths, device):
+def check_edge_stream(adjs, widths, device, sub_adjs, sub_widths):
     """Phase 3: the edge-stream SpMM kernel (K1) against its plain
-    version."""
+    version: the default batch's layers (the sums), the layer-1 tiles
+    with per-edge values, and the subgraph path's layers (printed apart,
+    outside the sums)."""
     import torch
 
     from gnn_tpu_torch.ops.edgestream import (EdgeTiles, ECAP, decode_edges,
                                               edge_stream_spmm,
-                                              edge_stream_spmm_ref)
+                                              edge_stream_spmm_ref,
+                                              launch_blocks)
     gen = torch.Generator(device=device).manual_seed(0)
     totals = {d: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                       max_abs_err=0.0, bytes=0.0, flops=0.0)
               for d in ("forward", "transpose")}
-    cases = []
-    for l, (adj, f) in enumerate(zip(adjs, widths)):
-        tiles = EdgeTiles(coords=adj.es_coords, blk_rc=adj.es_rc,
-                          off=adj.es_off, t_order=adj.es_ord,
-                          nrows=adj.nrows, ncols=adj.ncols, bm=adj.es_bm,
-                          bk=adj.es_bk, ecap=ECAP, vals=None)
-        cases.append((f"layer{l}", tiles, adj.es_rv, adj.es_nf, f, True))
+    def tiles_of(adj):
+        return EdgeTiles(coords=adj.es_coords, blk_rc=adj.es_rc,
+                         off=adj.es_off, t_order=adj.es_ord,
+                         nrows=adj.nrows, ncols=adj.ncols, bm=adj.es_bm,
+                         bk=adj.es_bk, ecap=ECAP, vals=None)
+
+    # the last field: "sum" (the default batch: in the sums), "err" (in
+    # the worst error only), "apart" (printed only)
+    cases = [(f"layer{l}", tiles_of(adj), adj.es_rv, adj.es_nf, f, "sum")
+             for l, (adj, f) in enumerate(zip(adjs, widths))]
     # per-edge values ride the layer-1 tiles (weighted-graph payload)
     t1 = cases[1][1]
     vals = torch.rand(tuple(t1.coords.shape), generator=gen,
                       device=device) + 0.5
     cases.append(("layer1+vals", EdgeTiles(**{**t1.__dict__, "vals": vals}),
-                  cases[1][2], cases[1][3], widths[1], False))
-    for name, tiles, rv, nf, f, main in cases:
+                  cases[1][2], cases[1][3], widths[1], "err"))
+    cases += [(f"subgraph{l}", tiles_of(adj), adj.es_rv, adj.es_nf, f,
+               "apart")
+              for l, (adj, f) in enumerate(zip(sub_adjs, sub_widths))]
+    for name, tiles, rv, nf, f, use in cases:
         rows, cols, w = decode_edges(tiles)
         e = int(rows.shape[0])
         nb = int(tiles.blk_rc.shape[0])
@@ -268,14 +281,16 @@ def check_edge_stream(adjs, widths, device):
             bound_ms = max(t_bytes, t_flops)
             log(f"K1 {d:9s} {name:12s} R={tiles.nrows} C={tiles.ncols} "
                 f"F={f} cold_edges={e} entries={nb} "
+                f"blocks={launch_blocks(tiles, f, transpose)} "
                 f"max_abs_err={err:.3e} max_rel_err={err / scale:.3e} "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={library_ms:.4f} (lib err {lib_err:.2e}) "
                 f"bound_ms={bound_ms:.4f} "
                 f"({'bytes' if t_bytes >= t_flops else 'operations'})")
             t = totals[d]
-            t["max_abs_err"] = max(t["max_abs_err"], err)
-            if main:
+            if use != "apart":
+                t["max_abs_err"] = max(t["max_abs_err"], err)
+            if use == "sum":
                 t["ms"] += ms
                 t["plain_ms"] += plain_ms
                 t["library_ms"] += library_ms
@@ -296,7 +311,8 @@ def check_seg(adjs, widths, device):
 
     from gnn_tpu_torch.ops.edgestream import (edge_stream_spmm,
                                               edge_stream_spmm_seg,
-                                              edge_stream_spmm_seg_ref)
+                                              edge_stream_spmm_seg_ref,
+                                              launch_blocks)
     probe = load_probe()
     gen = torch.Generator(device=device).manual_seed(3)
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
@@ -339,6 +355,7 @@ def check_seg(adjs, widths, device):
             bound_ms = max(t_bytes, t_flops)
             log(f"K6 {d:9s} layer{c.layer} R={n_out} C={n_in} F={f} "
                 f"cold_edges={e} entries={nb} segments={ns} "
+                f"blocks={launch_blocks(tiles, f)} "
                 f"max_abs_err={err:.3e} max_rel_err={rel:.3e} "
                 f"vs K1 max_rel_err={rel_k1:.3e} ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
@@ -890,7 +907,10 @@ def main() -> int:
     save_dir = tempfile.mkdtemp(prefix="gnn_tpu_torch_smoke_")
     try:
         adjs, widths, pattern = main_path_batch(save_dir, device)
-        k1 = check_edge_stream(adjs, widths, device)
+        sub_adjs, sub_widths, _ = load_probe().default_batch(
+            save_dir, device, ["--sampler", "subgraph"])
+        k1 = check_edge_stream(adjs, widths, device, sub_adjs, sub_widths)
+        del sub_adjs
         seg = check_seg(adjs, widths, device)
         attn = check_attention(adjs, device, nhid)
         del adjs

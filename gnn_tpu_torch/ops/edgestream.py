@@ -328,15 +328,29 @@ def edge_stream_spmm_ref(tiles: EdgeTiles, x: torch.Tensor,
     return y * out_fac.float()[:, None]
 
 
-def _kernel():
+def _lib():
     from gnn_tpu_torch.ops import cuda_build
     lib = cuda_build.load("edge_stream")
-    fn = lib.edge_stream_spmm_f32
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, p, p, i, i, i, i, i, p]
-        fn.restype = i
-    return fn
+    if lib.edge_stream_spmm_f32.argtypes is None:
+        p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.edge_stream_spmm_f32.argtypes = [p, p, p, p, p, i, p, p, p, p,
+                                             i, n, i, i, i, i, p]
+        lib.edge_stream_spmm_seg_f32.argtypes = [p, p, p, p, i, i, p, p, p,
+                                                 p, i, n, i, i, i, p]
+        lib.edge_stream_blocks.argtypes = [i, n, i]
+        for fn in (lib.edge_stream_spmm_f32, lib.edge_stream_spmm_seg_f32,
+                   lib.edge_stream_blocks):
+            fn.restype = i
+    return lib
+
+
+def launch_blocks(tiles: EdgeTiles, f: int, transpose: bool = False) -> int:
+    """Thread blocks one launch of K1 (or, forward, of K6) runs on
+    ``tiles`` at width ``f`` (builds the kernel library: card only)."""
+    n_out_tiles = (tiles.ncols // tiles.bk if transpose
+                   else tiles.nrows // tiles.bm)
+    return int(_lib().edge_stream_blocks(n_out_tiles, tiles.coords.numel(),
+                                         f))
 
 
 def _check(name, t, dtype, device, shape=None):
@@ -353,41 +367,25 @@ def _check(name, t, dtype, device, shape=None):
         raise ValueError(f"edge_stream_spmm: {name} is not contiguous")
 
 
-def _launch(tiles: EdgeTiles, xs: torch.Tensor, transpose: bool
-            ) -> torch.Tensor:
-    """Launch the CUDA kernel on ``xs`` (the input with its rank-1
-    factor already folded in); returns ``A01 @ xs`` (or ``A01^T``)."""
-    dev = xs.device
+def _operands(tiles: EdgeTiles, x: torch.Tensor, in_fac: torch.Tensor,
+              out_fac: torch.Tensor, n_in: int):
+    """The kernel's float32 operands ``(x, in_fac, out_fac)``, checked
+    with the packed tables against ``x``'s device."""
+    dev = x.device
     nb = tiles.blk_rc.shape[0]
-    n_in = tiles.nrows if transpose else tiles.ncols
-    n_out = tiles.ncols if transpose else tiles.nrows
-    b_out = tiles.bk if transpose else tiles.bm
     if tiles.bm not in (128, 256) or tiles.bk not in (128, 256):
         raise ValueError(f"edge_stream_spmm: tile dims {tiles.bm}x"
                          f"{tiles.bk} not in {{128, 256}}")
-    _check("x", xs, torch.float32, dev, (n_in, xs.shape[1]))
+    x = x.float().contiguous()
+    in_fac = in_fac.float().contiguous()
+    out_fac = out_fac.float().contiguous()
+    _check("x", x, torch.float32, dev, (n_in, x.shape[1]))
+    _check("in_fac", in_fac, torch.float32, dev, (n_in,))
+    _check("out_fac", out_fac, torch.float32, dev)
     _check("coords", tiles.coords, torch.int16, dev)
     _check("blk_rc", tiles.blk_rc, torch.int32, dev, (nb,))
     _check("off", tiles.off, torch.int32, dev, (2, nb + 1))
-    _check("t_order", tiles.t_order, torch.int32, dev, (nb,))
-    vals = None
-    if tiles.vals is not None:
-        vals = tiles.vals.float().contiguous()
-        _check("vals", vals, torch.float32, dev, tuple(tiles.coords.shape))
-    f = xs.shape[1]
-    y = torch.empty((n_out, f), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel()(tiles.coords.data_ptr(),
-                    None if vals is None else vals.data_ptr(),
-                    tiles.blk_rc.data_ptr(), tiles.off.data_ptr(),
-                    tiles.t_order.data_ptr(), nb, xs.data_ptr(),
-                    y.data_ptr(), n_out // b_out, f, tiles.bm, tiles.bk,
-                    int(transpose), stream)
-    if err != 0:
-        raise RuntimeError(f"edge_stream_spmm: CUDA launch failed "
-                           f"(cudaError {err})")
-    launches["transpose" if transpose else "forward"] += 1
-    return y
+    return x, in_fac, out_fac
 
 
 def edge_stream_spmm(tiles: EdgeTiles, x: torch.Tensor, rv: torch.Tensor,
@@ -397,18 +395,41 @@ def edge_stream_spmm(tiles: EdgeTiles, x: torch.Tensor, rv: torch.Tensor,
     (times the per-edge value when ``tiles.vals`` is set) on the packed
     edges and 0 elsewhere. Output float32.
 
-    CUDA tensors launch the hand-written kernel; CPU tensors take the
-    plain version. The rank-1 factors fold outside the kernel
-    (``y = rv * (A01 @ (nf * x))``, swapped for the transpose)."""
+    CUDA tensors launch the hand-written kernel, which applies the
+    rank-1 factors itself (``in_fac`` per gathered row, ``out_fac`` per
+    written row); CPU tensors take the plain version."""
     assert rv.shape == (tiles.nrows,), rv.shape
     assert nf.shape == (tiles.ncols,), nf.shape
     if x.device.type == "cpu":
         return edge_stream_spmm_ref(tiles, x, rv, nf, transpose)
     if x.device.type != "cuda":
         raise ValueError(f"edge_stream_spmm: unsupported device {x.device}")
+    dev = x.device
+    nb = tiles.blk_rc.shape[0]
+    n_in = tiles.nrows if transpose else tiles.ncols
+    n_out = tiles.ncols if transpose else tiles.nrows
+    b_out = tiles.bk if transpose else tiles.bm
     in_fac, out_fac = (rv, nf) if transpose else (nf, rv)
-    xs = (x.float() * in_fac.float()[:, None]).contiguous()
-    return _launch(tiles, xs, transpose) * out_fac.float()[:, None]
+    x, in_fac, out_fac = _operands(tiles, x, in_fac, out_fac, n_in)
+    _check("t_order", tiles.t_order, torch.int32, dev, (nb,))
+    vals = None
+    if tiles.vals is not None:
+        vals = tiles.vals.float().contiguous()
+        _check("vals", vals, torch.float32, dev, tuple(tiles.coords.shape))
+    f = x.shape[1]
+    y = torch.empty((n_out, f), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().edge_stream_spmm_f32(
+        tiles.coords.data_ptr(), None if vals is None else vals.data_ptr(),
+        tiles.blk_rc.data_ptr(), tiles.off.data_ptr(),
+        tiles.t_order.data_ptr(), nb, x.data_ptr(), in_fac.data_ptr(),
+        out_fac.data_ptr(), y.data_ptr(), n_out // b_out,
+        tiles.coords.numel(), f, tiles.bm, tiles.bk, int(transpose), stream)
+    if err != 0:
+        raise RuntimeError(f"edge_stream_spmm: CUDA launch failed "
+                           f"(cudaError {err})")
+    launches["transpose" if transpose else "forward"] += 1
+    return y
 
 
 def edge_stream_spmm_seg_ref(tiles: EdgeTiles, seg_ptr: torch.Tensor,
@@ -432,17 +453,6 @@ def edge_stream_spmm_seg_ref(tiles: EdgeTiles, seg_ptr: torch.Tensor,
         off[1, :nb]))
     return edge_stream_spmm_ref(dataclasses.replace(tiles, off=off), x, rv,
                                 nf)
-
-
-def _seg_kernel():
-    from gnn_tpu_torch.ops import cuda_build
-    lib = cuda_build.load("edge_stream")
-    fn = lib.edge_stream_spmm_seg_f32
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, p, p, p, i, i, i, i, p]
-        fn.restype = i
-    return fn
 
 
 def edge_stream_spmm_seg(tiles: EdgeTiles, seg_ptr: torch.Tensor,
@@ -470,33 +480,22 @@ def edge_stream_spmm_seg(tiles: EdgeTiles, seg_ptr: torch.Tensor,
                          f"{x.device}")
     dev = x.device
     nb = tiles.blk_rc.shape[0]
-    if tiles.bm not in (128, 256) or tiles.bk not in (128, 256):
-        raise ValueError(f"edge_stream_spmm_seg: tile dims {tiles.bm}x"
-                         f"{tiles.bk} not in {{128, 256}}")
-    xs = (x.float() * nf.float()[:, None]).contiguous()
-    f = xs.shape[1]
-    _check("x", xs, torch.float32, dev, (tiles.ncols, f))
-    _check("coords", tiles.coords, torch.int16, dev)
-    _check("blk_rc", tiles.blk_rc, torch.int32, dev, (nb,))
-    _check("off", tiles.off, torch.int32, dev, (2, nb + 1))
+    x, nf, rv = _operands(tiles, x, nf, rv, tiles.ncols)
     _check("seg_ptr", seg_ptr, torch.int32, dev)
     if seg_ptr.dim() != 1 or seg_ptr.shape[0] < 1:
         raise ValueError(f"edge_stream_spmm_seg: seg_ptr has shape "
                          f"{tuple(seg_ptr.shape)}")
     ns = seg_ptr.shape[0] - 1
+    f = x.shape[1]
     y = torch.empty((tiles.nrows, f), dtype=torch.float32, device=dev)
-    # one partial slab per segment, written only by segments that share
-    # their row tile with another
-    slab = torch.empty((max(ns, 1), tiles.bm, f), dtype=torch.float32,
-                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _seg_kernel()(tiles.coords.data_ptr(), tiles.blk_rc.data_ptr(),
-                        tiles.off.data_ptr(), seg_ptr.data_ptr(), nb, ns,
-                        xs.data_ptr(), y.data_ptr(), slab.data_ptr(),
-                        tiles.nrows // tiles.bm, f, tiles.bm, tiles.bk,
-                        stream)
+    err = _lib().edge_stream_spmm_seg_f32(
+        tiles.coords.data_ptr(), tiles.blk_rc.data_ptr(),
+        tiles.off.data_ptr(), seg_ptr.data_ptr(), nb, ns, x.data_ptr(),
+        nf.data_ptr(), rv.data_ptr(), y.data_ptr(), tiles.nrows // tiles.bm,
+        tiles.coords.numel(), f, tiles.bm, tiles.bk, stream)
     if err != 0:
         raise RuntimeError(f"edge_stream_spmm_seg: CUDA launch failed "
                            f"(cudaError {err})")
     launches["seg"] += 1
-    return y * rv.float()[:, None]
+    return y

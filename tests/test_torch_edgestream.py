@@ -197,6 +197,101 @@ def test_plain_version_empty_sparse_and_duplicates():
     assert torch.count_nonzero(y0) == 0
 
 
+
+# --- the cases of the card kernel's core: a hub row, output tiles over
+# one staging pass, F = 602 / odd / below 32, per-edge values, an empty
+# output tile, a one-tile input that splits over a cluster. Inputs are
+# small binary fractions (x in k/8, factors and values in {0.5, 1, 1.5,
+# 2}), so every sum is exact in float32 in any order and the kernel must
+# agree with the plain version and the Pallas kernel to rounding-free
+# precision; TOL (1e-5) is the bound asserted. ---
+
+# name: nr, nc, f, bm, bk, ecap, with per-edge values
+CORE_CASES = {
+    # row 7 has 5000 edges over 20 col tiles, col 11 has 5000 over 20 row
+    # tiles: a hub output row in each direction, longer than a pass
+    "hub": (5120, 5120, 96, 256, 256, 256, False),
+    # 13k edges in one row tile (> the 4096-edge pass, 2 entry windows
+    # at ecap 32); F = 602 takes float2 loads
+    "multi_pass_f602": (256, 1024, 602, 256, 256, 32, False),
+    "odd_f": (384, 512, 37, 128, 256, 256, False),
+    "narrow_f_vals": (512, 256, 8, 256, 128, 256, True),
+    # no edge in row tile 1 nor in col tile 1
+    "empty_tile": (768, 768, 64, 256, 256, 256, False),
+    # one 256 x 256 tile: one output tile, so its edges split over blocks
+    "one_tile": (256, 256, 64, 256, 256, 64, False),
+}
+
+
+def _core_case(name, dup=False):
+    """``(tiles_np, rows, cols, vals, rv, nf, x, g)`` of a CORE_CASES
+    case: numpy pack, edges, factors, the forward input ``x`` and the
+    transpose's ``g``."""
+    nr, nc, f, bm, bk, ecap, has_vals = CORE_CASES[name]
+    rng = np.random.RandomState(20 + sorted(CORE_CASES).index(name))
+    if name == "hub":
+        bg = rng.rand(nr, nc) < 5e-4
+        bg[7, rng.choice(nc, 5000, replace=False)] = True
+        bg[rng.choice(nr, 5000, replace=False), 11] = True
+        rows, cols = np.nonzero(bg)
+    elif name == "empty_tile":
+        m = rng.rand(nr, nc) < 0.05
+        m[256:512] = False
+        m[:, 256:512] = False
+        rows, cols = np.nonzero(m)
+    else:
+        dens = {"multi_pass_f602": 0.05, "odd_f": 0.05,
+                "narrow_f_vals": 0.1, "one_tile": 0.2}[name]
+        rows, cols = np.nonzero(rng.rand(nr, nc) < dens)
+    if dup:
+        rows = np.concatenate([rows, rows[::7]])
+        cols = np.concatenate([cols, cols[::7]])
+    vals = rng.choice([0.5, 1.0, 1.5, 2.0], len(rows)).astype(np.float32) \
+        if has_vals else None
+    tiles = tes.pack_edge_tiles(rows, cols, nr, nc, bm=bm, bk=bk, ecap=ecap,
+                                vals=vals, val_dtype=np.float32)
+    rv = rng.choice([0.5, 1.0, 2.0], nr).astype(np.float32)
+    nf = rng.choice([0.5, 1.0, 2.0], nc).astype(np.float32)
+    x = (rng.randint(-4, 5, (nc, f)) / 8).astype(np.float32)
+    g = (rng.randint(-4, 5, (nr, f)) / 8).astype(np.float32)
+    return tiles, rows, cols, vals, rv, nf, x, g
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("name", list(CORE_CASES))
+def test_core_case_plain_version_matches_pallas(name, transpose):
+    """The plain version against the Pallas kernel in interpret mode on
+    the card kernel's core cases, both orientations."""
+    tiles, _, _, _, rv, nf, x, g = _core_case(name)
+    inp = g if transpose else x
+    want = _pallas(tiles, inp, rv, nf, transpose)
+    got = tes.edge_stream_spmm(_to_torch(tiles), torch.from_numpy(inp),
+                               torch.from_numpy(rv), torch.from_numpy(nf),
+                               transpose=transpose)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("name", list(CORE_CASES))
+def test_core_case_seg_plain_equals_k1_plain(name):
+    """K6's plain version on the core cases' packs (without values) and
+    on the swapped packs gives K1's forward and transpose."""
+    _, rows, cols, _, rv, nf, x, g = _core_case(name)
+    nr, nc, _, bm, bk, ecap, _ = CORE_CASES[name]
+    tiles = tes.pack_edge_tiles(rows, cols, nr, nc, bm=bm, bk=bk, ecap=ecap)
+    segp = tes.segment_tiles(tiles.blk_rc, tiles.off)
+    k1 = tes.edge_stream_spmm(_to_torch(tiles), torch.from_numpy(x),
+                              torch.from_numpy(rv), torch.from_numpy(nf))
+    np.testing.assert_allclose(_seg_torch(tiles, segp, x, rv, nf).numpy(),
+                               k1.numpy(), **TOL)
+    k1_t = tes.edge_stream_spmm(_to_torch(tiles), torch.from_numpy(g),
+                                torch.from_numpy(rv), torch.from_numpy(nf),
+                                transpose=True)
+    tiles_t = _swapped(rows, cols, nr, nc, bm, bk)
+    segp_t = tes.segment_tiles(tiles_t.blk_rc, tiles_t.off)
+    np.testing.assert_allclose(
+        _seg_torch(tiles_t, segp_t, g, nf, rv).numpy(), k1_t.numpy(), **TOL)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -465,6 +560,53 @@ def test_cuda_seg_uncovered_row_tiles_read_zero(cuda_device):
     torch.cuda.synchronize()
     assert torch.count_nonzero(got[128:]) == 0
     _assert_rel_close(got, want)
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("name", list(CORE_CASES))
+def test_cuda_core_case_matches_plain_version(cuda_device, name,
+                                              transpose):
+    """K1 (both orientations) and K6 (forward on the pack, transpose on
+    the swapped pack) on the card against their plain versions on the
+    core cases, with duplicate edges. The sums are exact (binary-fraction
+    inputs), so TOL (1e-5) holds in any summation order."""
+    tiles_np, rows, cols, _, rv, nf, x, g = _core_case(name, dup=True)
+    nr, nc, f, bm, bk, ecap, _ = CORE_CASES[name]
+    dev = cuda_device
+    t = _to_torch(tiles_np, dev)
+    rv_t, nf_t = torch.from_numpy(rv).to(dev), torch.from_numpy(nf).to(dev)
+    inp = torch.from_numpy(g if transpose else x).to(dev)
+    key = "transpose" if transpose else "forward"
+    before = tes.launches[key]
+    got = tes.edge_stream_spmm(t, inp, rv_t, nf_t, transpose)
+    want = tes.edge_stream_spmm_ref(t, inp, rv_t, nf_t, transpose)
+    torch.cuda.synchronize()
+    assert tes.launches[key] == before + 1
+    torch.testing.assert_close(got, want, **TOL)
+    if name == "one_tile":
+        # one output tile and one slab: its edges split over a cluster
+        assert tes.launch_blocks(t, f, transpose) > 1
+    # K6 on the rank-1 pack of the same edges, and K1 there
+    plain = tes.pack_edge_tiles(rows, cols, nr, nc, bm=bm, bk=bk,
+                                ecap=ecap)
+    if transpose:
+        seg_np, fr, fc = _swapped(rows, cols, nr, nc, bm, bk), nf_t, rv_t
+    else:
+        seg_np, fr, fc = plain, rv_t, nf_t
+    segp = torch.from_numpy(tes.segment_tiles(seg_np.blk_rc,
+                                              seg_np.off)).to(dev)
+    ts = _to_torch(seg_np, dev)
+    k1 = tes.edge_stream_spmm(_to_torch(plain, dev), inp, rv_t, nf_t,
+                              transpose)
+    before = tes.launches["seg"]
+    got6 = tes.edge_stream_spmm_seg(ts, segp, inp, fr, fc)
+    want6 = tes.edge_stream_spmm_seg_ref(ts, segp, inp, fr, fc)
+    torch.cuda.synchronize()
+    assert tes.launches["seg"] == before + 1
+    torch.testing.assert_close(got6, want6, **TOL)
+    torch.testing.assert_close(got6, k1, **TOL)
 
 
 def test_probe_cases_hold_k6_against_k1_on_cpu(tmp_path):

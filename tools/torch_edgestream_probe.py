@@ -28,10 +28,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 def default_batch(save_dir, device, argv=()):
-    """One batch of the CLI's configuration (defaults unless ``argv``) on
-    the resident stream-tile path, its layers rebuilt on ``device``. The
-    sample probabilities and the hot COO are cached in ``save_dir`` under
-    the CLI's names, so a later CLI run there reuses them. Returns
+    """One batch of the CLI's configuration (defaults unless ``argv``;
+    ``--sampler`` is honoured) on the resident stream-tile path, its
+    layers rebuilt on ``device``. The sample probabilities and the hot
+    COO are cached in ``save_dir`` under the CLI's names, so a later CLI
+    run there reuses them. Returns
     ``(adjs, widths, ctx)``: the materialized layers, each layer's input
     width, and the set-up (``args``, ``orders``, ``graph``, ``lap``,
     ``targets``)."""
@@ -44,7 +45,7 @@ def default_batch(save_dir, device, argv=()):
     from gnn_tpu_torch.ops.residentgraph import (ResidentGraph,
                                                  build_resident_graph)
     from gnn_tpu_torch.placement.engine import compute_sample_prob
-    from gnn_tpu_torch.sampling.ladies import SamplerConfig, ladies_sample
+    from gnn_tpu_torch.sampling.ladies import SAMPLERS, SamplerConfig
     from gnn_tpu_torch.train.stepfns import prepare_adjs, to_device_batch
     from gnn_tpu_torch.utils.normalize import build_laplacian
 
@@ -69,11 +70,13 @@ def default_batch(save_dir, device, argv=()):
                                 val_dtype="bfloat16")
     cfg = SamplerConfig(batch_size=a.batch_size, samp_num=a.samp_num,
                         orders=orders, num_nodes=lap.shape[0],
-                        num_classes=graph.num_classes, adj_format="resident",
-                        hot_spec=spec, resident_val_free=host["val_free"],
+                        num_classes=graph.num_classes, sampler=a.sampler,
+                        adj_format="resident", hot_spec=spec,
+                        resident_val_free=host["val_free"],
                         resident_stream_tiles=True)
     targets = np.random.default_rng(1).permutation(graph.train_nodes)
-    mb = ladies_sample(cfg, 7, targets[: a.batch_size], lap, graph.labels)
+    mb = SAMPLERS[a.sampler](cfg, 7, targets[: a.batch_size], lap,
+                              graph.labels)
     adjs = prepare_adjs(to_device_batch(mb, device),
                         ResidentGraph.from_host(host, device))
     widths = [graph.feats.shape[1]] + [(1 + o) * a.nhid

@@ -41,7 +41,8 @@ KINDS = [
      ("stream_spmm_kernel", "stream_sddmm_kernel")),
     ("edge-stream attention K3/K4 (edge_attention.cu)",
      ("edge_kernel", "row_reduce_kernel", "agg_kernel")),
-    ("segment-grid SpMM K6 (edge_stream.cu)", ("edge_stream_seg",)),
+    # K1 and K6 are one kernel template; K6 is its mode 2 (SEG)
+    ("segment-grid SpMM K6 (edge_stream.cu)", ("edge_stream_kernel<2",)),
     ("edge-stream SpMM K1 (edge_stream.cu)", ("edge_stream_kernel",)),
     ("dense matmuls (cuBLAS / CUTLASS)",
      ("gemm", "gemv", "nvjet", "cutlass", "xmma", "sm90_")),
