@@ -24,7 +24,8 @@ Phases (any failure exits non-zero without the final result line):
    against its plain version and against K1 (the same function); the
    four edge-stream attention kernels (K3 row max, K4 terms, bwd_q,
    bwd_kv) at each GAT layer's width (512, one head), plus one 4-head
-   case and one case at 50x magnitudes. The stream SpMM (K2) runs at the
+   case and one case at 50x magnitudes, each with its thread blocks and
+   cluster size. The stream SpMM (K2) runs at the
    three layers of one blocked batch (50k nodes / degree 30, batch 512,
    samp_num 2048; widths 602 / 1024 / 1024) over ``block_*`` and over
    the transposed ``block_*_t``, and K2 in both orientations and the
@@ -46,7 +47,9 @@ Phases (any failure exits non-zero without the final result line):
    the pattern transport (the tile route on every layer), GraphSAGE on
    the hot format, GraphSAGE and GAT on the resident path with the
    subgraph sampler, and GraphSAGE on the resident path with full
-   expansion (``resident_ship_cold=False``);
+   expansion (``resident_ship_cold=False``); then GAT on the resident
+   path over four epochs (``Trainer.fit``): each epoch's train loss, val
+   loss and val F1, and the test F1, must agree;
 5. the main paths, each with every launch counter set to 0 just before
    the run and read just after. Through ``gnn_tpu_torch.cli.main``: the
    defaults plus ``--n_devices 1 --epoch_num 1 --test`` (GraphSAGE), the
@@ -471,8 +474,11 @@ def check_attention(adjs, device, nhid):
             tot = totals[key]
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             tot["max_rel_err"] = max(tot["max_rel_err"], rel)
+            n_tiles = C // adj.es_bk if key == "bwd_kv" else R // adj.es_bm
+            blocks, cluster = ea.launch_blocks(adj.es_coords, n_tiles, n)
             line = (f"{key:6s} {name:10s} R={R} C={C} n_out={n} H={H} "
-                    f"cold_edges={e} entries={nb} max_abs_err={err:.3e} "
+                    f"cold_edges={e} entries={nb} blocks={blocks} "
+                    f"cluster={cluster} max_abs_err={err:.3e} "
                     f"max_rel_err={rel:.3e}")
             if main:
                 ms = time_ms(kern)
@@ -659,17 +665,14 @@ def check_tile_kernels(blocked, bwidths, pattern, device, nhid):
     return totals
 
 
-def check_agreement(model, adj_format="resident", sampler="ladies",
-                    ship_cold=True):
-    """Phase 4: a small input through the port's whole training path on
-    the card (CUDA kernels, cuBLAS) and on the CPU (plain versions — the
-    path the CPU tests hold against the JAX package): same batches, same
-    initial weights, dropout 0; on the resident and hot paths a float32
-    hot block, on the resident path stream tiles on (off under full
-    expansion, ``ship_cold=False``, which rebuilds the cold COO on the
-    device). The step losses must agree to AGREE_RTOL (float32 sums in
-    another order, carried through Adam steps)."""
-    import numpy as np
+def _small_trainer(dev, model, adj_format="resident", sampler="ladies",
+                   ship_cold=True):
+    """Phase 4's small input (3000 nodes) and a `Trainer` over it on
+    ``dev``: same batches and initial weights on every device, dropout
+    0; on the resident and hot paths a float32 hot block, on the resident
+    path stream tiles on (off under full expansion, ``ship_cold=False``,
+    which rebuilds the cold COO on the device). Returns ``(trainer,
+    pipeline, graph)``; the caller closes the pipeline."""
     import torch
 
     from gnn_tpu_torch.data.synthetic import make_powerlaw_graph
@@ -688,29 +691,42 @@ def check_agreement(model, adj_format="resident", sampler="ladies",
     spec = HotSpec.from_sample_prob(
         compute_sample_prob(lap, g.train_nodes, 2), 512) \
         if adj_format in ("hot", "resident") else None
+    rg = hot = None
+    if spec is not None:
+        d, dt = build_hot_dense(lap, spec, torch.float32, dev)
+        if resident:
+            rg = build_resident_graph(lap, spec, d, dt)
+        else:
+            hot = (d, dt)
+    cfg = SamplerConfig(batch_size=128, samp_num=256, orders=(1, 1),
+                        num_nodes=lap.shape[0], num_classes=7,
+                        sampler=sampler, adj_format=adj_format,
+                        hot_spec=spec, resident_val_free=resident,
+                        resident_ship_cold=ship_cold,
+                        resident_stream_tiles=resident and ship_cold)
+    pipe = BatchPipeline(cfg, lap, g.labels, pool_num=2, seed=0)
+    net = build_model(model, 64, (1, 1), 7, n_feats=40, dropout=0.0, seed=0)
+    tr = Trainer(net, pipe, g.feats, lr=0.01, sigmoid_loss=False,
+                 resident_graph=rg, hot_dense=hot, device=dev)
+    return tr, pipe, g
+
+
+def check_agreement(model, adj_format="resident", sampler="ladies",
+                    ship_cold=True):
+    """Phase 4: a small input through the port's whole training path on
+    the card (CUDA kernels, cuBLAS) and on the CPU (plain versions — the
+    path the CPU tests hold against the JAX package), one epoch and a val
+    pass (`_small_trainer`). The step losses must agree to AGREE_RTOL
+    (float32 sums in another order, carried through Adam steps)."""
+    import numpy as np
+
     label = (f"{model} {adj_format}"
              + (f" {sampler}" if sampler != "ladies" else "")
              + ("" if ship_cold else " full expansion"))
     out = {}
     for dev in ("cuda", "cpu"):
-        rg = hot = None
-        if spec is not None:
-            d, dt = build_hot_dense(lap, spec, torch.float32, dev)
-            if resident:
-                rg = build_resident_graph(lap, spec, d, dt)
-            else:
-                hot = (d, dt)
-        cfg = SamplerConfig(batch_size=128, samp_num=256, orders=(1, 1),
-                            num_nodes=lap.shape[0], num_classes=7,
-                            sampler=sampler, adj_format=adj_format,
-                            hot_spec=spec, resident_val_free=resident,
-                            resident_ship_cold=ship_cold,
-                            resident_stream_tiles=resident and ship_cold)
-        pipe = BatchPipeline(cfg, lap, g.labels, pool_num=2, seed=0)
-        net = build_model(model, 64, (1, 1), 7, n_feats=40, dropout=0.0,
-                          seed=0)
-        tr = Trainer(net, pipe, g.feats, lr=0.01, sigmoid_loss=False,
-                     resident_graph=rg, hot_dense=hot, device=dev)
+        tr, pipe, g = _small_trainer(dev, model, adj_format, sampler,
+                                     ship_cold)
         try:
             m = tr.train_epoch(g.train_nodes, epoch=0)
             f1, vloss = tr.evaluate(g.valid_nodes, 128, "val")
@@ -730,6 +746,40 @@ def check_agreement(model, adj_format="resident", sampler="ladies",
              f"{rel:.3e}")
     if not lc[-1] < lc[0]:
         fail(f"{label}: small-input loss did not fall: {lc}")
+
+
+def check_multi_epoch(epochs=4):
+    """Phase 4: GAT on the resident path over ``epochs`` epochs of the
+    small input (`Trainer.fit`, a val pass after each epoch, then the
+    test sweep with the best params), on the card and on the CPU. Each
+    epoch's train loss, val loss and val F1, and the test F1, must agree
+    to AGREE_RTOL."""
+    import numpy as np
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tr, pipe, g = _small_trainer(dev, "gat")
+        try:
+            hist = tr.fit(g.train_nodes, g.valid_nodes, epochs, log=False)
+            test_f1 = tr.test(g.test_nodes, 128)
+        finally:
+            pipe.close()
+        out[dev] = np.array([[m.train_loss, m.valid_loss, m.valid_f1]
+                             for m in hist] + [[test_f1] * 3])
+    c, p = out["cuda"], out["cpu"]
+    rel = np.abs(c - p) / np.maximum(np.abs(p), 1e-12)
+    for name, col in (("train loss", 0), ("val loss", 1), ("val F1", 2)):
+        log(f"multi-epoch GAT resident (3000 nodes, {epochs} epochs) "
+            f"{name}: cuda " + " ".join(f"{x:.5f}" for x in c[:-1, col])
+            + " cpu " + " ".join(f"{x:.5f}" for x in p[:-1, col])
+            + f" max rel diff {rel[:-1, col].max():.2e}")
+    log(f"multi-epoch GAT resident test F1: cuda {c[-1, 0]:.5f} cpu "
+        f"{p[-1, 0]:.5f} rel diff {rel[-1, 0]:.2e}")
+    if not (np.all(np.isfinite(c)) and rel.max() <= AGREE_RTOL):
+        fail(f"multi-epoch GAT: cuda and cpu disagree: max rel diff "
+             f"{rel.max():.3e}")
+    if not c[-2, 0] < c[0, 0]:
+        fail(f"multi-epoch GAT: train loss did not fall: {c[:-1, 0]}")
 
 
 # phase 4's cases: (model, adj_format, sampler, ship_cold)
@@ -905,6 +955,7 @@ def main() -> int:
 
     nhid = cli.build_parser().parse_args([]).nhid
     save_dir = tempfile.mkdtemp(prefix="gnn_tpu_torch_smoke_")
+    t0 = time.perf_counter()
     try:
         adjs, widths, pattern = main_path_batch(save_dir, device)
         sub_adjs, sub_widths, _ = load_probe().default_batch(
@@ -918,8 +969,13 @@ def main() -> int:
         tiles = check_tile_kernels(blocked, bwidths, pattern, device, nhid)
         del blocked, pattern
         torch.cuda.empty_cache()
+        log(f"phase 3 (kernel checks): {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
         for case in AGREEMENTS:
             check_agreement(*case)
+        check_multi_epoch()
+        log(f"phase 4 (agreements): {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
         counts = dict.fromkeys((k[0] for k in KERNELS), 0)
         for label, argv, per_step in MAIN_PATHS:
             for name, n in run_main_path(save_dir, label, argv,
@@ -927,6 +983,7 @@ def main() -> int:
                 counts[name] += n
         for name, n in run_probe_path(save_dir, device).items():
             counts[name] += n
+        log(f"phase 5 (main paths, probe): {time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
 

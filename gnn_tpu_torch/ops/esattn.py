@@ -21,8 +21,9 @@ local row past the tile is dropped. The entry points
 :func:`cold_attention_rowmax`, :func:`cold_attention_terms` (an
 ``autograd.Function``), :func:`cold_attention_bwd_q` and
 :func:`cold_attention_bwd_kv` launch the hand-written kernels of
-``gnn_tpu_torch/csrc/edge_attention.cu`` on CUDA tensors, and on CPU
-tensors take the plain versions of the same names with ``_ref``.
+``gnn_tpu_torch/csrc/edge_attention.cu`` on CUDA tensors (one launch a
+call, widths up to ``CUDA_MAX_WIDTH``), and on CPU tensors take the
+plain versions of the same names with ``_ref``.
 """
 from __future__ import annotations
 
@@ -165,18 +166,21 @@ def cold_attention_bwd_kv_ref(coords, blk_rc, off, t_order, q, k, v,
 # --- the CUDA kernels -------------------------------------------------------
 
 # per kernel (launch-counter key): its C function in edge_attention.cu,
-# its inputs in the order the function takes them, its per-edge scratch
-# arrays, and its outputs' shapes ("r" = rows, "c" = cols, "n" = n_out)
+# its inputs in the order the function takes them, and its outputs'
+# shapes ("r" = rows, "c" = cols, "n" = n_out)
 _KERNELS = {
-    "rowmax": ("esattn_rowmax_f32", ("q", "k"), 1, (("r", "H"),)),
-    "terms": ("esattn_terms_f32", ("q", "k", "v", "row_max"), 1,
+    "rowmax": ("esattn_rowmax_f32", ("q", "k"), (("r", "H"),)),
+    "terms": ("esattn_terms_f32", ("q", "k", "v", "row_max"),
               (("r", "H"), ("r", "n"))),
     "bwd_q": ("esattn_bwd_q_f32",
-              ("q", "k", "v", "row_max", "gden", "gnum"), 1, (("r", "n"),)),
+              ("q", "k", "v", "row_max", "gden", "gnum"), (("r", "n"),)),
     "bwd_kv": ("esattn_bwd_kv_f32",
-               ("q", "k", "v", "row_max", "gden", "gnum"), 2,
+               ("q", "k", "v", "row_max", "gden", "gnum"),
                (("c", "n"), ("c", "n"))),
 }
+# the CUDA kernels hold a row across the width in registers: 32 floats a
+# lane at most
+CUDA_MAX_WIDTH = 1024
 
 
 def _check(what, name, t, dtype, device, shape=None):
@@ -192,12 +196,13 @@ def _check(what, name, t, dtype, device, shape=None):
 
 
 def _launch(key, coords, blk_rc, off, t_order, H, bm, bk, **arrays):
-    """Check the arguments of one CUDA kernel, allocate its scratch and
-    outputs, launch it on the current stream; returns the outputs. Every
-    C function takes ``(coords, blk_rc, off, t_order, nb, inputs...,
-    scratch..., outputs..., nrows, ncols, n_out, H, bm, bk, stream)``."""
+    """Check the arguments of one CUDA kernel, allocate its outputs and
+    launch it (one launch) on the current stream; returns the outputs.
+    Every C function takes ``(coords, blk_rc, off, t_order, nb,
+    inputs..., outputs..., nrows, ncols, n_out, H, bm, bk, e_slots,
+    stream)``."""
     from gnn_tpu_torch.ops import cuda_build
-    name, inputs, n_scratch, out_dims = _KERNELS[key]
+    name, inputs, out_dims = _KERNELS[key]
     what = f"edge-stream attention {key}"
     dev = coords.device
     nb = blk_rc.shape[0]
@@ -207,6 +212,8 @@ def _launch(key, coords, blk_rc, off, t_order, H, bm, bk, **arrays):
         raise ValueError(f"{what}: tile dims {bm}x{bk} not in {{128, 256}}")
     if H > CUDA_MAX_HEADS:
         raise ValueError(f"{what}: {H} heads > {CUDA_MAX_HEADS}")
+    if n_out > CUDA_MAX_WIDTH:
+        raise ValueError(f"{what}: width {n_out} > {CUDA_MAX_WIDTH}")
     if nrows % bm or ncols % bk:
         raise ValueError(f"{what}: {nrows}x{ncols} not a multiple of the "
                          f"{bm}x{bk} tiles")
@@ -224,27 +231,36 @@ def _launch(key, coords, blk_rc, off, t_order, H, bm, bk, **arrays):
         _check(what, a, t, torch.float32, dev,
                tuple(dims[d] for d in shapes[a]))
         ins.append(t)
-    # per-edge terms in flat edge order, written by the kernel's first pass
-    scratch = [torch.empty((coords.numel(), H), dtype=torch.float32,
-                           device=dev) for _ in range(n_scratch)]
     outs = [torch.empty((dims[r], dims[c]), dtype=torch.float32, device=dev)
             for r, c in out_dims]
     fn = getattr(cuda_build.load("edge_attention"), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 4 + [i] + [p] * (len(ins) + len(scratch)
-                                              + len(outs))
-                       + [i] * 6 + [p])
+        fn.argtypes = ([p] * 4 + [i] + [p] * (len(ins) + len(outs))
+                       + [i] * 6 + [ctypes.c_long, p])
         fn.restype = i
     err = fn(coords.data_ptr(), blk_rc.data_ptr(), off.data_ptr(),
              None if t_order is None else t_order.data_ptr(), nb,
-             *(t.data_ptr() for t in ins + scratch + outs),
-             nrows, ncols, n_out, H, bm, bk,
+             *(t.data_ptr() for t in ins + outs),
+             nrows, ncols, n_out, H, bm, bk, coords.numel(),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
     launches[key] += 1
     return outs
+
+
+def launch_blocks(coords, n_out_tiles: int, n_out: int):
+    """``(thread blocks, blocks per cluster)`` of one attention launch
+    over ``n_out_tiles`` output tiles (row tiles; column tiles for
+    bwd_kv) at width ``n_out``; the cluster size follows the packed edge
+    slots per tile. Needs the built kernel library (a card)."""
+    from gnn_tpu_torch.ops import cuda_build
+    fn = cuda_build.load("edge_attention").esattn_blocks
+    fn.argtypes = [ctypes.c_int, ctypes.c_long, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    blocks = int(fn(n_out_tiles, coords.numel(), n_out))
+    return blocks, blocks // max(n_out_tiles, 1)
 
 
 def _on_cuda(what, t: torch.Tensor) -> bool:

@@ -9,13 +9,17 @@ against the JAX package's (gnn_tpu.ops.pallas_esattn).
   max, 2e-4 for the terms, 3e-4 for the gradients (float32 sums of
   exponentials in another order).
 * A coordinate repeated within one entry counts once, as the Pallas
-  kernel's ``A01 > 0`` mask counts it; the resident packers never emit a
-  repeated pair, which the per-edge CUDA kernel's first pass also
-  checks.
+  kernel's ``A01 > 0`` mask counts it (the CUDA kernel drops repeats with
+  a hash set of (entry, coordinate)); the resident packers never emit a
+  repeated pair.
+* ``CORE_CASES`` exercise the CUDA kernel's walk (a hub row, a row tile
+  over one pass, a tile split over a cluster, several and odd heads, an
+  empty tile, a width over 512); their plain versions are held against
+  the Pallas kernel here.
 * On a machine with a card, the CUDA kernels must match the plain
-  versions (``-m cuda``; this module imports JAX only inside the parity
-  helpers, so ``pytest --noconftest -m cuda`` runs it where JAX is
-  absent).
+  versions, each entry point with one kernel launch (``-m cuda``; this
+  module imports JAX only inside the parity helpers, so ``pytest
+  --noconftest -m cuda`` runs it where JAX is absent).
 """
 import numpy as np
 import pytest
@@ -338,3 +342,157 @@ def test_cuda_kernels_finite_at_large_magnitudes(cuda_device):
     tiles = tes.pack_edge_tiles(rows, cols, nr, nc, bm=256, bk=256)
     _cuda_vs_plain(tiles, q, k, v, H, cuda_device, seed=2,
                    compare_terms=False)
+
+
+# --- the cases of the card kernel's core: a hub row (and a hub column),
+# a row tile over one pass, a one-tile input split over a cluster with
+# repeats inside its entries, several heads (d = 16, H = 2 with a local
+# row past the tile, an odd head width d = 9), an empty row and column
+# tile, a width over 512 (32 floats a lane). q and k are small binary
+# fractions, so every score is exact in any summation order and the row
+# max must agree exactly; the terms and gradients sum exponentials and
+# are held to TERMS_TOL / GRAD_TOL. ---
+
+# name: nr, nc, n_out, H, bm, bk, ecap
+CORE_CASES = {
+    # row 7 has 2000 edges over 16 col tiles, col 11 has 300 over 4 row
+    # tiles
+    "hub": (512, 2048, 32, 1, 128, 128, 128),
+    # 13k edges in one row tile, entries of 2048: more than one pass
+    "multi_pass": (256, 1024, 64, 1, 256, 256, 2048),
+    # one 256 x 256 tile (13k edges + repeats next to their originals, so
+    # within one entry): its edges split over a cluster
+    "one_tile_repeats": (256, 256, 64, 1, 256, 256, 2048),
+    "heads4_d16": (256, 512, 64, 4, 128, 128, 128),
+    # a packed local row in [128, 256) of a 128 x 256 tile is dropped
+    "heads2_row_past_tile": (256, 512, 32, 2, 128, 256, 256),
+    "odd_head_width": (256, 256, 36, 4, 128, 128, 128),
+    # no edge in row tile 1 nor in col tile 1
+    "empty_tile": (768, 768, 64, 1, 256, 256, 256),
+    "wide": (256, 512, 640, 1, 256, 256, 256),
+}
+
+
+def _core_case(name):
+    """``(tiles_np, q, k, v)`` of a CORE_CASES case."""
+    nr, nc, n_out, H, bm, bk, ecap = CORE_CASES[name]
+    rng = np.random.RandomState(40 + sorted(CORE_CASES).index(name))
+    if name == "hub":
+        m = rng.rand(nr, nc) < 2e-3
+        m[7, rng.choice(nc, 2000, replace=False)] = True
+        m[rng.choice(nr, 300, replace=False), 11] = True
+    elif name == "empty_tile":
+        m = rng.rand(nr, nc) < 0.03
+        m[256:512] = False
+        m[:, 256:512] = False
+    else:
+        dens = {"multi_pass": 0.05, "one_tile_repeats": 0.2}.get(name, 0.03)
+        m = rng.rand(nr, nc) < dens
+    rows, cols = np.nonzero(m)
+    if name == "one_tile_repeats":
+        rep = np.arange(0, len(rows), 7)
+        rows = np.insert(rows, rep + 1, rows[rep])
+        cols = np.insert(cols, rep + 1, cols[rep])
+    tiles = tes.pack_edge_tiles(rows, cols, nr, nc, bm=bm, bk=bk, ecap=ecap)
+    if name == "heads2_row_past_tile":
+        _poke_row_past_tile(tiles)
+    q = (rng.randint(-4, 5, (nr, n_out)) / 8).astype(np.float32)
+    k = (rng.randint(-4, 5, (nc, n_out)) / 8).astype(np.float32)
+    v = (rng.randint(-4, 5, (nc, n_out)) / 8).astype(np.float32)
+    return tiles, q, k, v
+
+
+def test_core_cases_hold_what_they_name():
+    """The core cases' packs have what their names promise: repeats
+    inside entries, a dropped row, an entry of 2048 edges and a row tile
+    over a 4 x 2048-edge pass."""
+    tiles, *_ = _core_case("one_tile_repeats")
+    r, _ = tea.live_edges(*_t(tiles)[:3], 256, 256)
+    assert len(r) < int(tiles.off[1].sum())
+    tiles, *_ = _core_case("heads2_row_past_tile")
+    r, _ = tea.live_edges(*_t(tiles)[:3], 128, 256)
+    assert len(r) < int(tiles.off[1].sum())
+    tiles, *_ = _core_case("multi_pass")
+    assert tiles.off[1].max() == 2048 and tiles.off[1].sum() > 4 * 2048
+
+
+@pytest.mark.parametrize("name", list(CORE_CASES))
+def test_core_case_plain_versions_match_pallas(name):
+    """The plain versions against the Pallas kernel in interpret mode on
+    the card kernel's core cases: row max, terms and the three
+    gradients."""
+    tiles, q, k, v = _core_case(name)
+    H = CORE_CASES[name][3]
+    _check_against_pallas(tiles, q, k, v, H, seed=7)
+
+
+def _kernel_launches(fn):
+    """The CUDA kernels ``fn()`` launches, by name (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "edge_attention_kernel" in e.name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CORE_CASES))
+def test_cuda_core_case_matches_plain_version(cuda_device, name):
+    """The four kernels on the card against their plain versions on the
+    core cases; the row max exactly (its scores are exact), each entry
+    point with exactly one kernel launch."""
+    tiles, q, k, v = _core_case(name)
+    H = CORE_CASES[name][3]
+    dev = cuda_device
+    ct = _t(tiles, dev)
+    qd, kd, vd = (torch.from_numpy(a).to(dev) for a in (q, k, v))
+    kw = dict(n_heads=H, bm=tiles.bm, bk=tiles.bk)
+    rm = tea.cold_attention_rowmax(*ct[:3], qd, kd, **kw)
+    torch.testing.assert_close(
+        rm, tea.cold_attention_rowmax_ref(*ct[:3], qd, kd, **kw), rtol=0,
+        atol=0)
+    rm = torch.where(rm > tea.NEG_SENTINEL / 2, rm, torch.zeros_like(rm))
+    g = np.random.RandomState(3)
+    gd = torch.from_numpy((g.randint(-4, 5, rm.shape) / 8).astype(
+        np.float32)).to(dev)
+    gn = torch.from_numpy((g.randint(-4, 5, q.shape) / 8).astype(
+        np.float32)).to(dev)
+    calls = {
+        "rowmax": (lambda: (tea.cold_attention_rowmax(*ct[:3], qd, kd,
+                                                      **kw),),
+                   None),
+        "terms": (lambda: tea.cold_attention_terms(*ct, qd, kd, vd, rm, **kw),
+                  lambda: tea.cold_attention_terms_ref(*ct, qd, kd, vd, rm,
+                                                       **kw)),
+        "bwd_q": (lambda: (tea.cold_attention_bwd_q(*ct, qd, kd, vd, rm, gd,
+                                                    gn, **kw),),
+                  lambda: (tea.cold_attention_bwd_q_ref(*ct, qd, kd, vd, rm,
+                                                        gd, gn, **kw),)),
+        "bwd_kv": (lambda: tea.cold_attention_bwd_kv(*ct, qd, kd, vd, rm, gd,
+                                                     gn, **kw),
+                   lambda: tea.cold_attention_bwd_kv_ref(*ct, qd, kd, vd, rm,
+                                                         gd, gn, **kw)),
+    }
+    for key, (kern, plain) in calls.items():
+        before = tea.launches[key]
+        assert len(_kernel_launches(kern)) == 1, key
+        assert tea.launches[key] == before + 1, key
+        if plain is None:
+            continue
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        tol = TERMS_TOL if key == "terms" else GRAD_TOL
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.isfinite(a).all(), (key, i)
+            torch.testing.assert_close(a, b, **tol, msg=f"{key} {i}")
+    if name == "one_tile_repeats":
+        # one output tile: its edges split over a cluster
+        assert tea.launch_blocks(ct[0], 1, q.shape[1])[1] > 1
+    if name == "empty_tile":
+        den, num = calls["terms"][0]()
+        assert (den[256:512] == 0).all() and (num[256:512] == 0).all()
+        dk, dv = calls["bwd_kv"][0]()
+        assert (dk[256:512] == 0).all() and (dv[256:512] == 0).all()

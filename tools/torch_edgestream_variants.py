@@ -90,15 +90,15 @@ def load_probe():
     return mod
 
 
-def variant_source(settings, profile):
-    src = open(SOURCE).read()
+def variant_source(settings, profile, source=SOURCE, probes=PROBES):
+    src = open(source).read()
     for name, value in settings.items():
         src, n = re.subn(rf"constexpr int {name} = [^;]+;",
                          f"constexpr int {name} = {int(value)};", src)
         if n != 1:
-            raise SystemExit(f"no constant {name} in {SOURCE}")
+            raise SystemExit(f"no constant {name} in {source}")
     if profile:
-        for anchor, line in PROBES:
+        for anchor, line in probes:
             if src.count(anchor) != 1:
                 raise SystemExit(f"--profile: anchor not found once in the "
                                  f"kernel (update PROBES): {anchor!r}")
@@ -107,12 +107,13 @@ def variant_source(settings, profile):
 
 
 def build(args):
-    """nvcc one variant; returns (library path, registers, spill bytes)."""
+    """nvcc one variant, ``(settings, profile, out_dir, i[, source,
+    probes])``; returns (library path, registers, spill bytes)."""
     from gnn_tpu_torch.ops import cuda_build
-    settings, profile, out_dir, i = args
+    settings, profile, out_dir, i, *src = args
     cu = os.path.join(out_dir, f"variant{i}{'p' if profile else ''}.cu")
     with open(cu, "w") as f:
-        f.write(variant_source(settings, profile))
+        f.write(variant_source(settings, profile, *src))
     so = cu[:-3] + ".so"
     r = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
                         "-Xptxas", "-v", "-o", so, cu], capture_output=True,

@@ -40,7 +40,7 @@ KINDS = [
     ("tile-stream SpMM / SDDMM K2/K5 (stream_spmm.cu)",
      ("stream_spmm_kernel", "stream_sddmm_kernel")),
     ("edge-stream attention K3/K4 (edge_attention.cu)",
-     ("edge_kernel", "row_reduce_kernel", "agg_kernel")),
+     ("edge_attention_kernel",)),
     # K1 and K6 are one kernel template; K6 is its mode 2 (SEG)
     ("segment-grid SpMM K6 (edge_stream.cu)", ("edge_stream_kernel<2",)),
     ("edge-stream SpMM K1 (edge_stream.cu)", ("edge_stream_kernel",)),
