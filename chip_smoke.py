@@ -31,14 +31,17 @@ Phases (any failure exits non-zero without the final result line):
    the transposed ``block_*_t``, and K2 in both orientations and the
    stream SDDMM (K5) at GAT's tile layer of one default pattern batch
    (2048 x 10240, all 1280 tiles, width 512), plus a 4-head case, a case
-   with empty row tiles and one with BlockedAdj padding tiles. Each case
-   prints its error, the kernel's time (CUDA events), the plain version's
-   time, the bound (the larger of the bytes over the memory rate and the
-   float32 flops over the float32 rate) and, where one PyTorch call
-   computes the same function, that call's time (a yardstick the port
-   never calls): ``torch.sparse.mm`` over a CSR of K1's and K6's
-   weighted edges, over a BSR of K2's tiles (a CSR of their nonzeros
-   where the card's PyTorch refuses BSR), ``torch.sparse.sampled_addmm``
+   with empty row tiles, one with BlockedAdj padding tiles, and K2 both
+   ways on blocked layer 2's tiles made dense and with a hub row and
+   column. Each case prints its error, the kernel's time (CUDA events),
+   the plain version's time, the bound (the larger of the bytes over the
+   memory rate and the float32 flops the function needs over the float32
+   rate: K2's are those of the tiles' nonzeros, printed with their
+   density) and, where one PyTorch call computes the same function, that
+   call's time (a yardstick the port never calls): ``torch.sparse.mm``
+   over a CSR of K1's and K6's weighted edges, over a CSR of K2's
+   nonzeros and over a BSR of its tiles (where the card's PyTorch takes
+   BSR; the faster one is the yardstick), ``torch.sparse.sampled_addmm``
    over a CSR of every entry of K5's tiles;
 4. a small input (3000 nodes) through the whole training path on the
    card and on the CPU, where the CPU path is the one the tests hold
@@ -498,20 +501,21 @@ def check_attention(adjs, device, nhid):
 
 
 def _library_spmm(dense, bm, bk, x):
-    """The yardstick for K2: one ``torch.sparse.mm`` over a BSR tensor of
-    the same ``(bm, bk)`` tiles, or over a CSR of their nonzeros where the
-    card's PyTorch refuses BSR. Returns ``(fn, label)``."""
+    """The yardsticks for K2: one ``torch.sparse.mm`` over a CSR of the
+    tiles' nonzeros, and one over a BSR tensor of the same ``(bm, bk)``
+    tiles where the card's PyTorch takes BSR. Returns ``[(fn, label)]``."""
     import torch
+    csr = dense.to_sparse_csr()
+    out = [((lambda: torch.sparse.mm(csr, x)), "CSR")]
     try:
         bsr = dense.to_sparse_bsr((bm, bk))
         torch.sparse.mm(bsr, x)
         torch.cuda.synchronize()
-        return (lambda: torch.sparse.mm(bsr, x)), "BSR"
+        out.append(((lambda: torch.sparse.mm(bsr, x)), "BSR"))
     except (RuntimeError, NotImplementedError, TypeError) as e:
-        log(f"  (torch.sparse.mm refuses BSR here: {str(e)[:100]}; CSR)")
+        log(f"  (torch.sparse.mm refuses BSR here: {str(e)[:100]})")
         torch.cuda.synchronize()
-        csr = dense.to_sparse_csr()
-        return (lambda: torch.sparse.mm(csr, x)), "CSR"
+    return out
 
 
 def _stream_dense(stream, transpose):
@@ -526,24 +530,19 @@ def _stream_dense(stream, transpose):
     return d.t().contiguous() if transpose else d
 
 
-def check_tile_kernels(blocked, bwidths, pattern, device, nhid):
-    """Phase 3: the stream SpMM (K2, both orientations) and SDDMM (K5)
-    against their plain versions: at the three blocked layers over
-    ``block_*`` and over ``block_*_t``; at GAT's tile layer of one default
-    pattern batch (attention-like tile values: the layer's 0/1 mask times
-    positive random numbers), one head and four; a stream whose odd row
-    tiles have no entry; a blocked layer with padding tiles. Returns, per
-    kernel, the per-step sums over one step of each main path that runs
-    it (``mult`` = launches of that case per step)."""
+def tile_cases(blocked, bwidths, pattern, device, nhid, gen):
+    """Phase 3's K2 / K5 cases: ``(label, kernel name, stream, F,
+    transpose, mult)``, ``mult`` = launches of the case per step of the
+    main paths that run it. The three blocked layers over ``block_*`` and
+    over ``block_*_t``; GAT's tile layer of one default pattern batch
+    (attention-like tile values: the layer's 0/1 mask times positive
+    random numbers), one head and four; a stream whose odd row tiles have
+    no entry; a blocked layer with padding tiles; blocked layer 2's tiles
+    fully dense, and with a hub row and column in every tile."""
     import torch
 
     from gnn_tpu_torch.models.gat import _coo_to_tilewise
-    from gnn_tpu_torch.ops import sddmm as tsd
     from gnn_tpu_torch.ops import spmm as tsm
-    gen = torch.Generator(device=device).manual_seed(2)
-    names = ("stream_spmm.forward", "stream_spmm.transpose", "stream_sddmm")
-    totals = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                      max_abs_err=0.0, bytes=0.0, flops=0.0) for n in names}
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device)
@@ -599,9 +598,46 @@ def check_tile_kernels(blocked, bwidths, pattern, device, nhid):
                   tsm.StreamBlocks(blk_rc=rc, vals=v, nrows=b2.nrows,
                                    ncols=b2.ncols, bm=b2.bm, bk=b2.bk),
                   bwidths[2], False, 0))
+    # blocked L2's tiles fully dense, and with a hub row and a hub column
+    # (row 5 and column 7 of every tile full), both orientations
+    rc, v = tsm._blocked_to_stream_arrays(b2.block_cols, b2.block_vals)
+    hub = v.clone()
+    hub[:, 5, :] = torch.rand(hub[:, 5, :].shape, generator=gen,
+                              device=device) + 0.5
+    hub[:, :, 7] = torch.rand(hub[:, :, 7].shape, generator=gen,
+                              device=device) + 0.5
+    for label, vals in (("dense tiles (L2)", rnd(*v.shape)),
+                        ("hub row+col (L2)", hub)):
+        st = tsm.StreamBlocks(blk_rc=rc, vals=vals, nrows=b2.nrows,
+                              ncols=b2.ncols, bm=b2.bm, bk=b2.bk)
+        for transpose in (False, True):
+            cases.append((label, "stream_spmm.transpose" if transpose
+                          else "stream_spmm.forward", st, bwidths[2],
+                          transpose, 0))
 
+    return cases
+
+
+def check_tile_kernels(blocked, bwidths, pattern, device, nhid):
+    """Phase 3: the stream SpMM (K2, both orientations) and SDDMM (K5)
+    against their plain versions on ``tile_cases``. Returns, per kernel,
+    the per-step sums over one step of each main path that runs it."""
+    import torch
+
+    from gnn_tpu_torch.ops import sddmm as tsd
+    from gnn_tpu_torch.ops import spmm as tsm
+    gen = torch.Generator(device=device).manual_seed(2)
+    names = ("stream_spmm.forward", "stream_spmm.transpose", "stream_sddmm")
+    totals = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                      max_abs_err=0.0, bytes=0.0, flops=0.0) for n in names}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    cases = tile_cases(blocked, bwidths, pattern, device, nhid, gen)
     for label, name, st, f, transpose, mult in cases:
         nb, bm, bk = st.blk_rc.shape[0], st.bm, st.bk
+        nnz = nb * bm * bk
         if name == "stream_sddmm":
             xa, ya = rnd(st.nrows, f), rnd(st.ncols, f)
             kern = lambda: tsd.stream_sddmm(st.blk_rc, xa, ya, bm, bk)
@@ -615,21 +651,26 @@ def check_tile_kernels(blocked, bwidths, pattern, device, nhid):
             csr = pat.to_sparse_csr()
             del pat, occ
             yt = ya.t()
-            lib = lambda: torch.sparse.sampled_addmm(csr, xa, yt, beta=0.0)
-            lib_label = "sampled_addmm"
+            libs = [((lambda: torch.sparse.sampled_addmm(csr, xa, yt,
+                                                         beta=0.0)),
+                     "sampled_addmm")]
         else:
             n_in = st.nrows if transpose else st.ncols
             n_out = st.ncols if transpose else st.nrows
             xa = rnd(n_in, f)
             kern = lambda: tsm.stream_spmm(st, xa, transpose)
             plain = lambda: tsm.stream_spmm_ref(st, xa, transpose)
+            # every tile read once, x and y once; the products are those
+            # of the tiles' nonzeros (the function's work, not the dense
+            # tiles' 2 * nb * bm * bk * F)
             nbytes = (4 * nb * bm * bk + 4 * nb * (2 if transpose else 1)
                       + 4 * (n_in + n_out) * f)
+            nnz = int(torch.count_nonzero(st.vals))
             dense = _stream_dense(st, transpose)
-            lib, lib_label = _library_spmm(dense, bk if transpose else bm,
-                                           bm if transpose else bk, xa)
+            libs = _library_spmm(dense, bk if transpose else bm,
+                                 bm if transpose else bk, xa)
             del dense
-        flops = 2 * nb * bm * bk * f
+        flops = 2 * nnz * f
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err, rel = _max_err(got, want, label, name)
@@ -641,15 +682,21 @@ def check_tile_kernels(blocked, bwidths, pattern, device, nhid):
         del got, want
         ms = time_ms(kern)
         plain_ms = time_ms(plain, reps=3)
-        library_ms = time_ms(lib, reps=3)
+        lib_ms = {lab: time_ms(fn, reps=3) for fn, lab in libs}
+        lib_label = min(lib_ms, key=lib_ms.get)
+        library_ms = lib_ms[lib_label]
+        del libs
         t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
         t_flops = flops / F32_FLOPS_PER_S * 1e3
         bound_ms = max(t_bytes, t_flops)
         log(f"{name:21s} {label:28s} {'T' if transpose else ' '} "
-            f"R={st.nrows} C={st.ncols} F={f} tiles={nb} "
+            f"R={st.nrows} C={st.ncols} F={f} tiles={nb} nnz={nnz} "
+            f"density={nnz / max(nb * bm * bk, 1):.5f} "
             f"max_abs_err={err:.3e} max_rel_err={rel:.3e} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-            f"({lib_label}) bound_ms={bound_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} "
+            + " ".join(f"{lab}_ms={t:.4f}" for lab, t in lib_ms.items())
+            + f" library_ms={library_ms:.4f} ({lib_label}) "
+            f"bound_ms={bound_ms:.4f} "
             f"({'bytes' if t_bytes >= t_flops else 'operations'})")
         tot = totals[name]
         tot["max_abs_err"] = max(tot["max_abs_err"], err)

@@ -10,10 +10,13 @@ the column-tile visit order of its entries, for the transposed product.
 
 Device side: :func:`stream_spmm` computes ``y = A @ x`` or, with
 ``transpose=True``, ``y = A^T @ x`` by launching the hand-written CUDA
-kernel ``gnn_tpu_torch/csrc/stream_spmm.cu`` on CUDA tensors; on CPU
+kernel ``gnn_tpu_torch/csrc/stream_spmm.cu`` on CUDA tensors: a tile
+scan that stages each tile in shared memory, lists its nonzeros and
+multiplies only those (the main paths' tiles are 0.2-1% nonzero). On CPU
 tensors it runs the plain PyTorch version :func:`stream_spmm_ref`
 (per-tile ``bmm`` + ``index_add_``). :func:`blocked_spmm` runs it over
 the per-row-tile layout of :class:`~gnn_tpu_torch.ops.sparse.BlockedAdj`.
+:func:`plan` chooses a launch's F-chunk, rows a block and run split.
 
 The TPU kernel's limits (``MAX_STREAM_BLOCKS``, the scalar-prefetch SMEM
 cap, the 100 MiB VMEM check on the resident ``x`` block) do not apply on
@@ -33,11 +36,18 @@ import torch
 # only where the CUDA kernel is launched
 launches: collections.Counter = collections.Counter()
 
-# thread blocks that fill the card: two resident 256-thread blocks on each
-# of the H100's 132 SMs; below it the kernel splits each output tile's
-# run of entries over up to MAX_SPLIT blocks
+# thread blocks that fill the card: two waves of one resident block (256
+# threads, ~200 KB of shared memory) on each of the H100's 132 SMs; below
+# it the kernel splits each output tile's run of entries over up to
+# MAX_SPLIT blocks
 FILL_BLOCKS = 264
 MAX_SPLIT = 16
+# the F-chunks a block may own (floats; 640 fits a 602-wide input), and
+# the floats of its output rows x chunk in shared memory (the kernel's
+# ACC_FLOATS); a block owns at most MAX_ROWS output rows
+CHUNKS = (128, 256, 512, 640, 1024)
+ACC_FLOATS = 32768
+MAX_ROWS = 128
 
 
 def _round_up(x: int, m: int) -> int:
@@ -139,7 +149,7 @@ def _kernel():
     fn = cuda_build.load("stream_spmm").stream_spmm_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -168,6 +178,22 @@ def n_split(n_blocks: int, nb: int, n_tiles: int) -> int:
                       nb // max(n_tiles, 1)))
 
 
+def plan(n_tiles: int, b_out: int, f: int, nb: int):
+    """``(chunk, rows, nsplit)`` of one K2 launch over ``n_tiles`` output
+    tiles of ``b_out`` rows at width ``f``, ``nb`` entries: the F-chunk a
+    block owns (the narrowest of ``CHUNKS`` that holds ``f``, else the
+    widest), the output rows it owns (the largest power of two up to
+    ``MAX_ROWS`` whose rows x chunk fit ``ACC_FLOATS``), and the parts
+    each run is split into (:func:`n_split` of the blocks: tiles x row
+    parts x chunks)."""
+    chunk = next((c for c in CHUNKS if c >= f), CHUNKS[-1])
+    rows = MAX_ROWS
+    while rows > 1 and rows * chunk > ACC_FLOATS:
+        rows //= 2
+    blocks = n_tiles * -(-b_out // rows) * -(-f // chunk)
+    return chunk, rows, n_split(blocks, nb, n_tiles)
+
+
 def _launch(stream: StreamBlocks, x: torch.Tensor, transpose: bool
             ) -> torch.Tensor:
     dev = x.device
@@ -181,6 +207,12 @@ def _launch(stream: StreamBlocks, x: torch.Tensor, transpose: bool
                  (nb,))
     check_tensor("stream_spmm", "vals", stream.vals, torch.float32, dev,
                  (nb, bm, bk))
+    # the kernel stages tiles with 16-byte bulk copies
+    if stream.vals.data_ptr() % 16:
+        raise ValueError("stream_spmm: vals is not 16-byte aligned (a "
+                         "view at an offset); pass an aligned tensor")
+    if bk % 4:
+        raise ValueError(f"stream_spmm: bk = {bk} is not a multiple of 4")
     t_order = None
     if transpose:
         t_order = stream.t_order
@@ -191,7 +223,7 @@ def _launch(stream: StreamBlocks, x: torch.Tensor, transpose: bool
     f = x.shape[1]
     b_out = bk if transpose else bm
     n_tiles = n_out // b_out
-    nsplit = n_split(n_tiles * -(-b_out // 128) * -(-f // 128), nb, n_tiles)
+    chunk, rows, nsplit = plan(n_tiles, b_out, f, nb)
     y = torch.empty((n_out, f), dtype=torch.float32, device=dev)
     parts = (torch.empty((nsplit, n_out, f), dtype=torch.float32,
                          device=dev) if nsplit > 1 else None)
@@ -199,7 +231,7 @@ def _launch(stream: StreamBlocks, x: torch.Tensor, transpose: bool
                     None if t_order is None else t_order.data_ptr(), nb,
                     x.data_ptr(), y.data_ptr(),
                     None if parts is None else parts.data_ptr(), n_tiles, f,
-                    bm, bk, int(transpose), nsplit,
+                    bm, bk, int(transpose), nsplit, chunk, rows,
                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stream_spmm: CUDA launch failed "
@@ -214,8 +246,9 @@ def stream_spmm(stream: StreamBlocks, x: torch.Tensor,
     as an occupied-tile stream whose entries are sorted by row tile.
     Output float32.
 
-    CUDA tensors launch the hand-written kernel (float32 on CUDA cores);
-    CPU tensors take the plain version; any other device raises."""
+    CUDA tensors launch the hand-written kernel (float32 products of the
+    tiles' nonzeros only; bitwise the same from call to call); CPU
+    tensors take the plain version; any other device raises."""
     n_in = stream.nrows if transpose else stream.ncols
     if x.dim() != 2 or x.shape[0] != n_in:
         raise ValueError(f"stream_spmm: x has shape {tuple(x.shape)}, "

@@ -150,6 +150,83 @@ def test_other_devices_raise():
                          torch.zeros((128, 4), device="meta"), 8, 128)
 
 
+# the CUDA kernel's stream structures: (kind, nr, nc, f, density, bm, bk,
+# rows populated below (None = all))
+STRUCTURED = [
+    ("hub", 256, 384, 37, 0.005, 128, 128, None),   # row 3, column 5 full
+    ("one", 384, 512, 3, 0.0, 128, 128, None),      # one nonzero a tile
+    ("zeros", 256, 512, 64, 0.05, 128, 128, None),  # a run of zero tiles
+    ("dense", 256, 256, 1, 1.0, 128, 128, None),    # every entry nonzero
+]
+
+
+def _structured(kind, seed, nr, nc, dens, bm, bk, hi):
+    """A packed stream of one of the STRUCTURED kinds (numpy)."""
+    rng, rows, cols, vals = _coo(seed, nr, nc, dens, hi)
+    if kind == "hub":
+        extra = [(np.full(nc, 3), np.arange(nc)), (np.arange(nr),
+                                                   np.full(nr, 5))]
+        for r, c in extra:
+            rows, cols = np.concatenate([rows, r]), np.concatenate([cols, c])
+        key = np.unique(rows * nc + cols)
+        rows, cols = key // nc, key % nc
+        vals = rng.rand(len(key)).astype(np.float32) + 0.5
+    elif kind == "one":
+        rt, ct = np.meshgrid(np.arange(nr // bm), np.arange(nc // bk),
+                             indexing="ij")
+        rows = (rt.ravel() * bm + rng.randint(0, bm, rt.size)).astype(
+            np.int64)
+        cols = (ct.ravel() * bk + rng.randint(0, bk, ct.size)).astype(
+            np.int64)
+        vals = rng.rand(rt.size).astype(np.float32) + 0.5
+    s = tsm.pack_stream(rows, cols, vals, nr, nc, bm=bm, bk=bk)
+    if kind == "zeros":
+        s.vals[1:5] = 0.0
+    return rng, s
+
+
+@pytest.mark.parametrize("case", STRUCTURED, ids=[c[0] for c in STRUCTURED])
+def test_structured_plain_version_matches_pallas(case):
+    """The streams the CUDA tests use (hub row and column, one nonzero a
+    tile, a run of zero tiles, dense tiles at F = 1): the plain version
+    against the Pallas kernel in interpret mode, and transposed against
+    a dense product."""
+    kind, nr, nc, f, dens, bm, bk, hi = case
+    rng, s = _structured(kind, 6, nr, nc, dens, bm, bk, hi)
+    x = rng.randn(nc, f).astype(np.float32)
+    g = rng.randn(nr, f).astype(np.float32)
+    ts = _to_torch(s)
+    got = tsm.stream_spmm(ts, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, _pallas(s, x), **TOL)
+    np.testing.assert_allclose(
+        tsm.stream_spmm(ts, torch.from_numpy(g), transpose=True).numpy(),
+        _dense(s).T @ g, **TOL)
+
+
+# n_tiles, b_out, f, nb -> (chunk, rows, nsplit)
+PLANS = [
+    ((16, 128, 602, 1656), (640, 32, 5)),    # F = 602: one 640 chunk
+    ((16, 128, 512, 1280), (512, 64, 9)),    # GAT's tile layer, F = 512
+    ((80, 128, 512, 1280), (512, 64, 2)),    # its transpose (80 col tiles)
+    ((40, 128, 1024, 680), (1024, 32, 2)),   # F = 1024: 32 rows a block
+    ((300, 128, 1024, 5000), (1024, 32, 1)),  # fills the card unsplit
+    ((10, 128, 2000, 100), (1024, 32, 4)),   # F past the widest: 2 chunks
+    ((4, 128, 1, 40), (128, 128, 10)),       # F = 1
+    ((2, 256, 130, 8), (256, 128, 4)),       # 256-row tiles: two parts
+    ((16, 8, 128, 16), (128, 128, 1)),       # one entry a tile: no split
+]
+
+
+@pytest.mark.parametrize("args,want", PLANS)
+def test_plan_chunks_and_split(args, want):
+    """The F-chunk is the narrowest of CHUNKS that holds F (else the
+    widest); a block owns the most output rows (a power of two, at most
+    MAX_ROWS) whose rows x chunk fit ACC_FLOATS; runs split until the
+    blocks (tiles x row parts x chunks) fill the card, bounded as
+    :func:`n_split` bounds them."""
+    assert tsm.plan(*args) == want
+
+
 def test_split_fills_the_card():
     """Runs split only where the blocks would not fill the card, never
     past the mean run length or MAX_SPLIT."""
@@ -168,14 +245,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# nr, nc, f, density, bm, bk, rows populated below (None = all)
+# kind, nr, nc, f, density, bm, bk, rows populated below (None = all)
 CUDA_CASES = [
-    (256, 384, 96, 0.02, 128, 128, None),
-    (384, 256, 602, 0.30, 128, 128, None),   # F not a multiple of 16
-    (128, 256, 40, 0.05, 8, 128, 8),         # bm 8, empty row tiles
-    (512, 512, 130, 0.01, 256, 64, None),    # 256-row tiles, 64-wide
-    (4096, 256, 1100, 0.02, 128, 128, None),  # forward fills the card
-]
+    ("random", 256, 384, 96, 0.02, 128, 128, None),
+    ("random", 384, 256, 602, 0.30, 128, 128, None),  # F % 16 != 0
+    ("random", 128, 256, 40, 0.05, 8, 128, 8),   # bm 8, empty row tiles
+    ("random", 512, 512, 130, 0.01, 256, 64, None),   # 256 x 64 tiles
+    ("random", 4096, 256, 1100, 0.02, 128, 128, None),  # fills the card
+    ("random", 2048, 4096, 602, 0.005, 128, 128, None),  # main-path density
+    ("random", 2048, 2048, 1024, 0.005, 128, 128, None),
+    ("random", 1024, 1024, 1, 0.01, 128, 128, None),  # F = 1
+    ("random", 512, 1024, 3, 0.01, 128, 128, None),   # F = 3
+    ("random", 64, 512, 96, 0.05, 8, 128, None),     # bm 8, all rows
+    ("random", 1024, 256, 72, 0.02, 256, 64, None),
+] + STRUCTURED
 
 
 @pytest.mark.cuda
@@ -185,10 +268,9 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case, transpose):
     """The CUDA kernel vs the plain version on the card. Tolerance:
     rtol = atol = 1e-4 — float32 sums of up to a few thousand products
     in another order."""
-    nr, nc, f, dens, bm, bk, hi = case
-    rng, rows, cols, vals = _coo(4, nr, nc, dens, hi)
-    s = _to_torch(tsm.pack_stream(rows, cols, vals, nr, nc, bm=bm, bk=bk),
-                  cuda_device)
+    kind, nr, nc, f, dens, bm, bk, hi = case
+    rng, s = _structured(kind, 4, nr, nc, dens, bm, bk, hi)
+    s = _to_torch(s, cuda_device)
     x = torch.from_numpy(rng.randn(nr if transpose else nc, f).astype(
         np.float32)).to(cuda_device)
     key = "transpose" if transpose else "forward"
@@ -220,3 +302,30 @@ def test_cuda_blocked_padding_tiles(cuda_device):
     torch.testing.assert_close(
         tsm.blocked_spmm(b.block_cols_t, b.block_vals_t, g, 128, 128),
         dense.t() @ g, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_is_bitwise_reproducible(cuda_device):
+    """Two calls on the same inputs give the same bits, both orientations,
+    with split runs and a hub row shared over warps."""
+    rng, s = _structured("hub", 7, 2048, 4096, 0.005, 128, 128, None)
+    s = _to_torch(s, cuda_device)
+    for transpose in (False, True):
+        x = torch.from_numpy(rng.randn(2048 if transpose else 4096, 512)
+                             .astype(np.float32)).to(cuda_device)
+        a = tsm.stream_spmm(s, x, transpose)
+        b = tsm.stream_spmm(s, x, transpose)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_misaligned_vals_raise(cuda_device):
+    """A ``vals`` view that is not 16-byte aligned raises rather than
+    being copied."""
+    _, s = _structured("random", 5, 256, 256, 0.05, 128, 128, None)
+    s = _to_torch(s, cuda_device)
+    flat = torch.zeros(s.vals.numel() + 1, device=cuda_device)
+    s.vals = flat[1:].view(s.vals.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        tsm.stream_spmm(s, torch.zeros((256, 8), device=cuda_device))

@@ -37,8 +37,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 # kernel-name patterns of each kind, first match wins (the hand-written
 # kernels' names come from gnn_tpu_torch/csrc)
 KINDS = [
+    # K2's tile scan and its split-run combine, K5
     ("tile-stream SpMM / SDDMM K2/K5 (stream_spmm.cu)",
-     ("stream_spmm_kernel", "stream_sddmm_kernel")),
+     ("stream_spmm_scan_kernel", "sum_parts_kernel",
+      "stream_sddmm_kernel")),
     ("edge-stream attention K3/K4 (edge_attention.cu)",
      ("edge_attention_kernel",)),
     # K1 and K6 are one kernel template; K6 is its mode 2 (SEG)
