@@ -66,7 +66,23 @@ Phases (any failure exits non-zero without the final result line):
    path (``tools/torch_edgestream_probe.py``'s
    functions on one default batch: the COO, K1 and K6 on each layer's
    cold residual, both directions), which must launch K6;
-6. a ``kernels`` JSON line, then the result line
+6. the single-device extras at the CLI defaults, each CLI run with the
+   launch counters set to 0 just before and read just after, in
+   directories that share phase 5's set-up caches: (a) ``--locality_sampling
+   --scale_factor 4 --op_timing --profile_dir``, two epochs: every epoch's
+   spmm buckets finite and above 0 and its communication bucket 0.0, K1
+   launched more often than the steps and val passes account for (the
+   op-timing probe times K1 both ways on every layer), a trace of epoch 1
+   that names K1's kernel, a falling loss; then one epoch at factor 1:
+   the share of epoch 0's layer-0 input nodes in the skew set, as each
+   run logs it, must rise from factor 1 to factor 4. (b) Resume, with an
+   lr warmup that spans epoch 2: three epochs uninterrupted, against two
+   epochs and then ``--epoch_num 3 --resume``: the resumed run trains
+   epoch 2 only, and its train and val loss and step losses agree with
+   the uninterrupted run's to RESUME_RTOL; two resumes from a broken
+   copy of the checkpoint (update count 0; no optimizer state) must miss
+   by more;
+7. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -877,6 +893,28 @@ def _reset_counters():
     return counters
 
 
+def run_cli(save_dir, argv):
+    """``gnn_tpu_torch.cli.main(argv)`` with ``--save_dir save_dir``, every
+    launch counter set to 0 just before and read just after. Returns the
+    metrics records the run appended, its kernel launch counts by JSON
+    name, and its wall seconds."""
+    import torch
+
+    from gnn_tpu_torch import cli
+
+    metrics = os.path.join(save_dir, "metrics.jsonl")
+    n_before = sum(1 for _ in open(metrics)) if os.path.exists(metrics) else 0
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    rc = cli.main(argv + ["--save_dir", save_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: c[key] for name, (c, key) in counters.items()}
+    if rc != 0:
+        fail(f"{argv}: cli.main returned {rc}")
+    return [json.loads(l) for l in open(metrics)][n_before:], counts, wall
+
+
 def run_main_path(save_dir, label, argv, per_step):
     """Phase 5: one CLI run (one epoch + val, + the test sweep where
     ``argv`` asks for it), with every launch counter set to 0 just before
@@ -885,21 +923,9 @@ def run_main_path(save_dir, label, argv, per_step):
 
     import torch
 
-    from gnn_tpu_torch import cli
-
-    metrics = os.path.join(save_dir, "metrics.jsonl")
-    n_before = sum(1 for _ in open(metrics)) if os.path.exists(metrics) else 0
-    counters = _reset_counters()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    rc = cli.main(argv + ["--n_devices", "1", "--epoch_num", "1",
-                          "--save_dir", save_dir])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {name: c[key] for name, (c, key) in counters.items()}
-    if rc != 0:
-        fail(f"{label}: cli.main returned {rc}")
-    recs = [json.loads(l) for l in open(metrics)][n_before:]
+    recs, counts, wall = run_cli(save_dir, argv + ["--n_devices", "1",
+                                                   "--epoch_num", "1"])
     ep = next(r for r in recs if "step_losses" in r)
     test_f1 = next((r["test_f1"] for r in recs if "test_f1" in r), None)
     losses, times = ep["step_losses"], ep["step_times"]
@@ -958,6 +984,221 @@ def run_probe_path(save_dir, device):
     if counts["edge_stream_spmm_seg"] == 0:
         fail("probe path: K6 was never launched")
     return counts
+
+
+# phase 6: K1's launches per training step of the default path (phase 5),
+# and K1's __global__ function in csrc/edge_stream.cu (a profiler trace
+# names it)
+DEFAULT_PER_STEP = MAIN_PATHS[0][2]
+K1_KERNEL = "edge_stream_kernel"
+# the resumed run's epoch against the uninterrupted run's (train and val
+# loss, and each step's loss): K1 sums in a run-dependent order, so the
+# runs agree closely but not bit for bit. Readings at full width (H100):
+# sound resumes 1e-8 to 5.4e-6; a resume that lost the update count
+# 8.1e-4 on the train loss, one that lost the optimizer state 1.2e-3
+RESUME_RTOL = 1e-4
+# the resume runs' lr warmup: longer than two epochs of 30 steps, so that
+# epoch 2 still warms up and a resume that lost the update count shows
+RESUME_WARMUP = 90
+
+
+def linked_dir(save_dir, name):
+    """A new directory ``name`` in ``save_dir`` with hard links to its
+    set-up caches (the placement, the sample probabilities and the hot
+    block's COO, the ``.npy`` / ``.npz`` files) and none of its
+    checkpoints or metrics."""
+    d = os.path.join(save_dir, name)
+    os.makedirs(d)
+    for f in os.listdir(save_dir):
+        if f.endswith((".npy", ".npz")):
+            os.link(os.path.join(save_dir, f), os.path.join(d, f))
+    return d
+
+
+def log_epochs(label, recs):
+    """Each epoch record's buckets, losses and step seconds; returns the
+    epoch records."""
+    eps = [r for r in recs if "step_losses" in r]
+    for r in eps:
+        times = r["step_times"]
+        steady = sorted(times[1:]) or times
+        log(f"{label} epoch {r['epoch']}: {len(times)} steps, scale_factor "
+            f"{r['scale_factor']}, total_s {r['total_s']:.3f}, sample_wait_s "
+            f"{r['sample_wait_s']:.3f}, data_movement_s "
+            f"{r['data_movement_s']:.3f}, execution_s "
+            f"{r['execution_s']:.3f}, spmm_fwd_s {r['spmm_fwd_s']:.4f}, "
+            f"spmm_bwd_s {r['spmm_bwd_s']:.4f}, communication_s "
+            f"{r['communication_s']}, skew_share {r['skew_share']:.4f}, "
+            f"median step s "
+            f"{steady[len(steady) // 2]:.4f}, train loss "
+            f"{r['train_loss']:.5f}, val loss {r['valid_loss']:.5f}, val F1 "
+            f"{r['valid_f1']:.4f}")
+        log(f"{label} epoch {r['epoch']} step seconds: "
+            + " ".join(f"{v:.3f}" for v in times))
+    return eps
+
+
+def k1_trace_ms(path):
+    """K1's kernels in a Chrome trace: their count and summed device ms."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and K1_KERNEL in e.get("name", "")]
+    return len(k1), sum(e.get("dur", 0.0) for e in k1) / 1e3
+
+
+def run_extras(save_dir):
+    """Phase 6 (a): the default CLI run with ``--locality_sampling
+    --scale_factor 4 --op_timing --profile_dir``, two epochs. Every
+    epoch's spmm buckets must be finite and above 0 and its communication
+    bucket 0.0; K1 must launch more often than the training steps and val
+    passes account for (the op-timing probe times K1 both ways on every
+    layer); the trace of epoch 1 must name K1's kernel; the loss must
+    fall. Returns the run's launch counts."""
+    import math
+
+    d = linked_dir(save_dir, "extras")
+    prof = os.path.join(d, "profile")
+    recs, counts, wall = run_cli(d, [
+        "--n_devices", "1", "--epoch_num", "2", "--locality_sampling",
+        "--scale_factor", "4", "--op_timing", "--profile_dir", prof])
+    eps = log_epochs("extras", recs)
+    steps = sum(len(r["step_losses"]) for r in eps)
+    losses = [v for r in eps for v in r["step_losses"]]
+    log(f"extras run: {len(eps)} epochs, {steps} steps in {wall:.1f}s wall; "
+        f"kernel launches { {k: v for k, v in counts.items() if v} }")
+    if len(eps) != 2 or not all(math.isfinite(v) for v in losses):
+        fail(f"extras: missing epochs or non-finite losses: {losses}")
+    last5 = sum(losses[-5:]) / 5
+    if not last5 < losses[0]:
+        fail(f"extras: loss did not fall: first {losses[0]}, last-5 mean "
+             f"{last5}")
+    for r in eps:
+        if not (math.isfinite(r["spmm_fwd_s"]) and r["spmm_fwd_s"] > 0
+                and math.isfinite(r["spmm_bwd_s"]) and r["spmm_bwd_s"] > 0
+                and r["communication_s"] == 0.0):
+            fail(f"extras epoch {r['epoch']}: op-timing buckets "
+                 f"{r['spmm_fwd_s']}, {r['spmm_bwd_s']}, "
+                 f"{r['communication_s']}")
+    # the steps launch per_step each; every val pass one forward a layer
+    for name, n in DEFAULT_PER_STEP.items():
+        floor = n * steps + (3 * len(eps) if name.endswith("forward") else 0)
+        log(f"{name}: {counts[name]} launches, {floor} from the steps and "
+            f"val passes")
+        if counts[name] <= floor:
+            fail(f"extras: {name} launches {counts[name]} <= {floor}: the "
+                 f"op-timing probe did not launch K1")
+    traces = os.listdir(prof)
+    if traces != ["trace_epoch1.json"]:
+        fail(f"extras: profile directory holds {traces}")
+    trace = os.path.join(prof, traces[0])
+    n_k1, k1_ms = k1_trace_ms(trace)
+    ep1 = eps[1]
+    log(f"trace {os.path.getsize(trace)} bytes: {n_k1} K1 kernels "
+        f"({K1_KERNEL}), {k1_ms:.3f} ms of device time over epoch 1's "
+        f"{len(ep1['step_losses'])} steps; op-timing buckets of epoch 1 "
+        f"(hot block + K1, isolated, times the steps): "
+        f"{1e3 * (ep1['spmm_fwd_s'] + ep1['spmm_bwd_s']):.3f} ms")
+    if n_k1 == 0:
+        fail(f"extras: the trace does not name {K1_KERNEL}")
+    # epoch 0 at factor 1: the same targets and sampling seeds
+    recs1, counts1, wall1 = run_cli(linked_dir(save_dir, "factor1"), [
+        "--n_devices", "1", "--epoch_num", "1", "--locality_sampling",
+        "--scale_factor", "1"])
+    share1 = log_epochs("factor 1", recs1)[0]["skew_share"]
+    share4 = eps[0]["skew_share"]
+    log(f"factor 1 run: {wall1:.1f}s wall; epoch 0's layer-0 input nodes "
+        f"in the skew set: {share1:.4f} at factor 1, {share4:.4f} at "
+        f"factor 4")
+    if not share4 > share1:
+        fail(f"locality: factor 4 does not raise the skew share: {share1} "
+             f"-> {share4}")
+    return {k: counts[k] + counts1[k] for k in counts}
+
+
+def broken_copy(save_dir, src, name, breaks):
+    """A directory ``name`` like ``linked_dir``'s, holding a copy of
+    ``src``'s checkpoints in which ``breaks(payload)`` has changed the
+    latest one."""
+    import torch
+
+    from gnn_tpu_torch.train.checkpoint import checkpoint_path
+    d = linked_dir(save_dir, name)
+    for ck in ("latest", "best"):
+        if os.path.exists(checkpoint_path(src, ck)):
+            shutil.copy(checkpoint_path(src, ck), checkpoint_path(d, ck))
+    path = checkpoint_path(d, "latest")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    breaks(payload)
+    torch.save(payload, path)
+    return d
+
+
+def _lose_count(payload):
+    payload["n_updates"] = 0
+
+
+def _lose_optimizer(payload):
+    del payload["opt_state"], payload["n_updates"]
+
+
+def run_resume(save_dir):
+    """Phase 6 (b), with an lr warmup of RESUME_WARMUP steps: run A trains
+    3 epochs uninterrupted; run B trains 2, then resumes with
+    ``--epoch_num 3 --resume`` in its directory. The resumed run must
+    train exactly epoch 2, with its train and val loss and each step's
+    loss within RESUME_RTOL of run A's epoch 2. Two more resumes start
+    from copies of run B's checkpoint that lost the update count or the
+    optimizer state; each must miss run A's epoch 2 by more than
+    RESUME_RTOL on one of those, or the check could not see such a
+    fault. Returns the launch counts of the five runs."""
+    base = ["--n_devices", "1", "--lr_warmup", str(RESUME_WARMUP)]
+    resume = ["--epoch_num", "3", "--resume"]
+    a_dir, b_dir = linked_dir(save_dir, "run_a"), linked_dir(save_dir,
+                                                             "run_b")
+    total = {}
+    eps = {}
+
+    def run(label, d, argv):
+        recs, counts, wall = run_cli(d, base + argv)
+        eps[label] = log_epochs(label, recs)
+        log(f"{label}: {wall:.1f}s wall")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    run("run A", a_dir, ["--epoch_num", "3"])
+    run("run B", b_dir, ["--epoch_num", "2"])
+    broken = [(label, broken_copy(save_dir, b_dir, name, breaks))
+              for label, name, breaks in (
+                  ("resumed without the update count", "lost_count",
+                   _lose_count),
+                  ("resumed without the optimizer state", "lost_opt",
+                   _lose_optimizer))]
+    run("run B resumed", b_dir, resume)
+    for label, d in broken:
+        run(label, d, resume)
+    want = eps["run A"][2]
+    for label in ["run B resumed"] + [label for label, _ in broken]:
+        got = eps[label]
+        if [r["epoch"] for r in got] != [2]:
+            fail(f"resume: {label} trained epochs "
+                 f"{[r['epoch'] for r in got]}, not [2]")
+        rel = {key: abs(got[0][key] - want[key]) / abs(want[key])
+               for key in ("train_loss", "valid_loss")}
+        rel["step_losses"] = max(
+            abs(g - w) / abs(w)
+            for g, w in zip(got[0]["step_losses"], want["step_losses"]))
+        log(f"resume: epoch 2 {label} against uninterrupted, rel diff: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+            + f" (train loss {got[0]['train_loss']:.6f} against "
+            f"{want['train_loss']:.6f})")
+        worst = max(rel.values())
+        if label == "run B resumed" and not worst <= RESUME_RTOL:
+            fail(f"resume: epoch 2 differs by {worst:.3e}")
+        if label != "run B resumed" and not worst > RESUME_RTOL:
+            fail(f"resume: {label} agrees to {worst:.3e}, within "
+                 f"RESUME_RTOL: the check cannot see that fault")
+    return total
 
 
 def _kernel_entry(name, source, replaces, launches, t):
@@ -1031,6 +1272,12 @@ def main() -> int:
         for name, n in run_probe_path(save_dir, device).items():
             counts[name] += n
         log(f"phase 5 (main paths, probe): {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        for run in (run_extras, run_resume):
+            for name, n in run(save_dir).items():
+                counts[name] += n
+        log(f"phase 6 (single-device extras): "
+            f"{time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
 

@@ -20,8 +20,13 @@ route (SDDMM K5 + K2). ``--adj_format hot`` keeps only the hot blocks on
 the card and ships each layer's hot-slot plumbing and cold COO (with its
 col-sorted transpose copy) from the host; ``--sampler subgraph`` samples
 one node set per batch and shares one square adjacency across the deeper
-layers, on any format. Flags whose paths are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+layers, on any format. ``--locality_sampling`` skews the sampler toward
+the device's placement buffer and tunes ``--scale_factor`` live;
+``--resume`` continues from ``--save_dir``'s latest checkpoint;
+``--op_timing`` adds the spmm / communication buckets to each epoch's
+line; ``--profile_dir`` writes a profiler trace of epoch 1. Flags whose
+paths are not ported yet raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -112,17 +117,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "ported yet)")
     p.add_argument("--save_dir", type=str, default="save")
     p.add_argument("--resume", action="store_true",
-                   help="resume from save_dir's latest checkpoint (not "
-                        "ported yet)")
+                   help="resume from save_dir's latest checkpoint")
     p.add_argument("--data_dir", type=str,
                    default=os.environ.get("GNN_DATA_DIR", "data"))
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile_dir", type=str, default="",
-                   help="write a profiler trace of epoch 1 here (not "
-                        "ported yet)")
+                   help="write a profiler trace of epoch 1 here")
     p.add_argument("--op_timing", action="store_true", default=False,
-                   help="per-epoch spmm/communication buckets (not "
-                        "ported yet)")
+                   help="per-epoch spmm/communication buckets")
     p.add_argument("--no_op_timing", dest="op_timing",
                    action="store_false")
     p.add_argument("--device", type=str, default="cuda",
@@ -146,17 +148,12 @@ def resolve_training_defaults(args, steps_per_epoch: int = 10**9) -> int:
 def _check_ported(args) -> None:
     """Raise NotImplementedError for flags whose paths are not ported."""
     multi = "multi-device over torch.distributed"
-    resume = "resume, the locality tuner, op timing and profiling"
     todo = [
         (args.feature_cache, "--feature_cache", multi),
         (args.resident_parts > 1, "--resident_parts", multi),
         (args.n_devices > 1, "--n_devices > 1", multi),
         (args.steps_per_dispatch > 1, "--steps_per_dispatch > 1",
          "decision: no scan dispatch in eager PyTorch"),
-        (args.locality_sampling, "--locality_sampling", resume),
-        (args.resume, "--resume", resume),
-        (bool(args.profile_dir), "--profile_dir", resume),
-        (args.op_timing, "--op_timing", resume),
     ]
     for hit, flag, item in todo:
         if hit:
@@ -189,7 +186,8 @@ def train(args):
     from gnn_tpu_torch.device import resolve_device
     from gnn_tpu_torch.models.gnn import build_model
     from gnn_tpu_torch.parallel.feature_cache import ReplicatedFeatures
-    from gnn_tpu_torch.placement.engine import create_placement
+    from gnn_tpu_torch.placement.engine import (create_placement,
+                                                get_per_rank_skewed_nodes)
     from gnn_tpu_torch.sampling.ladies import SamplerConfig
     from gnn_tpu_torch.sampling.pipeline import BatchPipeline
     from gnn_tpu_torch.train.metrics import MetricsRegistry
@@ -213,6 +211,17 @@ def train(args):
         lap, graph.train_nodes, per_dev=per_dev, num_devs=1,
         num_conv_layers=sum(orders), alpha=args.alpha, strategy=strategy,
         cache_dir=args.save_dir, dataset=args.dataset.replace("/", "_"))
+
+    per_rank_skew = None
+    scale_factor = args.scale_factor
+    if args.locality_sampling:
+        import scipy.sparse as sp
+        # the device skews toward its own buffered nodes
+        # (reference sampler.py:23-25,119-121)
+        per_rank_skew = get_per_rank_skewed_nodes(
+            graph.adj_full + sp.eye(n), placement, orders)
+        # the tuner may raise the factor during training
+        scale_factor = max(scale_factor, 1.0)
 
     hot_spec = None
     hot_dense = None
@@ -257,10 +266,11 @@ def train(args):
     cfg = SamplerConfig(
         batch_size=args.batch_size, samp_num=args.samp_num, orders=orders,
         num_nodes=n, num_classes=graph.num_classes, sampler=args.sampler,
-        scale_factor=args.scale_factor, adj_format=args.adj_format,
+        scale_factor=scale_factor, adj_format=args.adj_format,
         hot_spec=hot_spec, resident_val_free=val_free,
         resident_stream_tiles=stream_tiles)
     pipe = BatchPipeline(cfg, lap, graph.labels, pool_num=args.pool_num,
+                         per_rank_skew=per_rank_skew,
                          local_shuffle=args.local_shuffle, seed=args.seed)
     net = build_model(args.model, args.nhid, orders, graph.num_classes,
                       n_feats=graph.feats.shape[1], seed=args.seed)
@@ -283,7 +293,9 @@ def train(args):
     try:
         trainer.fit(graph.train_nodes, graph.valid_nodes, args.epoch_num,
                     rank_chunks=rank_chunks, checkpoint_dir=args.save_dir,
-                    metrics=metrics)
+                    locality_tuner=args.locality_sampling, metrics=metrics,
+                    profile_dir=args.profile_dir or None,
+                    op_timing=args.op_timing, resume=args.resume)
         if args.test:
             f1 = trainer.test(graph.test_nodes, batch_size=128)
             metrics.log(test_f1=f1)

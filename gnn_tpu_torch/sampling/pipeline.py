@@ -39,12 +39,25 @@ class BatchPipeline:
     """Prefetching minibatch source for one trainer on one device."""
 
     def __init__(self, cfg: SamplerConfig, lap_matrix, labels_full,
-                 pool_num: int = 4, local_shuffle: bool = False,
-                 seed: int = 0):
+                 pool_num: int = 4,
+                 per_rank_skew: Optional[List[List[np.ndarray]]] = None,
+                 local_shuffle: bool = False, seed: int = 0):
+        """``per_rank_skew``: per-rank per-layer skew lists (each rank
+        skews toward its own resident nodes, reference
+        ``sampler.py:23-25``). One device is rank 0."""
         self.cfg = cfg
         self.lap = lap_matrix
         self.labels = labels_full
         self.world_size = 1
+        if per_rank_skew is not None and len(per_rank_skew) != 1:
+            raise ValueError(f"per_rank_skew has {len(per_rank_skew)} "
+                             f"ranks; this pipeline feeds one")
+        self.skew = None if per_rank_skew is None else per_rank_skew[0]
+        # layer 0's skew set (the rank's own buffer) as a node mask
+        self._skew_mask = None
+        if self.skew is not None:
+            self._skew_mask = np.zeros(cfg.num_nodes, bool)
+            self._skew_mask[self.skew[0]] = True
         self.pool = ThreadPoolExecutor(max_workers=pool_num)
         self.local_shuffle = local_shuffle
         self._sampler = SAMPLERS[cfg.sampler]
@@ -62,9 +75,16 @@ class BatchPipeline:
     def close(self):
         self.pool.shutdown(wait=True, cancel_futures=True)
 
-    def _sample_one(self, seed, batch_nodes, cfg=None):
-        return self._sampler(cfg or self.cfg, seed, batch_nodes, self.lap,
-                             self.labels)
+    def skew_share(self, mb: MiniBatch) -> float:
+        """The share of ``mb``'s layer-0 input nodes that lie in the skew
+        set; NaN without a skew."""
+        if self._skew_mask is None:
+            return float("nan")
+        return float(self._skew_mask[mb.input_nodes[: mb.n_input]].mean())
+
+    def _sample_one(self, seed, batch_nodes, cfg):
+        return self._sampler(cfg, seed, batch_nodes, self.lap, self.labels,
+                             self.skew)
 
     def _epoch_plan(self, target_nodes, rank_chunks, eid):
         """Shuffled chunk + step count for internal epoch id ``eid`` (a
@@ -101,7 +121,10 @@ class BatchPipeline:
                 idx = np.arange(j * bs, j * bs + bs) % max(nr, 1)
                 chunk = per_rank[r][idx]
             seed = int(rng.integers(2 ** 31 - 1))
-            group.append(self.pool.submit(self._sample_one, seed, chunk))
+            # the config is bound here, at submission: a worker that runs
+            # later never sees a factor the tuner set in the meantime
+            group.append(self.pool.submit(self._sample_one, seed, chunk,
+                                          self.cfg))
         return group
 
     def train_epoch(self, target_nodes: np.ndarray,

@@ -1,6 +1,6 @@
-"""Metrics registry / structured logging and the per-epoch metrics
-record: the counterpart of `gnn_tpu.train.metrics` (the locality
-scale-factor tuner waits, ROADMAP queue 2).
+"""Metrics registry / structured logging, the locality scale-factor
+tuner and the per-epoch metrics record: the counterpart of
+`gnn_tpu.train.metrics`.
 
 The reference's observability is one per-epoch print
 (``main.py:196``); the registry keeps the same measurements as
@@ -43,13 +43,53 @@ def device_memory_stats() -> Dict[str, int]:
             for i in range(torch.cuda.device_count())}
 
 
+# the tuner stops once the factor reaches this
+MAX_SCALE_FACTOR = 16.0
+
+
+class ScaleFactorTuner:
+    """The locality-sampling scale-factor controller the reference left
+    commented out (``main.py:200-212``), live: double the factor while
+    data movement dominates (ratio >= 0.2), bisect back when it
+    undershoots (< 0.1), stop at ``MAX_SCALE_FACTOR`` or once the ratio
+    is in the band."""
+
+    def __init__(self, initial: float = 1.0):
+        self.scale_factor = initial
+        self.active = True
+        # the bisection's lower bound starts at the initial factor, not
+        # 0: with initial > 1 and an immediate ratio < 0.1, (0 + sf) / 2
+        # would halve below the visited range
+        self._before = initial
+        self._after = initial
+
+    def update(self, movement_time: float, execution_time: float) -> float:
+        if not self.active or execution_time <= 0:
+            return self.scale_factor
+        ratio = movement_time / execution_time
+        if self.scale_factor >= MAX_SCALE_FACTOR:
+            self.active = False
+        elif ratio >= 0.2:
+            self._before = self.scale_factor
+            self.scale_factor *= 2
+        elif ratio < 0.1 and self.scale_factor != 1.0:
+            self._after = self.scale_factor
+            self.scale_factor = (self._before + self._after) / 2
+        else:
+            self.active = False
+        return self.scale_factor
+
+
 @dataclasses.dataclass
 class EpochMetrics:
     """The reference's per-epoch timing line (`main.py:196`), carrying all
     of its buckets: spmm fwd/bwd time (`custom_sparse_ops.py:11-12`),
-    data-movement, communication, and execution time. The port fills
-    the sampling, movement, execution and total buckets; the spmm and
-    communication buckets stay NaN until ``--op_timing`` is ported.
+    data-movement, communication, and execution time. The spmm and
+    communication buckets stay NaN unless ``fit(op_timing=True)`` fills
+    them (`gnn_tpu_torch.train.optiming`: isolated ops on the epoch's
+    last batch, times the step count; communication is 0.0 on one
+    device). ``skew_share`` is the mean share of a batch's layer-0 input
+    nodes in the locality skew set (NaN without locality sampling).
     ``step_losses``/``step_times`` hold each training step's loss and
     host-clock seconds (the step ends with the loss read back)."""
 
@@ -67,6 +107,7 @@ class EpochMetrics:
     # device sync (async dispatch means the per-step buckets alone
     # under-count queued device work)
     total_time: float = float("nan")
+    skew_share: float = float("nan")
     step_losses: List[float] = dataclasses.field(default_factory=list)
     step_times: List[float] = dataclasses.field(default_factory=list)
 

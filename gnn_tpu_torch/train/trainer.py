@@ -7,10 +7,15 @@ adjacencies, forward, masked BCE/CE loss, backward, global-norm clip
 ``min(1, 5 / (norm + 1e-6))``, Adam (optax's and PyTorch's Adam apply
 the same formula), with the optional linear warmup ``lr/100 -> lr`` over
 ``lr_warmup`` updates. ``fit`` runs a val pass per epoch, keeps the best
-model at a +1e-2 improvement and saves a rolling latest checkpoint.
+model at a +1e-2 improvement and saves a rolling latest checkpoint; it
+resumes from that checkpoint, runs the live locality scale-factor tuner,
+the op-timing buckets and a profiler trace of the second epoch.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import os
 import time
 from typing import List, Optional
 
@@ -22,11 +27,12 @@ from gnn_tpu_torch.parallel.feature_cache import ReplicatedFeatures
 from gnn_tpu_torch.train.evalloop import EvalMixin
 from gnn_tpu_torch.train.loss import masked_loss
 from gnn_tpu_torch.train.metrics import EpochMetrics
+from gnn_tpu_torch.train.optiming import OpTimingMixin
 from gnn_tpu_torch.train.stepfns import (clip_by_global_norm, prepare_adjs,
                                          to_device_batch)
 
 
-class Trainer(EvalMixin):
+class Trainer(EvalMixin, OpTimingMixin):
     """End-to-end trainer mirroring ``main.py``'s behavior on one
     device (``cuda`` unless the caller passes ``device="cpu"``)."""
 
@@ -41,6 +47,7 @@ class Trainer(EvalMixin):
         self.feature_source = (feature_source if feature_source is not None
                                else ReplicatedFeatures(feats,
                                                        device=self.device))
+        self.n_feats = feats.shape[1]
         self.sigmoid_loss = sigmoid_loss
         self.lr = lr
         self.lr_warmup = int(lr_warmup)
@@ -91,18 +98,22 @@ class Trainer(EvalMixin):
         self.n_updates += 1
         return loss.detach()
 
-    def train_epoch(self, train_nodes, epoch: int,
-                    rank_chunks=None) -> EpochMetrics:
+    def train_epoch(self, train_nodes, epoch: int, rank_chunks=None,
+                    keep_last_batch: bool = False) -> EpochMetrics:
+        """One epoch of training steps. ``keep_last_batch`` keeps the
+        epoch's last device batch as ``self.last_batch`` (the op-timing
+        probe's operands); otherwise ``last_batch`` is None."""
         # epoch-deterministic randomness (sampling seeds, dropout)
         self.generator.manual_seed(self._seed * 1_000_003 + epoch)
         self.net.train()
         t_sample = t_move = t_exec = 0.0
-        losses, times = [], []
+        losses, times, shares = [], [], []
         t_start = t0 = time.perf_counter()
         for mb in self.pipeline.train_epoch(train_nodes, rank_chunks,
                                             epoch=epoch):
             t1 = time.perf_counter()
             t_sample += t1 - t0
+            shares.append(self.pipeline.skew_share(mb))
             batch = to_device_batch(mb, self.device)
             t2 = time.perf_counter()
             t_move += t2 - t1
@@ -111,6 +122,7 @@ class Trainer(EvalMixin):
             t_exec += t0 - t2
             losses.append(loss)
             times.append(t0 - t1)
+        self.last_batch = batch if keep_last_batch and losses else None
         return EpochMetrics(
             epoch=epoch,
             train_loss=float(np.mean(losses)) if losses else float("nan"),
@@ -118,16 +130,57 @@ class Trainer(EvalMixin):
             data_movement_time=t_move, execution_time=t_exec,
             sample_wait_time=t_sample,
             total_time=time.perf_counter() - t_start,
+            skew_share=float(np.mean(shares)) if shares else float("nan"),
             step_losses=losses, step_times=times)
 
     def fit(self, train_nodes, valid_nodes, epochs: int, rank_chunks=None,
             log: bool = True, checkpoint_dir: Optional[str] = None,
-            metrics=None):
-        """Train for ``epochs`` epochs with a val pass after each."""
-        from gnn_tpu_torch.train.checkpoint import save_checkpoint
-        from gnn_tpu_torch.train.metrics import device_memory_stats
-        for epoch in range(epochs):
-            m = self.train_epoch(train_nodes, epoch, rank_chunks)
+            locality_tuner: bool = False, metrics=None,
+            profile_dir: Optional[str] = None, op_timing: bool = False,
+            resume: bool = False):
+        """Train for ``epochs`` epochs with a val pass after each.
+        ``resume=True`` picks up from ``checkpoint_dir``'s latest
+        checkpoint (params, optimizer state, update count, next epoch,
+        best-val watermark, and the best params from the best
+        checkpoint); every epoch's randomness derives from (seed, epoch),
+        so the remaining epochs replay the uninterrupted run's.
+        ``locality_tuner`` feeds each epoch after the first trained one to
+        a `ScaleFactorTuner`; ``op_timing`` fills the spmm and
+        communication buckets; ``profile_dir`` gets a trace of epoch 1."""
+        from gnn_tpu_torch.train.checkpoint import (checkpoint_path,
+                                                    load_checkpoint,
+                                                    save_checkpoint)
+        from gnn_tpu_torch.train.metrics import (ScaleFactorTuner,
+                                                 device_memory_stats)
+        tuner = (ScaleFactorTuner(self.pipeline.cfg.scale_factor)
+                 if locality_tuner else None)
+        start_epoch = 0
+        if resume and checkpoint_dir is not None and os.path.exists(
+                checkpoint_path(checkpoint_dir, "latest")):
+            start_epoch = self.restore(checkpoint_dir)
+            # the final test sweep runs the best params (main.py:218-235),
+            # so they must survive the resume too
+            if os.path.exists(checkpoint_path(checkpoint_dir, "best")):
+                bp, _, _, bv, _ = load_checkpoint(checkpoint_dir, "best")
+                self.best_params = {k: v.to(self.device)
+                                    for k, v in bp.items()}
+                self.best_val = max(self.best_val, bv)
+            print(f"resumed from {checkpoint_dir} at epoch {start_epoch} "
+                  f"(best val F1 {self.best_val:.3f})", flush=True)
+        for epoch in range(start_epoch, epochs):
+            # profile the second epoch (the first pays one-time set-up)
+            with (profile_trace(profile_dir, self.device, epoch)
+                  if profile_dir is not None and epoch == 1
+                  else contextlib.nullcontext()):
+                m = self.train_epoch(train_nodes, epoch, rank_chunks,
+                                     keep_last_batch=op_timing)
+            if op_timing:
+                fwd, bwd, comm = self.measure_op_buckets(self.last_batch)
+                self.last_batch = None
+                steps = len(m.step_losses)
+                m.spmm_fwd_time = fwd * steps
+                m.spmm_bwd_time = bwd * steps
+                m.communication_time = comm * steps
             f1, vloss = self.evaluate(valid_nodes, 128, "val")
             m.valid_f1, m.valid_loss = f1, vloss
             self.history.append(m)
@@ -139,10 +192,25 @@ class Trainer(EvalMixin):
                             sample_wait_s=m.sample_wait_time,
                             data_movement_s=m.data_movement_time,
                             execution_s=m.execution_time,
+                            spmm_fwd_s=m.spmm_fwd_time,
+                            spmm_bwd_s=m.spmm_bwd_time,
+                            communication_s=m.communication_time,
+                            scale_factor=self.pipeline.cfg.scale_factor,
+                            skew_share=m.skew_share,
                             total_s=m.total_time,
                             step_losses=m.step_losses,
                             step_times=m.step_times,
                             device_memory=device_memory_stats())
+            # live scale-factor controller (reference main.py:200-212);
+            # the first trained epoch pays one-time set-up in its
+            # execution bucket, which would read as a tiny ratio and stop
+            # the controller, so it is skipped
+            if tuner is not None and epoch > start_epoch:
+                new_sf = tuner.update(m.data_movement_time,
+                                      m.execution_time)
+                if new_sf != self.pipeline.cfg.scale_factor:
+                    self.pipeline.cfg = dataclasses.replace(
+                        self.pipeline.cfg, scale_factor=new_sf)
             # best-model selection at +1e-2 improvement (main.py:197-199)
             if f1 > self.best_val + 1e-2:
                 self.best_val = f1
@@ -152,11 +220,57 @@ class Trainer(EvalMixin):
                     save_checkpoint(checkpoint_dir, self.best_params,
                                     step=epoch,
                                     opt_state=self.optimizer.state_dict(),
+                                    n_updates=self.n_updates,
                                     best_val=self.best_val)
             if checkpoint_dir is not None:
                 # rolling crash-recovery checkpoint (next epoch)
-                save_checkpoint(checkpoint_dir, self.net.state_dict(),
-                                step=epoch + 1,
-                                opt_state=self.optimizer.state_dict(),
-                                name="latest", best_val=self.best_val)
+                self.save(checkpoint_dir, step=epoch + 1)
         return self.history
+
+    def save(self, ckpt_dir: str, step: int = 0):
+        """The latest checkpoint, the full training state: params,
+        optimizer state, update count, ``step`` and the best-val
+        watermark."""
+        from gnn_tpu_torch.train.checkpoint import save_checkpoint
+        return save_checkpoint(ckpt_dir, self.net.state_dict(), step=step,
+                               opt_state=self.optimizer.state_dict(),
+                               n_updates=self.n_updates, name="latest",
+                               best_val=self.best_val)
+
+    def restore(self, ckpt_dir: str) -> int:
+        """Load params, optimizer state, update count and the best-val
+        watermark from the latest checkpoint; returns its step."""
+        from gnn_tpu_torch.train.checkpoint import load_checkpoint
+        params, step, opt_state, best_val, n_updates = load_checkpoint(
+            ckpt_dir, "latest")
+        self.net.load_state_dict(params)
+        if opt_state is not None:
+            self.optimizer.load_state_dict(opt_state)
+            self.n_updates = n_updates
+        self.best_val = max(self.best_val, best_val)
+        return step
+
+
+@contextlib.contextmanager
+def profile_trace(profile_dir: str, device: torch.device, epoch: int):
+    """``torch.profiler`` over the body, CPU activity and, on the card,
+    CUDA activity; writes a Chrome trace ``trace_epoch{epoch}.json`` into
+    ``profile_dir``. On the card a trace without CUDA events (CUPTI gave
+    none) raises instead of being written."""
+    from torch.profiler import ProfilerActivity, profile
+    on_card = device.type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if on_card:
+            torch.cuda.synchronize()
+    if on_card and not any(
+            e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events()):
+        raise RuntimeError("torch.profiler recorded no CUDA activity "
+                           "(CUPTI); no trace written")
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir,
+                                          f"trace_epoch{epoch}.json"))

@@ -1,7 +1,8 @@
 """The port's CLI (gnn_tpu_torch.cli): the JAX package's flags and
 defaults plus ``--device``, CPU runs end to end on every ported format,
-the JAX package's format rules, and ``NotImplementedError`` for the flags
-whose paths are not ported."""
+the JAX package's format rules, the single-device extras (locality
+sampling, resume, op timing, profiling), and ``NotImplementedError`` for
+the flags whose paths are not ported."""
 import json
 import math
 import os
@@ -61,8 +62,10 @@ def test_main_trains_one_epoch_on_cpu(tmp_path, extra):
     assert len(ep["step_losses"]) == math.ceil(720 / 64)
     assert all(math.isfinite(v) for v in ep["step_losses"])
     assert 0.0 <= recs[-1]["test_f1"] <= 1.0
-    params, step, opt_state, best_val = load_checkpoint(save, "latest")
+    params, step, opt_state, best_val, n_updates = load_checkpoint(
+        save, "latest")
     assert step == 1 and opt_state["state"]
+    assert n_updates == len(ep["step_losses"])
     assert params["linear.weight"].shape == (5, 32)
     assert best_val == pytest.approx(ep["valid_f1"])
 
@@ -80,7 +83,7 @@ def test_gat_trains_one_epoch_on_cpu(tmp_path):
     assert len(ep["step_losses"]) == math.ceil(720 / 64)
     assert all(math.isfinite(v) for v in ep["step_losses"])
     assert 0.0 <= recs[-1]["test_f1"] <= 1.0
-    params, _, _, _ = load_checkpoint(save, "latest")
+    params, _, _, _, _ = load_checkpoint(save, "latest")
     assert params["encoder.layers.0.self.weight"].shape == (16, 16)
     assert params["linear.weight"].shape == (5, 16)
 
@@ -119,10 +122,41 @@ def test_format_rules_match_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
+    ["--locality_sampling"], ["--resume"], ["--profile_dir", "prof"],
+    ["--op_timing"]])
+def test_ported_flags_run(tmp_path, flag):
+    """The single-device extras on the CPU, two epochs each: locality
+    sampling (the factor logged each epoch), resume (a second call with
+    ``--epoch_num 3`` trains epoch 2 only), op timing (finite spmm
+    buckets above 0, communication 0.0), a profiler trace of epoch 1."""
+    save = str(tmp_path / "save")
+    if flag[0] == "--profile_dir":
+        flag = ["--profile_dir", str(tmp_path / "prof")]
+    argv = TINY + ["--device", "cpu", "--save_dir", save] + flag
+    assert tcli.main(argv + ["--epoch_num", "2"]) == 0
+    if flag == ["--resume"]:
+        assert tcli.main(argv + ["--epoch_num", "3"]) == 0
+    recs = [json.loads(l) for l in open(os.path.join(save,
+                                                     "metrics.jsonl"))]
+    epochs = [r["epoch"] for r in recs]
+    assert epochs == ([0, 1, 2] if flag == ["--resume"] else [0, 1])
+    assert all(math.isfinite(v) for r in recs for v in r["step_losses"])
+    if flag == ["--locality_sampling"]:
+        assert all(r["scale_factor"] >= 1.0 for r in recs)
+    if flag == ["--op_timing"]:
+        for r in recs:
+            assert r["spmm_fwd_s"] > 0 and r["spmm_bwd_s"] > 0
+            assert r["communication_s"] == 0.0
+    else:
+        assert all(math.isnan(r["spmm_fwd_s"]) for r in recs)
+    if flag[0] == "--profile_dir":
+        assert os.listdir(flag[1]) == ["trace_epoch1.json"]
+
+
+@pytest.mark.parametrize("flag", [
     ["--feature_cache"],
     ["--resident_parts", "2"], ["--n_devices", "2"],
-    ["--steps_per_dispatch", "4"], ["--locality_sampling"], ["--resume"],
-    ["--profile_dir", "prof"], ["--op_timing"]])
+    ["--steps_per_dispatch", "4"]])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(TINY + ["--device", "cpu", "--save_dir",

@@ -158,3 +158,84 @@ def test_to_device_batch_keeps_the_shared_layer(small_graph):
         assert isinstance(getattr(b.adjs[0], f), torch.Tensor)
         np.testing.assert_array_equal(getattr(b.adjs[0], f).numpy(),
                                       getattr(tmb.adjs[0], f))
+
+
+def _skewed_pipelines(graph, adj_format, stream, sampler, factor):
+    """Both packages' pipelines with their own locality skew sets at a
+    fixed ``factor``, one worker each: the JAX pool then runs batches in
+    submission order, and the native core's OpenMP width, which follows
+    the pool's and on which its draws depend, is the same on both sides.
+    The JAX side records every batch it samples."""
+    from tests.test_torch_train import locality_skews
+    lap, jcfg, tcfg = _cfgs(graph, adj_format, stream, sampler=sampler)
+    jskew, tskew = locality_skews(graph, lap)
+    for js, ts in zip(jskew[0], tskew[0]):
+        np.testing.assert_array_equal(ts, js)
+    jp = jpl.BatchPipeline(dataclasses.replace(jcfg, scale_factor=factor),
+                           lap, graph.labels, world_size=1, pool_num=1,
+                           per_rank_skew=jskew, seed=3)
+    tp = tpl.BatchPipeline(dataclasses.replace(tcfg, scale_factor=factor),
+                           lap, graph.labels, pool_num=1,
+                           per_rank_skew=tskew, seed=3)
+    recorded = []
+    sample = jp._sample_one
+
+    def record(*a, **k):
+        recorded.append(sample(*a, **k))
+        return recorded[-1]
+    jp._sample_one = record
+    return jp, tp, recorded, tskew
+
+
+@pytest.mark.parametrize("adj_format,stream,sampler", [
+    ("resident", True, "ladies"), ("coo", False, "ladies"),
+    ("resident", True, "subgraph")])
+def test_locality_batches_match_jax(small_graph, adj_format, stream,
+                                    sampler):
+    """With each package's skew sets at a fixed factor of 4 (the tuner
+    off): one epoch of batches, the val batch and the test sweep's
+    batches are bit-identical."""
+    jp, tp, recorded, _ = _skewed_pipelines(small_graph, adj_format, stream,
+                                            sampler, 4.0)
+    targets = small_graph.train_nodes[:640]
+    try:
+        # no cross-epoch priming: its batches would join the record
+        jp.final_epoch = 1
+        jb = [g[0] for g in jp._step_groups(targets, None, 1)]
+        tb = list(tp.train_epoch(targets, epoch=1))
+        assert len(tb) == len(jb) == 10
+        for t, j in zip(tb, jb):
+            assert_same_batch(t, j)
+        for mode, nodes in (("val", small_graph.valid_nodes),
+                            ("test", small_graph.test_nodes)):
+            recorded.clear()
+            n = len(list(jp.eval_batches(nodes, 128, mode)))
+            tv = list(tp.eval_batches(nodes, 128, mode))
+            assert len(tv) == len(recorded) == n
+            for t, j in zip(tv, recorded):
+                assert_same_batch(t, j)
+    finally:
+        tp.close()
+        jp.pool.shutdown(wait=True, cancel_futures=True)
+
+
+@pytest.mark.parametrize("sampler", ["ladies", "subgraph"])
+def test_locality_raises_the_skew_share(small_graph, sampler):
+    """The share of a batch's layer-0 input nodes that lie in the skew
+    set rises from factor 1 to factor 4 (same targets, same seed), and
+    the pipeline's ``skew_share`` reads that share."""
+    shares = []
+    tgt = small_graph.train_nodes[:64]
+    for factor in (1.0, 4.0):
+        jp, tp, _, tskew = _skewed_pipelines(small_graph, "resident", True,
+                                             sampler, factor)
+        jp.pool.shutdown()
+        try:
+            mb = tp._sample_one(7, tgt, tp.cfg)
+            share = tp.skew_share(mb)
+        finally:
+            tp.close()
+        inp = mb.input_nodes[: mb.n_input]
+        assert share == np.isin(inp, tskew[0][0]).mean()
+        shares.append(share)
+    assert shares[1] > shares[0], shares

@@ -11,7 +11,8 @@ linear warmup over 3 of the 4 steps. The same comparison runs GraphSAGE
 on the blocked format and GAT on the pattern transport (the tile route
 on both layers), with no hot block; GraphSAGE on the hot format (the
 host-packed cold COO and plumbing, the hot blocks bound on the device);
-and GraphSAGE and GAT on the resident path with the subgraph sampler.
+and GraphSAGE and GAT on the resident path with the subgraph sampler;
+and GraphSAGE with locality sampling on both samplers.
 Tolerance: rtol = 1e-4, atol = 1e-5 — float32 sums in another order,
 carried through four Adam steps."""
 import numpy as np
@@ -39,10 +40,34 @@ from gnn_tpu_torch.train.trainer import Trainer as TTrainer
 from gnn_tpu_torch.weights import params_from_flax
 
 STEPS = 4
+# the fixed locality factor of the skewed cases (the tuner stays off)
+SKEW_FACTOR = 4.0
 
 
-def _steps_match_jax(g, model, lr, lr_warmup, adj_format="resident",
-                     sampler="ladies"):
+def locality_skews(g, lap):
+    """Each package's per-rank skew sets for one device on ``g``: the
+    greedy placement of 20% of the nodes, pushed through ``A + I``."""
+    import scipy.sparse as sp
+
+    from gnn_tpu.placement import engine as jeng
+    from gnn_tpu_torch.placement import engine as teng
+    n = g.adj_full.shape[0]
+    out = []
+    for eng in (jeng, teng):
+        pl = eng.create_placement(lap, g.train_nodes, per_dev=n // 5,
+                                  num_devs=1, num_conv_layers=2)
+        out.append(eng.get_per_rank_skewed_nodes(g.adj_full + sp.eye(n),
+                                                 pl, (1, 1)))
+    return out
+
+
+def build_pair(g, model, lr, lr_warmup, adj_format="resident",
+               sampler="ladies", skew=False):
+    """The JAX package's Trainer and a factory of the port's Trainers on
+    the module docstring's configuration, with the same initial
+    parameters; ``skew`` samples with each package's locality skew at
+    ``SKEW_FACTOR``. Returns ``(jax trainer, make_torch_trainer,
+    targets)``; the caller closes every pipeline."""
     orders, c = (1, 1), g.num_classes
     lap = build_laplacian(g.adj_full, model)
     kw = dict(batch_size=64, samp_num=128, orders=orders,
@@ -63,23 +88,37 @@ def _steps_match_jax(g, model, lr, lr_warmup, adj_format="resident",
                                                                td, tdt)
         else:
             jhot, thot = (d, dt), (td, tdt)
+    jskew = tskew = None
+    if skew:
+        kw.update(scale_factor=SKEW_FACTOR)
+        jskew, tskew = locality_skews(g, lap)
 
     jpipe = JPipe(JCfg(**jkw, **kw), lap, g.labels,
-                  world_size=1, pool_num=2, seed=3)
+                  world_size=1, pool_num=2, per_rank_skew=jskew, seed=3)
     jtr = JTrainer(jbuild(model, 32, orders, c, dropout=0.0), jpipe,
                    g.feats, mesh=make_mesh(1), lr=lr,
                    sigmoid_loss=True, seed=3, resident_graph=jrg,
                    hot_dense=jhot, lr_warmup=lr_warmup)
     jtr._init_params(jtr._peek_batch(targets))
-    init = jax.tree_util.tree_map(np.asarray, jtr.params)
+    init = params_from_flax(jax.tree_util.tree_map(np.asarray, jtr.params))
 
-    tpipe = TPipe(TCfg(**tkw, **kw), lap, g.labels, pool_num=2, seed=3)
-    tnet = tbuild(model, 32, orders, c, n_feats=g.feats.shape[1],
-                  dropout=0.0)
-    tnet.load_state_dict(params_from_flax(init))
-    ttr = TTrainer(tnet, tpipe, g.feats, lr=lr,
-                   sigmoid_loss=True, seed=3, resident_graph=trg,
-                   hot_dense=thot, lr_warmup=lr_warmup, device="cpu")
+    def make_torch_trainer():
+        tpipe = TPipe(TCfg(**tkw, **kw), lap, g.labels, pool_num=2,
+                      per_rank_skew=tskew, seed=3)
+        tnet = tbuild(model, 32, orders, c, n_feats=g.feats.shape[1],
+                      dropout=0.0)
+        tnet.load_state_dict(init)
+        return TTrainer(tnet, tpipe, g.feats, lr=lr,
+                        sigmoid_loss=True, seed=3, resident_graph=trg,
+                        hot_dense=thot, lr_warmup=lr_warmup, device="cpu")
+    return jtr, make_torch_trainer, targets
+
+
+def _steps_match_jax(g, model, lr, lr_warmup, adj_format="resident",
+                     sampler="ladies", skew=False):
+    jtr, make_torch_trainer, targets = build_pair(
+        g, model, lr, lr_warmup, adj_format, sampler, skew)
+    ttr = make_torch_trainer()
     try:
         jl = [jtr.train_epoch(targets, epoch=e).train_loss
               for e in range(STEPS)]
@@ -92,7 +131,7 @@ def _steps_match_jax(g, model, lr, lr_warmup, adj_format="resident",
         assert tvl == pytest.approx(jvl, rel=1e-4, abs=1e-5)
         assert tf1 == pytest.approx(jf1, abs=1e-6)
     finally:
-        tpipe.close()
+        ttr.pipeline.close()
         jtr.close()
 
 
@@ -144,3 +183,12 @@ def test_gat_subgraph_training_steps_match_jax(small_graph):
     edge-stream attention on square layers), with the lr warmup."""
     _steps_match_jax(small_graph, "gat", lr=0.01, lr_warmup=3,
                      sampler="subgraph")
+
+
+@pytest.mark.parametrize("sampler", ["ladies", "subgraph"])
+def test_locality_training_steps_match_jax(small_graph, sampler):
+    """GraphSAGE on the resident path with locality sampling: both
+    packages skew toward their own placement buffer's nodes at a fixed
+    factor of 4 (the tuner off, so no factor depends on timing)."""
+    _steps_match_jax(small_graph, "graphsage", lr=0.01, lr_warmup=0,
+                     sampler=sampler, skew=True)
