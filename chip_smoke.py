@@ -82,7 +82,24 @@ Phases (any failure exits non-zero without the final result line):
    the uninterrupted run's to RESUME_RTOL; two resumes from a broken
    copy of the checkpoint (update count 0; no optimizer state) must miss
    by more;
-7. a ``kernels`` JSON line, then the result line
+7. two data-parallel ranks on the one card (gloo collectives; NCCL
+   refuses two ranks on one device), each rank a process that counts its
+   own kernel launches and writes them, its step losses and its
+   parameter digests to its run directory: (a) phase 4's small input,
+   GraphSAGE resident, two epochs with the replicated table and two
+   with ``CachedFeatures``, on the card and on the CPU: the ranks agree
+   bit for bit, the card's step losses agree with the CPU's to
+   AGREE_RTOL, the cache's with the replicated table's to DP_CACHE_RTOL
+   (exactly on the CPU); (b) the CLI defaults with ``--n_devices 2
+   --dist_backend gloo --feature_cache --op_timing --epoch_num 2 --test``
+   in a directory sharing phase 5's set-up caches: bitwise equal
+   parameters after each epoch, a falling loss, a communication bucket
+   above 0, each rank's K1 launches accounted for by its steps, val
+   passes, test batches and op-timing probe; it logs each rank's shares
+   of layer-0 input rows from its own buffer, its peer's and the host,
+   the bytes its all-to-all received a step and its median step (both
+   ranks share one card's SMs: not a multi-GPU speed figure);
+8. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -95,7 +112,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 (non-tensor
 # core) flop/s; the kernel adds float32 products on CUDA cores
@@ -157,6 +173,14 @@ def fail(msg):
     sys.exit(1)
 
 
+def card():
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
 def time_ms(fn, reps=10, rounds=5):
     """Median over ``rounds`` of the mean time of ``reps`` back-to-back
     calls, by CUDA events (after warm-up)."""
@@ -179,8 +203,8 @@ def load_probe():
 def build_kernels():
     from gnn_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
-        list(ex.map(cuda_build.build, KERNEL_SOURCES))
+    if sorted(cuda_build.build_all()) != sorted(KERNEL_SOURCES):
+        fail(f"the sources in gnn_tpu_torch/csrc are not {KERNEL_SOURCES}")
     for name in KERNEL_SOURCES:
         cuda_build.load(name)
     return time.perf_counter() - t0
@@ -729,13 +753,16 @@ def check_tile_kernels(blocked, bwidths, pattern, device, nhid):
 
 
 def _small_trainer(dev, model, adj_format="resident", sampler="ladies",
-                   ship_cold=True):
+                   ship_cold=True, ctx=None, cached=False):
     """Phase 4's small input (3000 nodes) and a `Trainer` over it on
     ``dev``: same batches and initial weights on every device, dropout
     0; on the resident and hot paths a float32 hot block, on the resident
     path stream tiles on (off under full expansion, ``ship_cold=False``,
-    which rebuilds the cold COO on the device). Returns ``(trainer,
-    pipeline, graph)``; the caller closes the pipeline."""
+    which rebuilds the cold COO on the device). With ``ctx`` (phase 7),
+    rank ``ctx.rank``'s trainer, and with ``cached`` its features through
+    `CachedFeatures` over the greedy placement of 20% of the nodes a rank
+    (alpha 0, the CLI's default). Returns ``(trainer, pipeline,
+    graph)``; the caller closes the pipeline."""
     import torch
 
     from gnn_tpu_torch.data.synthetic import make_powerlaw_graph
@@ -767,10 +794,21 @@ def _small_trainer(dev, model, adj_format="resident", sampler="ladies",
                         hot_spec=spec, resident_val_free=resident,
                         resident_ship_cold=ship_cold,
                         resident_stream_tiles=resident and ship_cold)
-    pipe = BatchPipeline(cfg, lap, g.labels, pool_num=2, seed=0)
+    ws, rank = (1, 0) if ctx is None else (ctx.world_size, ctx.rank)
+    pipe = BatchPipeline(cfg, lap, g.labels, pool_num=2, seed=0,
+                         world_size=ws, rank=rank)
     net = build_model(model, 64, (1, 1), 7, n_feats=40, dropout=0.0, seed=0)
+    source = None
+    if cached:
+        from gnn_tpu_torch.parallel.feature_cache import CachedFeatures
+        from gnn_tpu_torch.placement.engine import create_placement
+        placement = create_placement(lap, g.train_nodes,
+                                     per_dev=lap.shape[0] // 5, num_devs=ws,
+                                     num_conv_layers=2, alpha=0.0)
+        source = CachedFeatures(g.feats, placement, ctx)
     tr = Trainer(net, pipe, g.feats, lr=0.01, sigmoid_loss=False,
-                 resident_graph=rg, hot_dense=hot, device=dev)
+                 resident_graph=rg, hot_dense=hot, device=dev,
+                 feature_source=source, dist=ctx)
     return tr, pipe, g
 
 
@@ -1201,6 +1239,203 @@ def run_resume(save_dir):
     return total
 
 
+# phase 7: two data-parallel ranks through gloo, both on the one card.
+# The card's runs against the CPU's agree to AGREE_RTOL; the cached runs'
+# step losses against the replicated ones to DP_CACHE_RTOL, K1's
+# run-to-run noise (the gather is exact; K1 sums in a run-dependent order,
+# and its reruns of one configuration read 1e-8 to 5.4e-6 apart, phase 6)
+DP_CACHE_RTOL = 1e-4
+DP_WORLD = 2
+# the longest phase 7 waits on a rank or a collective before failing
+DP_JOIN_TIMEOUT_S = 600.0
+DP_COLLECTIVE_TIMEOUT_S = 300.0
+DP_EPOCHS = 2
+
+
+def _small_dp_rank(rank, rdv, out_dir, device_type):
+    """Phase 7 (a), one rank: phase 4's small input, GraphSAGE resident,
+    two epochs with the replicated table and two with the cache; writes
+    its step losses (the mean across the ranks) and parameter digests."""
+    import torch
+
+    from gnn_tpu_torch.parallel import dist as tdist
+    if device_type == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // DP_WORLD))
+    ctx = tdist.init_dist(rank, rdv, device_type, "gloo")
+    rec = {"device": str(ctx.device)}
+    try:
+        for cached in (False, True):
+            tr, pipe, g = _small_trainer(ctx.device, "graphsage", ctx=ctx,
+                                         cached=cached)
+            try:
+                losses = [v for e in range(DP_EPOCHS) for v in
+                          tr.train_epoch(g.train_nodes, e).step_losses]
+            finally:
+                pipe.close()
+            key = "cached" if cached else "replicated"
+            rec[key] = losses
+            rec[f"{key}_digest"] = tr.param_digest()
+    finally:
+        tdist.close_dist(ctx)
+    with open(os.path.join(out_dir, f"small_{device_type}{rank}.json"),
+              "w") as f:
+        json.dump(rec, f)
+
+
+def _spawn_dp(fn, args, out_dir):
+    from gnn_tpu_torch.parallel import dist as tdist
+    tdist.JOIN_TIMEOUT_S = DP_JOIN_TIMEOUT_S
+    tdist.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
+    tdist.spawn_ranks(DP_WORLD, fn, args, rendezvous_dir=out_dir)
+
+
+def _rel(a, b):
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def check_dp_small(save_dir):
+    """Phase 7 (a): two gloo ranks on the card (both on ``cuda:0``) and
+    two on the CPU, each with the replicated table and with the cache
+    (`_small_dp_rank`). Fails unless both ranks log the same step losses
+    and end with the same parameters, each card run's step losses agree
+    with the CPU run's to AGREE_RTOL, the cached runs agree with the
+    replicated ones to DP_CACHE_RTOL on the card and bit for bit on the
+    CPU, and the loss falls."""
+    import math
+
+    out = os.path.join(save_dir, "dp_small")
+    os.makedirs(out)
+    runs = {}
+    for device_type in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        _spawn_dp(_small_dp_rank, (out, device_type), out)
+        recs = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(out, f"small_{device_type}{r}.json")) as f:
+                recs.append(json.load(f))
+        log(f"dp small {device_type}: {time.perf_counter() - t0:.1f}s wall "
+            f"(two ranks on {[r['device'] for r in recs]})")
+        for key in ("replicated", "cached"):
+            if (recs[0][key] != recs[1][key]
+                    or recs[0][f"{key}_digest"] != recs[1][f"{key}_digest"]):
+                fail(f"dp small {device_type} {key}: the ranks disagree")
+            losses = recs[0][key]
+            if not (all(math.isfinite(v) for v in losses)
+                    and losses[-1] < losses[0]):
+                fail(f"dp small {device_type} {key}: losses {losses}")
+        runs[device_type] = recs[0]
+    for key in ("replicated", "cached"):
+        rel = _rel(runs["cuda"][key], runs["cpu"][key])
+        c, p = runs["cuda"][key], runs["cpu"][key]
+        log(f"dp small {key} ({len(c)} steps, 2 ranks): cuda {c[0]:.5f}.."
+            f"{c[-1]:.5f}, cpu {p[0]:.5f}..{p[-1]:.5f}, max rel diff "
+            f"{rel:.2e}")
+        if not rel <= AGREE_RTOL:
+            fail(f"dp small {key}: cuda and cpu disagree: {rel:.3e}")
+    rel_card = _rel(runs["cuda"]["cached"], runs["cuda"]["replicated"])
+    rel_cpu = _rel(runs["cpu"]["cached"], runs["cpu"]["replicated"])
+    log(f"dp small cached against replicated: cuda max rel diff "
+        f"{rel_card:.2e}, cpu {rel_cpu:.2e}")
+    if not (rel_card <= DP_CACHE_RTOL and rel_cpu == 0.0):
+        fail(f"dp small: the cache changes the losses: cuda {rel_card:.3e},"
+             f" cpu {rel_cpu:.3e}")
+
+
+def run_dp_main_path(save_dir):
+    """Phase 7 (b): the CLI defaults with ``--n_devices 2 --dist_backend
+    gloo --feature_cache --op_timing --epoch_num DP_EPOCHS --test``, both
+    ranks on the one card, in a directory sharing phase 5's set-up
+    caches. Each rank counts its own kernel launches and writes them,
+    with its step losses, parameter digests and cache row counts, to
+    ``rank{r}.json``. Fails unless the ranks hold bitwise the same
+    parameters after each epoch, the losses are finite and fall, every
+    epoch's communication bucket is finite and above 0, and each rank's
+    K1 launches are its steps' (phase 5's per-step counts) plus 3 a val
+    pass and a test batch plus the op-timing probe's, which launches K1
+    as often forward as transposed. Returns the ranks' summed launch
+    counts by JSON name."""
+    import math
+
+    import numpy as np
+
+    d = linked_dir(save_dir, "dp")
+    argv = ["--n_devices", str(DP_WORLD), "--dist_backend", "gloo",
+            "--feature_cache", "--op_timing", "--epoch_num", str(DP_EPOCHS),
+            "--test"]
+    from gnn_tpu_torch.parallel import dist as tdist
+    tdist.JOIN_TIMEOUT_S = DP_JOIN_TIMEOUT_S
+    tdist.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
+    recs, _, wall = run_cli(d, argv)
+    eps = log_epochs("dp", recs)
+    test_f1 = next((r["test_f1"] for r in recs if "test_f1" in r), None)
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    steps = sum(len(e["step_losses"]) for e in ranks[0]["epochs"])
+    losses = [v for r in eps for v in r["step_losses"]]
+    log(f"dp main path: {DP_WORLD} ranks on "
+        f"{[r['device'] for r in ranks]} ({ranks[0]['backend']}), "
+        f"{len(eps)} epochs, {steps} steps a rank in {wall:.1f}s wall "
+        f"(set-up, epochs, val, test sweep); test F1 {test_f1}")
+    digests = [[e["param_digest"] for e in r["epochs"]] for r in ranks]
+    log(f"dp parameter digests after each epoch: {digests}")
+    if len(eps) != DP_EPOCHS or any(x != digests[0] for x in digests):
+        fail(f"dp: the ranks' parameters differ: {digests}")
+    if not (losses and all(math.isfinite(v) for v in losses)):
+        fail(f"dp: non-finite or missing losses: {losses}")
+    last5 = sum(losses[-5:]) / 5
+    if not last5 < losses[0]:
+        fail(f"dp: loss did not fall: first {losses[0]}, last-5 mean "
+             f"{last5}")
+    for r in eps:
+        if not (math.isfinite(r["communication_s"])
+                and r["communication_s"] > 0):
+            fail(f"dp epoch {r['epoch']}: communication bucket "
+                 f"{r['communication_s']}")
+    total = dict.fromkeys((k[0] for k in KERNELS), 0)
+    keys = {f"{mod}.{key}": name for name, (mod, key), _, _ in KERNELS}
+    per = DEFAULT_PER_STEP
+    for rec in ranks:
+        rs = sum(len(e["step_losses"]) for e in rec["epochs"])
+        got = {keys[k]: v for k, v in rec["launches"].items()}
+        for k, v in got.items():
+            total[k] += v
+        fwd = got.get("edge_stream_spmm.forward", 0)
+        tr = got.get("edge_stream_spmm.transpose", 0)
+        evals = 3 * (len(rec["epochs"]) + rec["test_batches"])
+        probe_f = fwd - per["edge_stream_spmm.forward"] * rs - evals
+        probe_t = tr - per["edge_stream_spmm.transpose"] * rs
+        log(f"dp rank {rec['rank']} K1 launches: forward {fwd} = "
+            f"{per['edge_stream_spmm.forward']} x {rs} steps + 3 x "
+            f"({len(rec['epochs'])} val passes + {rec['test_batches']} "
+            f"test batches) + {probe_f} probe; transpose {tr} = "
+            f"{per['edge_stream_spmm.transpose']} x {rs} + {probe_t} probe")
+        if not (probe_f == probe_t > 0 and probe_f % 3 == 0):
+            fail(f"dp rank {rec['rank']}: K1 launches do not add up")
+        c = rec["cache"]
+        rows = c["rows_local"] + c["rows_peer"] + c["rows_host"]
+        times = [t for e in rec["epochs"] for t in e["step_times"]]
+        steady = sorted(times[1:]) or times
+        log(f"dp rank {rec['rank']} layer-0 input rows over {c['batches']} "
+            f"training batches: own buffer {c['rows_local'] / rows:.4f}, "
+            f"peer's buffer {c['rows_peer'] / rows:.4f}, host "
+            f"{c['rows_host'] / rows:.4f} of {rows}; all-to-all received "
+            f"{c['rows_peer'] * c['row_bytes'] / c['batches']:.0f} bytes a "
+            f"step; median step {steady[len(steady) // 2]:.4f} s (two ranks "
+            f"share one card's SMs: not a multi-GPU speed figure)")
+    comm = [r["communication_s"] / len(r["step_losses"]) for r in eps]
+    log(f"dp communication bucket a step (rank 0; all-reduce of the "
+        f"gradients + one batch's feature exchange, isolated): "
+        f"{' '.join(f'{v:.4f}' for v in comm)} s; median step of rank 0's "
+        f"last epoch "
+        f"{np.median(ranks[0]['epochs'][-1]['step_times'][1:]):.4f} s on "
+        f"{card()} (two ranks share the card)")
+    return total
+
+
 def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": int(launches),
@@ -1228,11 +1463,8 @@ def main() -> int:
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
     # the card's name and power limit, as nvidia-smi prints them
-    log(smi.stdout.strip())
+    log(card())
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1277,6 +1509,12 @@ def main() -> int:
             for name, n in run(save_dir).items():
                 counts[name] += n
         log(f"phase 6 (single-device extras): "
+            f"{time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        check_dp_small(save_dir)
+        for name, n in run_dp_main_path(save_dir).items():
+            counts[name] += n
+        log(f"phase 7 (two ranks on one card): "
             f"{time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)

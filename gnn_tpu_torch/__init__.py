@@ -6,7 +6,6 @@ The layout mirrors `gnn_tpu` (``ops/``, ``sampling/``, ``models/``,
 port imports nothing of `gnn_tpu` and no JAX: numpy-only host modules
 (``native/``, ``data/``, ``utils/``, ``placement/``) are copies. Each
 Pallas kernel of the JAX package becomes a hand-written Hopper kernel
-under ``csrc/``, built at first use; this slice ports the edge-stream
-SpMM (``csrc/edge_stream.cu``) that carries the default resident-graph
-training path.
+under ``csrc/``, built at first use. Data parallelism runs one process
+per rank over ``torch.distributed`` (``parallel/``).
 """

@@ -24,9 +24,21 @@ layers, on any format. ``--locality_sampling`` skews the sampler toward
 the device's placement buffer and tunes ``--scale_factor`` live;
 ``--resume`` continues from ``--save_dir``'s latest checkpoint;
 ``--op_timing`` adds the spmm / communication buckets to each epoch's
-line; ``--profile_dir`` writes a profiler trace of epoch 1. Flags whose
-paths are not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item.
+line; ``--profile_dir`` writes a profiler trace of epoch 1.
+
+``--n_devices N`` trains N data-parallel ranks, one process each, which
+the CLI starts itself (under ``torchrun`` it joins the group torchrun
+set up instead): on ``cuda`` rank r on card r over NCCL, refused where
+there are fewer cards than ranks; ``--dist_backend gloo`` lets ranks
+share a card (the collectives go through gloo); on ``cpu`` gloo. Each
+rank clips its own gradient, the clipped gradients are summed, and
+every rank steps the same Adam. ``--feature_cache`` keeps on each rank
+only its placement buffer of the feature table and fetches the other
+input rows from peers and from host RAM. Rank 0 alone prints, writes
+``metrics.jsonl`` and checkpoints; every rank writes ``rank{r}.json``
+(its step losses and times, parameter digests, feature-cache shares and
+kernel launches) into ``--save_dir``. Flags whose paths are not ported
+yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -78,8 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--locality_sampling", action="store_true")
     # --- extensions of the JAX package's CLI ---
     p.add_argument("--n_devices", type=int, default=0,
-                   help="devices to train on (0 = all; this slice "
-                        "trains on one)")
+                   help="data-parallel ranks (0 = every visible card on "
+                        "cuda, 1 on cpu)")
     p.add_argument("--adj_format", type=str, default="resident",
                    choices=["coo", "blocked", "hot", "resident",
                             "pattern"],
@@ -113,8 +125,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps_per_dispatch", type=int, default=1,
                    help="train steps per dispatch (only 1 is ported)")
     p.add_argument("--feature_cache", action="store_true",
-                   help="placement-driven sharded feature cache (not "
-                        "ported yet)")
+                   help="placement-driven sharded feature cache: each "
+                        "rank holds its placement buffer, other rows come "
+                        "from peers or host RAM")
     p.add_argument("--save_dir", type=str, default="save")
     p.add_argument("--resume", action="store_true",
                    help="resume from save_dir's latest checkpoint")
@@ -129,6 +142,11 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_false")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
+    p.add_argument("--dist_backend", type=str, default="auto",
+                   choices=["auto", "nccl", "gloo"],
+                   help="collectives of --n_devices > 1: 'auto' = nccl on "
+                        "cuda (one card per rank), gloo on cpu; 'gloo' on "
+                        "cuda lets ranks share a card")
     return p
 
 
@@ -147,11 +165,9 @@ def resolve_training_defaults(args, steps_per_epoch: int = 10**9) -> int:
 
 def _check_ported(args) -> None:
     """Raise NotImplementedError for flags whose paths are not ported."""
-    multi = "multi-device over torch.distributed"
     todo = [
-        (args.feature_cache, "--feature_cache", multi),
-        (args.resident_parts > 1, "--resident_parts", multi),
-        (args.n_devices > 1, "--n_devices > 1", multi),
+        (args.resident_parts > 1, "--resident_parts",
+         "multi-device, the part-sharded resident graph and caches"),
         (args.steps_per_dispatch > 1, "--steps_per_dispatch > 1",
          "decision: no scan dispatch in eager PyTorch"),
     ]
@@ -176,28 +192,27 @@ def resolve_adj_format(args) -> None:
         args.adj_format = "pattern"
 
 
-def train(args):
-    """Set up and run the training the CLI describes; returns
-    ``(trainer, graph)``."""
+def world_size(args) -> int:
+    """``--n_devices``, where 0 means every visible card on ``cuda`` and
+    one rank on ``cpu``."""
+    if args.n_devices > 0:
+        return args.n_devices
+    import torch
+    return torch.cuda.device_count() if args.device.startswith("cuda") \
+        else 1
+
+
+def _setup(args, orders, n_devices, device, say):
+    """Graph, Laplacian, placement, hot block and resident graph. The
+    placement, the sample probabilities and the hot block are cached in
+    ``--save_dir`` (reference ``preprocess.py:317``)."""
     import numpy as np
     import torch
 
     from gnn_tpu_torch.data.loaders import load_dataset
-    from gnn_tpu_torch.device import resolve_device
-    from gnn_tpu_torch.models.gnn import build_model
-    from gnn_tpu_torch.parallel.feature_cache import ReplicatedFeatures
-    from gnn_tpu_torch.placement.engine import (create_placement,
-                                                get_per_rank_skewed_nodes)
-    from gnn_tpu_torch.sampling.ladies import SamplerConfig
-    from gnn_tpu_torch.sampling.pipeline import BatchPipeline
-    from gnn_tpu_torch.train.metrics import MetricsRegistry
-    from gnn_tpu_torch.train.trainer import Trainer
+    from gnn_tpu_torch.placement.engine import create_placement
     from gnn_tpu_torch.utils.normalize import build_laplacian
 
-    resolve_adj_format(args)
-    _check_ported(args)
-    device = resolve_device(args.device)
-    orders = tuple(int(t) for t in args.orders.split(","))
     graph = load_dataset(args.dataset, args.data_dir)
     n = graph.adj_full.shape[0]
     lap = build_laplacian(graph.adj_full, args.model, norm=args.norm)
@@ -206,26 +221,13 @@ def train(args):
                 "random" if args.random else
                 "naive" if args.naive else "greedy")
     per_dev = int(args.buffer_size * n)
-    print("buffer_size: ", per_dev, flush=True)
+    say("buffer_size: ", per_dev)
     placement = create_placement(
-        lap, graph.train_nodes, per_dev=per_dev, num_devs=1,
+        lap, graph.train_nodes, per_dev=per_dev, num_devs=n_devices,
         num_conv_layers=sum(orders), alpha=args.alpha, strategy=strategy,
         cache_dir=args.save_dir, dataset=args.dataset.replace("/", "_"))
 
-    per_rank_skew = None
-    scale_factor = args.scale_factor
-    if args.locality_sampling:
-        import scipy.sparse as sp
-        # the device skews toward its own buffered nodes
-        # (reference sampler.py:23-25,119-121)
-        per_rank_skew = get_per_rank_skewed_nodes(
-            graph.adj_full + sp.eye(n), placement, orders)
-        # the tuner may raise the factor during training
-        scale_factor = max(scale_factor, 1.0)
-
-    hot_spec = None
-    hot_dense = None
-    resident_graph = None
+    hot_spec = hot_dense = resident_graph = None
     if args.adj_format in ("hot", "resident"):
         from gnn_tpu_torch.ops.hotdense import (HotSpec,
                                                 build_hot_dense_cached)
@@ -248,9 +250,9 @@ def train(args):
             cache_path=os.path.join(
                 args.save_dir, f"{dsname}.hotcoo.L{depth}"
                 f".K{args.hot_k}.npz"))
-        print(f"hot block: K={hot_spec.k} "
-              f"({2 * dense.numel() * dense.element_size() / 2**20:.0f} "
-              f"MiB resident incl. transpose)", flush=True)
+        say(f"hot block: K={hot_spec.k} "
+            f"({2 * dense.numel() * dense.element_size() / 2**20:.0f} "
+            f"MiB resident incl. transpose)")
         if args.adj_format == "resident":
             from gnn_tpu_torch.ops.residentgraph import build_resident_graph
             resident_graph = build_resident_graph(
@@ -258,6 +260,63 @@ def train(args):
                 val_dtype="bfloat16" if bf16 else np.float32)
         else:
             hot_dense = (dense, dense_t)
+    return graph, lap, placement, hot_spec, hot_dense, resident_graph
+
+
+def train(args, ctx=None):
+    """Set up and run the training the CLI describes, as one process
+    (``ctx`` None) or as one rank of a group (``ctx`` a
+    `DistContext`); returns ``(trainer, graph)``."""
+    import numpy as np
+    import torch
+
+    from gnn_tpu_torch.device import resolve_device
+    from gnn_tpu_torch.models.gnn import build_model
+    from gnn_tpu_torch.parallel.dist import DistContext
+    from gnn_tpu_torch.parallel.feature_cache import (CachedFeatures,
+                                                      ReplicatedFeatures)
+    from gnn_tpu_torch.placement.engine import get_per_rank_skewed_nodes
+    from gnn_tpu_torch.sampling.ladies import SamplerConfig
+    from gnn_tpu_torch.sampling.pipeline import BatchPipeline
+    from gnn_tpu_torch.train.metrics import MetricsRegistry
+    from gnn_tpu_torch.train.trainer import Trainer
+
+    resolve_adj_format(args)
+    _check_ported(args)
+    if ctx is None:
+        ctx = DistContext(device=resolve_device(args.device))
+    device = ctx.device
+    main = ctx.is_main
+
+    def say(*msg):
+        if main:
+            print(*msg, flush=True)
+
+    orders = tuple(int(t) for t in args.orders.split(","))
+    n_devices = ctx.world_size
+    # set-up once: rank 0 builds the caches in --save_dir (and the
+    # kernels), the other ranks load them after the barrier
+    if main:
+        if n_devices > 1 and device.type == "cuda":
+            from gnn_tpu_torch.ops import cuda_build
+            cuda_build.build_all()
+        setup = _setup(args, orders, n_devices, device, say)
+    ctx.barrier()
+    if not main:
+        setup = _setup(args, orders, n_devices, device, say)
+    graph, lap, placement, hot_spec, hot_dense, resident_graph = setup
+    n = graph.adj_full.shape[0]
+
+    per_rank_skew = None
+    scale_factor = args.scale_factor
+    if args.locality_sampling:
+        import scipy.sparse as sp
+        # each rank skews toward its own buffered nodes
+        # (reference sampler.py:23-25,119-121)
+        per_rank_skew = get_per_rank_skewed_nodes(
+            graph.adj_full + sp.eye(n), placement, orders)
+        # the tuner may raise the factor during training
+        scale_factor = max(scale_factor, 1.0)
 
     val_free = bool(resident_graph and resident_graph["val_free"])
     stream_tiles = (args.adj_format == "resident" and (
@@ -271,44 +330,122 @@ def train(args):
         resident_stream_tiles=stream_tiles)
     pipe = BatchPipeline(cfg, lap, graph.labels, pool_num=args.pool_num,
                          per_rank_skew=per_rank_skew,
-                         local_shuffle=args.local_shuffle, seed=args.seed)
+                         local_shuffle=args.local_shuffle, seed=args.seed,
+                         world_size=n_devices, rank=ctx.rank)
     net = build_model(args.model, args.nhid, orders, graph.num_classes,
                       n_feats=graph.feats.shape[1], seed=args.seed)
-    source = ReplicatedFeatures(
-        graph.feats, device=device,
-        dtype=torch.bfloat16 if args.feat_dtype == "bfloat16"
-        else torch.float32)
+    feat_dtype = (torch.bfloat16 if args.feat_dtype == "bfloat16"
+                  else torch.float32)
+    if args.feature_cache:
+        source = CachedFeatures(graph.feats, placement, ctx,
+                                dtype=feat_dtype)
+    else:
+        source = ReplicatedFeatures(graph.feats, device=device,
+                                    dtype=feat_dtype)
     lr_warmup = resolve_training_defaults(
         args, steps_per_epoch=max(1, len(graph.train_nodes)
-                                  // args.batch_size))
+                                  // (args.batch_size * n_devices)))
     trainer = Trainer(net, pipe, graph.feats, lr=args.lr,
                       sigmoid_loss=args.sigmoid_loss, seed=args.seed,
                       feature_source=source, resident_graph=resident_graph,
-                      hot_dense=hot_dense, lr_warmup=lr_warmup,
-                      device=device)
+                      hot_dense=hot_dense, lr_warmup=lr_warmup, dist=ctx)
     rank_chunks = None
     if args.local_shuffle and args.pagraph:
         rank_chunks = placement.train_nodes_per_dev
-    metrics = MetricsRegistry(os.path.join(args.save_dir, "metrics.jsonl"))
+    metrics = MetricsRegistry(os.path.join(args.save_dir, "metrics.jsonl")) \
+        if main else None
     try:
         trainer.fit(graph.train_nodes, graph.valid_nodes, args.epoch_num,
                     rank_chunks=rank_chunks, checkpoint_dir=args.save_dir,
                     locality_tuner=args.locality_sampling, metrics=metrics,
                     profile_dir=args.profile_dir or None,
                     op_timing=args.op_timing, resume=args.resume)
+        train_cache = dict(getattr(source, "stats", {}))
         if args.test:
             f1 = trainer.test(graph.test_nodes, batch_size=128)
-            metrics.log(test_f1=f1)
-            print("Test f1 score: %.3f" % f1, flush=True)
+            if main:
+                metrics.log(test_f1=f1)
+            say("Test f1 score: %.3f" % f1)
     finally:
         pipe.close()
+    if n_devices > 1:
+        _write_rank_record(args.save_dir, trainer, train_cache,
+                           getattr(source, "row_bytes", 0))
     return trainer, graph
+
+
+def _write_rank_record(save_dir, trainer, cache_stats, row_bytes) -> None:
+    """``rank{r}.json`` in ``save_dir``: this rank's epochs (step losses,
+    step seconds, parameter digest), the feature cache's row counts over
+    the training batches, the test sweep's batches, and every kernel's
+    launches in this process."""
+    import importlib
+    import json
+
+    ctx = trainer.dist
+    launches = {}
+    for mod in ("edgestream", "esattn", "spmm", "sddmm"):
+        counter = importlib.import_module(f"gnn_tpu_torch.ops.{mod}").launches
+        launches.update({f"{mod}.{k}": v for k, v in counter.items()})
+    rec = {"rank": ctx.rank, "world_size": ctx.world_size,
+           "device": str(ctx.device), "backend": ctx.backend,
+           "epochs": [{"epoch": m.epoch, "step_losses": m.step_losses,
+                       "step_times": m.step_times,
+                       "param_digest": m.param_digest,
+                       "communication_s": m.communication_time}
+                      for m in trainer.history],
+           "cache": {**cache_stats, "row_bytes": row_bytes},
+           "test_batches": trainer.test_batches, "launches": launches}
+    with open(os.path.join(save_dir, f"rank{ctx.rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _rank_entry(rank, rdv, args, backend) -> None:
+    """One spawned rank: join the group, train, leave."""
+    import torch
+
+    from gnn_tpu_torch.parallel.dist import close_dist, init_dist
+    device_type = torch.device(args.device).type
+    if device_type == "cpu":
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads()
+                                  // rdv.world_size))
+    ctx = init_dist(rank, rdv, device_type, backend)
+    try:
+        train(args, ctx)
+    finally:
+        close_dist(ctx)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     print(args, flush=True)
-    train(args)
+    resolve_adj_format(args)
+    _check_ported(args)
+    import torch
+
+    from gnn_tpu_torch.parallel import dist
+    device_type = torch.device(args.device).type
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        # started by torchrun: join its group
+        if args.n_devices not in (0, int(os.environ["WORLD_SIZE"])):
+            raise SystemExit(f"--n_devices {args.n_devices} under "
+                             f"torchrun with WORLD_SIZE "
+                             f"{os.environ['WORLD_SIZE']}")
+        ctx = dist.init_dist_from_env(device_type, args.dist_backend)
+        try:
+            train(args, ctx)
+        finally:
+            dist.close_dist(ctx)
+        return 0
+    n = world_size(args)
+    if n <= 1:
+        train(args)
+        return 0
+    # refused here, before any rank starts, where the ranks cannot run
+    backend = dist.resolve_backend(device_type, args.dist_backend, n)
+    dist.spawn_ranks(n, _rank_entry, (args, backend),
+                     rendezvous_dir=args.save_dir)
     return 0
 
 

@@ -76,6 +76,16 @@ def build(name: str) -> str:
     return so_path
 
 
+def build_all() -> list:
+    """Compile every ``csrc/*.cu`` that is not built yet, one nvcc each,
+    all started together; returns the sources' names."""
+    from concurrent.futures import ThreadPoolExecutor
+    names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+    with ThreadPoolExecutor(len(names)) as ex:
+        list(ex.map(build, names))
+    return names
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` (built at first use)."""
     with _LOCK:

@@ -1,15 +1,35 @@
-"""Device-resident input features: the one-device part of
-`gnn_tpu.parallel.feature_cache`.
+"""Device-resident input features: the counterpart of
+`gnn_tpu.parallel.feature_cache` for the replicated table and the
+placement-driven cache.
 
-:class:`ReplicatedFeatures` keeps the whole feature table on the card
-and gathers each batch's input rows with ``index_select``. The
-placement-driven sharded cache waits for the multi-device slice
-(ROADMAP queue 3).
+:class:`ReplicatedFeatures` keeps the whole feature table on every
+rank's device. :class:`CachedFeatures` (``--feature_cache``) keeps on
+rank r only buffer r of the placement, and fetches a batch's other input
+rows from the peers that hold them or from host RAM (reference
+``main.py:129-134``, ``preprocess.py:397-399``).
+
+Both expose the trainer's three calls: ``plan(mb)`` on the host batch,
+``gather(input_nodes, input_mask, plan)`` on the device batch (the
+training step and the sharded test sweep; under the cache every rank
+calls it at the same point, since it exchanges rows), and
+``host_gather(input_nodes, input_mask)`` for the val pass, which every
+rank runs alone on the same batch. Each returns float32 ``x [C, F]``
+equal to ``feats[input_nodes] * input_mask[:, None]`` (with the table
+rounded to ``dtype`` first): the sources move rows and compute nothing.
+The part-sharded tables (``PartShardedFeatures``, ``PartCachedFeatures``)
+wait for the part-sharded slice (ROADMAP queue 3).
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
+from typing import List
+
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from gnn_tpu_torch.parallel.dist import DistContext
 
 
 class ReplicatedFeatures:
@@ -23,7 +43,156 @@ class ReplicatedFeatures:
         self.table = torch.from_numpy(
             np.ascontiguousarray(feats, np.float32)).to(device).to(dtype)
 
-    def gather(self, input_nodes: torch.Tensor,
-               input_mask: torch.Tensor) -> torch.Tensor:
+    def plan(self, mb) -> None:
+        return None
+
+    def gather(self, input_nodes: torch.Tensor, input_mask: torch.Tensor,
+               plan=None) -> torch.Tensor:
         x = self.table.index_select(0, input_nodes.long()).float()
         return x * input_mask[:, None]
+
+    def host_gather(self, input_nodes: np.ndarray,
+                    input_mask: np.ndarray) -> torch.Tensor:
+        dev = self.table.device
+        return self.gather(torch.from_numpy(input_nodes).to(dev),
+                           torch.from_numpy(input_mask).to(dev))
+
+
+@dataclasses.dataclass
+class CachePlan:
+    """One batch's routing on one rank, built on the host. Positions are
+    rows of the batch's ``x``; slots are rows of an owner's buffer."""
+
+    req_counts: List[int]       # rows asked of each rank (0 for itself)
+    req_slots: torch.Tensor     # int64 [sum(req_counts)], by owner
+    remote_pos: torch.Tensor    # int64, where those rows land, same order
+    local_slots: torch.Tensor   # int64, rows of this rank's own buffer
+    local_pos: torch.Tensor
+    host_rows: torch.Tensor     # dtype [H, F], rows held by no device
+    host_pos: torch.Tensor
+
+
+class CachedFeatures:
+    """Placement-driven sharded cache with a host fallback
+    (``--feature_cache``). Rank r holds buffer r of ``placement``
+    (``placement.num_devs`` must be the world size) on its device; the
+    whole table stays in host RAM, pinned on a card.
+
+    Per batch, on the host (:meth:`plan`): each valid input row's owner
+    and slot from ``placement.device_id_of_nodes[r]`` /
+    ``idx_of_nodes_on_device[r]``, grouped by owner with one stable
+    argsort (masked rows: owner -2, host rows: -1), as the JAX plan
+    does; the host rows are gathered from the table and copied to the
+    device without blocking. On the device (:meth:`gather`): one
+    ``all_to_all_single`` of the per-owner counts and one of the slot
+    ids (on :attr:`DistContext.meta_device`); each owner serves its
+    requests with ``index_select`` and one ``all_to_all_single`` of
+    exactly those rows returns them (the JAX ``all_to_all`` pads each
+    plan to a bucket; counts make padding unnecessary here). Own rows
+    are read locally. ``index_copy_`` places the three parts in ``x``,
+    the input mask follows, and bfloat16 rows become float32 last.
+
+    ``stats`` counts, over the batches planned, the valid input rows
+    read from the rank's own buffer, from peers and from the host."""
+
+    def __init__(self, feats: np.ndarray, placement, ctx: DistContext,
+                 dtype=torch.float32):
+        if placement.num_devs != ctx.world_size:
+            raise ValueError(f"the placement has {placement.num_devs} "
+                             f"buffers for {ctx.world_size} ranks")
+        self.ctx = ctx
+        self.dtype = dtype
+        self.device = ctx.device
+        host = torch.from_numpy(
+            np.ascontiguousarray(feats, np.float32)).to(dtype)
+        self.on_card = self.device.type == "cuda"
+        self.host = host.pin_memory() if self.on_card else host
+        r = ctx.rank
+        own = torch.from_numpy(np.asarray(placement.buffers[r], np.int64))
+        self.buffer = self.host.index_select(0, own).to(self.device)
+        self.owner = np.asarray(placement.device_id_of_nodes[r], np.int64)
+        self.slot = np.asarray(placement.idx_of_nodes_on_device[r],
+                               np.int64)
+        self.row_bytes = self.buffer.shape[1] * self.buffer.element_size()
+        self.stats = collections.Counter()
+
+    def plan(self, mb) -> CachePlan:
+        ws, r = self.ctx.world_size, self.ctx.rank
+        nodes = np.asarray(mb.input_nodes, np.int64)
+        owner = np.where(np.asarray(mb.input_mask) > 0, self.owner[nodes],
+                         -2)
+        order = np.argsort(owner, kind="stable")
+        counts = np.bincount(owner + 2, minlength=ws + 2)
+        bounds = np.concatenate([[0], np.cumsum(counts)])
+
+        def part(o):      # input positions owned by o (-2, -1, 0..ws-1)
+            return order[bounds[o + 2]: bounds[o + 3]]
+
+        def t(a, device):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(
+                device, non_blocking=True)
+
+        dev, meta = self.device, self.ctx.meta_device
+        peers = [o for o in range(ws) if o != r]
+        remote = (np.concatenate([part(o) for o in peers]) if peers
+                  else np.zeros(0, np.int64))
+        host_pos = part(-1)
+        host_rows = torch.empty((len(host_pos), self.buffer.shape[1]),
+                                dtype=self.dtype, pin_memory=self.on_card)
+        torch.index_select(self.host, 0, torch.from_numpy(nodes[host_pos]),
+                           out=host_rows)
+        req_counts = [0 if o == r else int(counts[o + 2]) for o in range(ws)]
+        self.stats["batches"] += 1
+        self.stats["rows_local"] += int(counts[r + 2])
+        self.stats["rows_peer"] += sum(req_counts)
+        self.stats["rows_host"] += int(counts[1])
+        return CachePlan(
+            req_counts=req_counts,
+            req_slots=t(self.slot[nodes[remote]], meta),
+            remote_pos=t(remote, dev),
+            local_slots=t(self.slot[nodes[part(r)]], dev),
+            local_pos=t(part(r), dev),
+            host_rows=host_rows.to(dev, non_blocking=True),
+            host_pos=t(host_pos, dev))
+
+    def _exchange(self, plan: CachePlan) -> torch.Tensor:
+        """The rows this rank asked its peers for, in ``req_slots``
+        order, served by their owners."""
+        meta, group = self.ctx.meta_device, self.ctx.group
+        send = torch.tensor(plan.req_counts, dtype=torch.int64, device=meta)
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        serve_counts = recv.tolist()
+        slots = torch.empty(sum(serve_counts), dtype=torch.int64,
+                            device=meta)
+        dist.all_to_all_single(slots, plan.req_slots,
+                               output_split_sizes=serve_counts,
+                               input_split_sizes=plan.req_counts,
+                               group=group)
+        served = self.buffer.index_select(0, slots.to(self.device))
+        rows = torch.empty((sum(plan.req_counts), self.buffer.shape[1]),
+                           dtype=self.dtype, device=self.device)
+        dist.all_to_all_single(rows, served,
+                               output_split_sizes=plan.req_counts,
+                               input_split_sizes=serve_counts, group=group)
+        return rows
+
+    def gather(self, input_nodes: torch.Tensor, input_mask: torch.Tensor,
+               plan: CachePlan) -> torch.Tensor:
+        if plan is None:
+            raise ValueError("CachedFeatures.gather needs the batch's plan")
+        x = torch.zeros((input_nodes.shape[0], self.buffer.shape[1]),
+                        dtype=torch.float32, device=self.device)
+        if self.ctx.world_size > 1:
+            x.index_copy_(0, plan.remote_pos, self._exchange(plan).float())
+        x.index_copy_(0, plan.local_pos,
+                      self.buffer.index_select(0, plan.local_slots).float())
+        x.index_copy_(0, plan.host_pos, plan.host_rows.float())
+        return x * input_mask[:, None]
+
+    def host_gather(self, input_nodes: np.ndarray,
+                    input_mask: np.ndarray) -> torch.Tensor:
+        rows = self.host.index_select(
+            0, torch.from_numpy(np.asarray(input_nodes, np.int64)))
+        x = rows.to(self.device).float()
+        return x * torch.from_numpy(input_mask).to(self.device)[:, None]

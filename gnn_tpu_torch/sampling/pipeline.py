@@ -1,20 +1,24 @@
-"""Prefetching minibatch pipeline (host side): the one-device counterpart
-of `gnn_tpu.sampling.pipeline`.
+"""Prefetching minibatch pipeline (host side): the counterpart of
+`gnn_tpu.sampling.pipeline` for one rank of ``world_size``.
 
 A thread pool samples the next minibatches while the device trains
 (reference ``sampler.py:163-210``). An epoch's shuffle and every batch's
 sampling seed derive from ``(seed, epoch)`` exactly as in the JAX
-package, so both packages yield the same batch stream.
+package: at each step every rank draws all ``world_size`` seeds in rank
+order from one generator and samples only its own batch, so rank r's
+batches are those the JAX pipeline samples for rank r. As the trainer
+runs its val pass and checkpoint after an epoch, the pool already
+samples the next epoch's first batches (cross-epoch priming).
 
 What the JAX pipeline has and this one does not, by decision (ROADMAP):
 ``ShapeBook`` and the group stacking/re-padding exist to stop XLA from
 recompiling on new shapes; PyTorch runs eagerly, so each batch keeps the
-shapes its sampler gave it. The cross-epoch priming and the multi-rank
-chunking wait for the multi-device slice.
+shapes its sampler gave it.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional
 
@@ -23,8 +27,10 @@ import numpy as np
 from gnn_tpu_torch.sampling.ladies import MiniBatch, SamplerConfig, SAMPLERS
 
 
-# batches sampled ahead of the trainer
+# steps sampled ahead of the trainer
 QUEUE_DEPTH = 8
+# steps of the next epoch sampled while the trainer runs an epoch's tail
+PRIME_DEPTH = 6 * QUEUE_DEPTH
 
 
 def _rank_chunks(n_targets: int, world_size: int):
@@ -35,35 +41,56 @@ def _rank_chunks(n_targets: int, world_size: int):
             for r in range(world_size)]
 
 
+def _same_targets(a, b):
+    if a is None or b is None:
+        return a is b
+    if isinstance(a, list) or isinstance(b, list):
+        return (isinstance(a, list) and isinstance(b, list)
+                and len(a) == len(b)
+                and all(np.array_equal(x, y) for x, y in zip(a, b)))
+    return np.array_equal(a, b)
+
+
 class BatchPipeline:
-    """Prefetching minibatch source for one trainer on one device."""
+    """Prefetching minibatch source for rank ``rank`` of ``world_size``
+    data-parallel ranks (one device: rank 0 of 1)."""
 
     def __init__(self, cfg: SamplerConfig, lap_matrix, labels_full,
                  pool_num: int = 4,
                  per_rank_skew: Optional[List[List[np.ndarray]]] = None,
-                 local_shuffle: bool = False, seed: int = 0):
-        """``per_rank_skew``: per-rank per-layer skew lists (each rank
-        skews toward its own resident nodes, reference
-        ``sampler.py:23-25``). One device is rank 0."""
+                 local_shuffle: bool = False, seed: int = 0,
+                 world_size: int = 1, rank: int = 0):
+        """``per_rank_skew``: ``world_size`` per-layer skew lists, one per
+        rank (each rank skews toward its own resident nodes, reference
+        ``sampler.py:23-25``); rank r samples its batches with list r."""
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} of {world_size}")
+        if per_rank_skew is not None and len(per_rank_skew) != world_size:
+            raise ValueError(f"per_rank_skew has {len(per_rank_skew)} "
+                             f"ranks; the pipeline has {world_size}")
         self.cfg = cfg
         self.lap = lap_matrix
         self.labels = labels_full
-        self.world_size = 1
-        if per_rank_skew is not None and len(per_rank_skew) != 1:
-            raise ValueError(f"per_rank_skew has {len(per_rank_skew)} "
-                             f"ranks; this pipeline feeds one")
-        self.skew = None if per_rank_skew is None else per_rank_skew[0]
-        # layer 0's skew set (the rank's own buffer) as a node mask
+        self.world_size = world_size
+        self.rank = rank
+        self.per_rank_skew = per_rank_skew
+        # layer 0's skew set (this rank's own buffer) as a node mask
         self._skew_mask = None
-        if self.skew is not None:
+        if per_rank_skew is not None:
             self._skew_mask = np.zeros(cfg.num_nodes, bool)
-            self._skew_mask[self.skew[0]] = True
+            self._skew_mask[per_rank_skew[rank][0]] = True
         self.pool = ThreadPoolExecutor(max_workers=pool_num)
         self.local_shuffle = local_shuffle
         self._sampler = SAMPLERS[cfg.sampler]
         self._seed = seed
         self._rng = np.random.default_rng(seed)
         self._epoch = 0
+        # the next epoch's first steps, submitted once this epoch's last
+        # step is (see train_epoch); None when nothing is primed
+        self._primed = None
+        # the last epoch to train (set by Trainer.fit): nothing is primed
+        # past it, so the final test sweep's batches queue behind nothing
+        self.final_epoch: Optional[int] = None
         # native OpenMP width so pool x OMP ~= 2x cores
         from gnn_tpu_torch import native as _native
         lib = _native.get_lib()
@@ -76,19 +103,25 @@ class BatchPipeline:
         self.pool.shutdown(wait=True, cancel_futures=True)
 
     def skew_share(self, mb: MiniBatch) -> float:
-        """The share of ``mb``'s layer-0 input nodes that lie in the skew
-        set; NaN without a skew."""
+        """The share of ``mb``'s layer-0 input nodes that lie in this
+        rank's skew set; NaN without a skew."""
         if self._skew_mask is None:
             return float("nan")
         return float(self._skew_mask[mb.input_nodes[: mb.n_input]].mean())
 
-    def _sample_one(self, seed, batch_nodes, cfg):
+    def _sample_one(self, seed, batch_nodes, cfg, rank=0):
+        """One batch of ``batch_nodes`` under ``cfg``, skewed toward rank
+        ``rank``'s nodes."""
+        skew = None if self.per_rank_skew is None else \
+            self.per_rank_skew[rank]
         return self._sampler(cfg, seed, batch_nodes, self.lap, self.labels,
-                             self.skew)
+                             skew)
 
     def _epoch_plan(self, target_nodes, rank_chunks, eid):
-        """Shuffled chunk + step count for internal epoch id ``eid`` (a
-        pure function of (eid, targets))."""
+        """Every rank's shuffled chunk + the step count for internal epoch
+        id ``eid`` (a pure function of (eid, targets)): one global shuffle
+        cut into disjoint chunks, each rank's span shuffled alone
+        (``local_shuffle``), or the given ``rank_chunks`` each shuffled."""
         ws, bs = self.world_size, self.cfg.batch_size
         if rank_chunks is None:
             n = len(target_nodes)
@@ -104,6 +137,9 @@ class BatchPipeline:
                 spans = _rank_chunks(n, ws)
                 per_rank = [shuffled[s:e] for s, e in spans]
         else:
+            if len(rank_chunks) != ws:
+                raise ValueError(f"{len(rank_chunks)} rank chunks for "
+                                 f"{ws} ranks")
             per_rank = [
                 c[np.random.default_rng(
                     eid * ws + r).permutation(len(c))]
@@ -112,63 +148,149 @@ class BatchPipeline:
         return per_rank, num_steps
 
     def _submit_step(self, per_rank, rng, j):
-        ws, bs = self.world_size, self.cfg.batch_size
-        group = []
-        for r in range(ws):
-            chunk = per_rank[r][j * bs:(j + 1) * bs]
-            if len(chunk) == 0:
-                nr = len(per_rank[r])
-                idx = np.arange(j * bs, j * bs + bs) % max(nr, 1)
-                chunk = per_rank[r][idx]
-            seed = int(rng.integers(2 ** 31 - 1))
-            # the config is bound here, at submission: a worker that runs
-            # later never sees a factor the tuner set in the meantime
-            group.append(self.pool.submit(self._sample_one, seed, chunk,
-                                          self.cfg))
-        return group
+        """Draw step ``j``'s seeds for every rank, in rank order, and
+        submit this rank's batch. A rank whose chunk ran out before the
+        last step cycles through it again (every rank needs a batch at
+        every step)."""
+        ws, bs, r = self.world_size, self.cfg.batch_size, self.rank
+        seeds = [int(rng.integers(2 ** 31 - 1)) for _ in range(ws)]
+        chunk = per_rank[r][j * bs:(j + 1) * bs]
+        if len(chunk) == 0:
+            nr = len(per_rank[r])
+            idx = np.arange(j * bs, j * bs + bs) % max(nr, 1)
+            chunk = per_rank[r][idx]
+        # the config is bound here, at submission: a worker that runs
+        # later never sees a factor the tuner set in the meantime
+        return self.pool.submit(self._sample_one, seeds[r], chunk, self.cfg,
+                                r)
+
+    def _prime(self, epoch, target_nodes, rank_chunks):
+        """Submit the first steps of epoch ``epoch`` from a fresh
+        ``rng((seed, epoch))``, the stream `train_epoch` would start, so
+        the primed batches are the ones it would sample."""
+        eid = epoch + 1
+        rng = np.random.default_rng((self._seed, epoch))
+        per_rank, num_steps = self._epoch_plan(target_nodes, rank_chunks,
+                                               eid)
+        futures = [self._submit_step(per_rank, rng, j)
+                   for j in range(min(PRIME_DEPTH, num_steps))]
+        self._primed = dict(eid=eid, rng=rng, per_rank=per_rank,
+                            num_steps=num_steps, futures=futures,
+                            targets=target_nodes, chunks=rank_chunks,
+                            cfg=self.cfg)
+
+    @staticmethod
+    def _discard(primed):
+        """Drop a prime nobody adopts: cancel the futures not started, and
+        warn of an error in those that ran or are running."""
+        def observe(f):
+            exc = None if f.cancelled() else f.exception()
+            if exc is not None:
+                warnings.warn(f"discarded primed batch raised: {exc!r}")
+        for f in primed["futures"]:
+            if not f.cancel():
+                f.add_done_callback(observe)
 
     def train_epoch(self, target_nodes: np.ndarray,
                     rank_chunks: Optional[List[np.ndarray]] = None,
                     epoch: Optional[int] = None) -> Iterator[MiniBatch]:
-        """Yield one epoch's minibatches. Passing ``epoch`` pins the
-        epoch's shuffle and sampling randomness to (seed, epoch)."""
-        if epoch is not None:
-            self._epoch = epoch + 1
-            self._rng = np.random.default_rng((self._seed, epoch))
-        else:
-            self._epoch += 1
-        per_rank, num_steps = self._epoch_plan(target_nodes, rank_chunks,
-                                               self._epoch)
-        rng = self._rng
-        depth = QUEUE_DEPTH
+        """Yield this rank's minibatches of one epoch. Passing ``epoch``
+        pins the epoch's shuffle and sampling randomness to (seed, epoch)
+        and primes epoch + 1 once this epoch is submitted (up to
+        ``final_epoch``). A primed epoch is adopted only for the same
+        targets and the same config object: after the tuner replaced
+        ``cfg``, the epoch is sampled afresh under the new one."""
+        primed, self._primed = self._primed, None
         futures = []
-        submitted = 0
-        while submitted < num_steps and submitted < depth:
+        if (epoch is not None and primed is not None
+                and primed["eid"] == epoch + 1 and primed["cfg"] is self.cfg
+                and _same_targets(primed["targets"], target_nodes)
+                and _same_targets(primed["chunks"], rank_chunks)):
+            self._epoch, self._rng = primed["eid"], primed["rng"]
+            per_rank, num_steps = primed["per_rank"], primed["num_steps"]
+            futures = primed["futures"]
+        else:
+            if primed is not None:
+                self._discard(primed)
+            if epoch is not None:
+                self._epoch = epoch + 1
+                self._rng = np.random.default_rng((self._seed, epoch))
+            else:
+                self._epoch += 1
+            per_rank, num_steps = self._epoch_plan(target_nodes, rank_chunks,
+                                                   self._epoch)
+        rng = self._rng
+        submitted = len(futures)
+
+        def maybe_prime():
+            if (epoch is not None and self._primed is None
+                    and (self.final_epoch is None
+                         or epoch < self.final_epoch)):
+                self._prime(epoch + 1, target_nodes, rank_chunks)
+
+        def submit():
+            nonlocal submitted
             futures.append(self._submit_step(per_rank, rng, submitted))
             submitted += 1
+            if submitted == num_steps:
+                maybe_prime()
+
+        while submitted < min(num_steps, QUEUE_DEPTH):
+            submit()
+        if submitted >= num_steps:
+            maybe_prime()
         for _ in range(num_steps):
-            group = futures.pop(0)
+            fut = futures.pop(0)
             if submitted < num_steps:
-                futures.append(self._submit_step(per_rank, rng, submitted))
-                submitted += 1
-            yield group[0].result()
+                submit()
+            yield fut.result()
 
     def eval_batches(self, target_nodes: np.ndarray, batch_size: int,
                      mode: str = "val") -> Iterator[MiniBatch]:
         """Evaluation batches (reference ``sampler.py:194-210``): val =
-        one random batch; test = full sweep."""
+        one random batch, the same on every rank (skewed as rank 0's);
+        test = this rank's share of the full sweep
+        (:meth:`eval_batches_sharded`)."""
+        if mode != "val":
+            yield from self.eval_batches_sharded(target_nodes, batch_size)
+            return
         cfg = self.cfg
         if batch_size > cfg.batch_size:
             cfg = dataclasses.replace(cfg, batch_size=batch_size)
-        if mode == "val":
-            idx = self._rng.permutation(len(target_nodes))[:batch_size]
-            yield self._sample_one(int(self._rng.integers(2 ** 31 - 1)),
-                                   target_nodes[idx], cfg)
-            return
+        idx = self._rng.permutation(len(target_nodes))[:batch_size]
+        yield self._sample_one(int(self._rng.integers(2 ** 31 - 1)),
+                               target_nodes[idx], cfg)
+
+    def eval_batches_sharded(self, target_nodes: np.ndarray,
+                             batch_size: int) -> Iterator[MiniBatch]:
+        """This rank's share of the full sweep: of each group of
+        ``world_size`` consecutive batches, the r-th, sampled with rank
+        r's skew (every rank draws every batch's seed). Where the last
+        group has no r-th batch, the rank gets a filler: the group's last
+        batch with empty label and input masks, which contributes nothing
+        but keeps the rank in step with the others' exchanges. One rank
+        sweeps every batch."""
+        cfg = self.cfg
+        if batch_size > cfg.batch_size:
+            cfg = dataclasses.replace(cfg, batch_size=batch_size)
+        ws, r = self.world_size, self.rank
         n_batches = int(np.ceil(len(target_nodes) / batch_size))
-        futs = [self.pool.submit(
-            self._sample_one, int(self._rng.integers(2 ** 31 - 1)),
-            target_nodes[j * batch_size:(j + 1) * batch_size], cfg)
-            for j in range(n_batches)]
-        for f in futs:
-            yield f.result()
+        seeds = [int(self._rng.integers(2 ** 31 - 1))
+                 for _ in range(n_batches)]
+
+        def nodes(j):
+            return target_nodes[j * batch_size:(j + 1) * batch_size]
+
+        futs = {j: self.pool.submit(self._sample_one, seeds[j], nodes(j),
+                                    cfg, j % ws)
+                for j in range(r, n_batches, ws)}
+        for g in range(0, n_batches, ws):
+            j = g + r
+            if j < n_batches:
+                yield futs[j].result()
+                continue
+            last = n_batches - 1
+            mb = self._sample_one(seeds[last], nodes(last), cfg, last % ws)
+            yield dataclasses.replace(
+                mb, label_mask=np.zeros_like(mb.label_mask),
+                input_mask=np.zeros_like(mb.input_mask))

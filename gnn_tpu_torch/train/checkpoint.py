@@ -5,7 +5,11 @@ mid-save never corrupts the previous checkpoint.
 
 The update count rides beside the optimizer state: optax keeps the lr
 warmup's count inside ``opt_state``, ``torch.optim.Adam`` does not, so a
-resume that restored only the optimizer would restart the warmup."""
+resume that restored only the optimizer would restart the warmup.
+
+Across data-parallel ranks the payload is the same: every rank holds the
+same parameters and Adam state, so rank 0 writes (`Trainer.save`) and
+every rank reads."""
 from __future__ import annotations
 
 import os

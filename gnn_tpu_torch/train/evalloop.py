@@ -1,10 +1,19 @@
 """Evaluation: val batches and the full-sweep test (reference
-``main.py:178-199, 217-241``), the single-device part of
-`gnn_tpu.train.evalloop`. The test sweep runs with the BEST params."""
+``main.py:178-199, 217-241``), the counterpart of
+`gnn_tpu.train.evalloop`. The test sweep runs with the BEST params.
+
+The val pass is one batch, the same on every rank (drawn from the
+shared stream, skewed as rank 0's), with its features gathered on the
+host path. The test sweep runs sharded: each rank evaluates its share of
+the batches (`BatchPipeline.eval_batches_sharded`) through the training
+path's feature gather, skips fillers, and one ``all_reduce`` sums
+``(f1 * n, n, loss, batches)``; the F1 stays the reference's per-batch
+micro-F1 weighted by valid rows (``main.py:226-241``)."""
 from __future__ import annotations
 
 import torch
 
+from gnn_tpu_torch.parallel.dist import sum_across_ranks
 from gnn_tpu_torch.train.loss import calc_f1, masked_loss, predict_proba
 from gnn_tpu_torch.train.stepfns import prepare_adjs, to_device_batch
 
@@ -16,26 +25,37 @@ class EvalMixin:
     def evaluate(self, target_nodes, batch_size: int = 128,
                  mode: str = "val"):
         """(micro-F1 weighted by valid rows, mean loss) over the eval
-        batches."""
+        batches: ``val`` on every rank alike, ``test`` sharded over the
+        ranks. Sets ``test_batches``, the batches this rank evaluated in
+        the last test sweep."""
         was_training = self.net.training
         self.net.eval()
         total_f1 = 0.0
         total_n = 0
         total_loss = 0.0
         n_batches = 0
+        src = self.feature_source
         try:
             for mb in self.pipeline.eval_batches(target_nodes, batch_size,
                                                  mode):
-                batch = to_device_batch(mb, self.device)
-                x = self.feature_source.gather(batch.input_nodes,
-                                               batch.input_mask)
+                if mode == "val":
+                    batch = to_device_batch(mb, self.device)
+                    x = src.host_gather(mb.input_nodes, mb.input_mask)
+                else:
+                    # every rank gathers, fillers too: the cache's
+                    # exchange needs all of them
+                    batch = to_device_batch(mb, self.device, src)
+                    x = src.gather(batch.input_nodes, batch.input_mask,
+                                   batch.feat_plan)
+                mask = mb.label_mask.astype(bool)
+                if not mask.any():
+                    continue
                 adjs = prepare_adjs(batch, self.agg_state)
                 out = self.net(x, adjs, batch.sampled_nodes)
                 loss = masked_loss(out, batch.labels, batch.label_mask,
                                    self.sigmoid_loss)
                 proba = predict_proba(out, self.sigmoid_loss).cpu().numpy()
                 labels = mb.labels
-                mask = mb.label_mask.astype(bool)
                 f1_mic, _ = calc_f1(labels[mask],
                                     proba[: labels.shape[0]][mask],
                                     self.sigmoid_loss)
@@ -46,6 +66,10 @@ class EvalMixin:
                 n_batches += 1
         finally:
             self.net.train(was_training)
+        if mode != "val":
+            self.test_batches = n_batches
+            total_f1, total_n, total_loss, n_batches = sum_across_ranks(
+                [total_f1, total_n, total_loss, n_batches], self.dist)
         return (total_f1 / max(total_n, 1),
                 total_loss / max(n_batches, 1))
 

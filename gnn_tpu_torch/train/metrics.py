@@ -88,7 +88,8 @@ class EpochMetrics:
     communication buckets stay NaN unless ``fit(op_timing=True)`` fills
     them (`gnn_tpu_torch.train.optiming`: isolated ops on the epoch's
     last batch, times the step count; communication is 0.0 on one
-    device). ``skew_share`` is the mean share of a batch's layer-0 input
+    device; the gradient all-reduce and a batch's feature exchange
+    across ranks). ``skew_share`` is the mean share of a batch's layer-0 input
     nodes in the locality skew set (NaN without locality sampling).
     ``step_losses``/``step_times`` hold each training step's loss and
     host-clock seconds (the step ends with the loss read back)."""
@@ -108,6 +109,9 @@ class EpochMetrics:
     # under-count queued device work)
     total_time: float = float("nan")
     skew_share: float = float("nan")
+    # SHA-1 of the parameters after the epoch (multi-rank runs; every
+    # rank must hold the same)
+    param_digest: str = ""
     step_losses: List[float] = dataclasses.field(default_factory=list)
     step_times: List[float] = dataclasses.field(default_factory=list)
 

@@ -1,8 +1,8 @@
 """Op-bucket timing probes (``--op_timing``): per-step spmm forward /
 backward and communication seconds from isolated ops on the epoch's
-last batch, the reference's ``main.py:196`` buckets. The one-device
-half of `gnn_tpu.train.optiming`; its part-sharded probe waits for the
-multi-device slice."""
+last batch, the reference's ``main.py:196`` buckets. The replicated
+branch of `gnn_tpu.train.optiming`; its part-sharded probe waits for the
+part-sharded slice (ROADMAP queue 3)."""
 from __future__ import annotations
 
 import time
@@ -10,13 +10,15 @@ import time
 import numpy as np
 import torch
 
+from gnn_tpu_torch.parallel.dist import all_reduce_sum_
 from gnn_tpu_torch.train.stepfns import prepare_adjs
 from gnn_tpu_torch.utils.timing import cuda_time_ms
 
 
 class OpTimingMixin:
     """`measure_op_buckets` and its helpers (a mixin over `Trainer`,
-    which sets ``n_feats`` and ``agg_state``)."""
+    which sets ``n_feats``, ``agg_state``, ``dist`` and
+    ``feature_source``)."""
 
     def _layer_widths(self):
         """Per-layer input feature widths of the encoder stack (the
@@ -48,10 +50,14 @@ class OpTimingMixin:
         timed alone on ``batch`` (the epoch's last device batch) at the
         layer's input width, with operands drawn from ``default_rng(0)``.
         Pattern layers (GAT off the resident path) have no standalone
-        spmm and are skipped. Communication is 0.0: one device runs no
-        collective. The result is cached keyed on the current
-        ``scale_factor``: the sampled-set sizes, and so the buckets, move
-        with it."""
+        spmm and are skipped. Communication, across ranks, is the step's
+        one ``all_reduce`` of the flat gradient buffer plus, with the
+        feature cache, ``batch``'s feature gather (its exchange); one
+        device runs no collective and reads 0.0. Every rank runs the
+        probe at the same point, since it times collectives. The result
+        is cached keyed on the current ``scale_factor`` (the same on
+        every rank): the sampled-set sizes, and so the buckets, move with
+        it."""
         from gnn_tpu_torch.ops.sparse import PatternAdj, spmm, spmm_transpose
 
         sf_key = float(self.pipeline.cfg.scale_factor)
@@ -76,5 +82,14 @@ class OpTimingMixin:
             x, g = operand(adj.ncols, w), operand(adj.nrows, w)
             t_fwd += self._time_s(lambda: spmm(adj, x))
             t_bwd += self._time_s(lambda: spmm_transpose(adj, g))
-        self._op_buckets = (sf_key, (t_fwd, t_bwd, 0.0))
+        t_comm = 0.0
+        if self.dist.world_size > 1:
+            flat = torch.zeros(
+                1 + sum(p.numel() for p in self.net.parameters()),
+                device=self.device)
+            t_comm = self._time_s(lambda: all_reduce_sum_([flat], self.dist))
+            if batch.feat_plan is not None:
+                t_comm += self._time_s(lambda: self.feature_source.gather(
+                    batch.input_nodes, batch.input_mask, batch.feat_plan))
+        self._op_buckets = (sf_key, (t_fwd, t_bwd, t_comm))
         return self._op_buckets[1]

@@ -1,9 +1,10 @@
-"""The single-device half of `gnn_tpu.train.stepfns`: moving a host
-minibatch to the device, rebuilding its adjacencies, and the gradient
-clip. The per-step recipe itself (forward -> masked loss -> backward ->
-clip at 5 -> Adam) lives in `gnn_tpu_torch.train.trainer.Trainer`.
-``jit``/``shard_map`` have no counterpart here: PyTorch runs eagerly on
-one device."""
+"""The counterpart of `gnn_tpu.train.stepfns`: moving a host minibatch
+to the device, rebuilding its adjacencies, the per-rank gradient clip and
+the sum of the clipped gradients across ranks. The per-step recipe itself
+(forward -> masked loss -> backward -> clip at 5 on each rank -> sum
+across ranks -> Adam) lives in `gnn_tpu_torch.train.trainer.Trainer`.
+``jit``/``shard_map`` have no counterpart here: PyTorch runs eagerly,
+one process per rank."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,13 +27,18 @@ class DeviceBatch:
     input_mask: torch.Tensor    # f32 [C_cap_0]
     labels: torch.Tensor        # f32 [B_cap, C]
     label_mask: torch.Tensor    # f32 [B_cap]
+    # the feature source's routing of this batch's input rows (None for a
+    # replicated table)
+    feat_plan: object = None
 
 
-def to_device_batch(mb: MiniBatch, device) -> DeviceBatch:
+def to_device_batch(mb: MiniBatch, device,
+                    feature_source=None) -> DeviceBatch:
     """Copy a host batch to ``device``: every adjacency's numpy arrays
     become tensors of the same dtype (int16 cols stay int16), 0-d counts
     Python ints. An adjacency object that several layers share (the
-    subgraph sampler's square layer) is copied once and stays shared."""
+    subgraph sampler's square layer) is copied once and stays shared.
+    With a ``feature_source``, the batch carries its plan."""
     def t(a):
         return torch.from_numpy(a).to(device)
     moved = {}
@@ -45,7 +51,9 @@ def to_device_batch(mb: MiniBatch, device) -> DeviceBatch:
         adjs=adjs,
         sampled_nodes=[t(s) for s in mb.sampled_nodes],
         input_nodes=t(mb.input_nodes), input_mask=t(mb.input_mask),
-        labels=t(mb.labels), label_mask=t(mb.label_mask))
+        labels=t(mb.labels), label_mask=t(mb.label_mask),
+        feat_plan=(None if feature_source is None
+                   else feature_source.plan(mb)))
 
 
 def prepare_adjs(batch: DeviceBatch, agg_state) -> List[object]:
@@ -75,3 +83,19 @@ def clip_by_global_norm(params: Iterable[torch.nn.Parameter],
     for g in grads:
         g.mul_(scale)
     return norm
+
+
+def sum_gradients_(params: Iterable[torch.nn.Parameter],
+                   extra: List[torch.Tensor], ctx) -> None:
+    """Sum every parameter's gradient, and the ``extra`` tensors, across
+    the ranks in place, with one ``all_reduce`` over one flat buffer
+    (`gnn_tpu.train.stepfns`' ``psum``; the reference sums without
+    dividing, ``main.py:159``). A parameter without a gradient on this
+    rank takes zeros, so every rank packs the same buffer."""
+    from gnn_tpu_torch.parallel.dist import all_reduce_sum_
+    grads = []
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    all_reduce_sum_(grads + list(extra), ctx)

@@ -1,20 +1,27 @@
-"""Training orchestration on one device: the counterpart of
-`gnn_tpu.train.trainer`.
+"""Training orchestration, on one device or as one of several
+data-parallel ranks: the counterpart of `gnn_tpu.train.trainer`.
 
 Each step matches the JAX package's recipe (reference ``main.py``):
 gather the input features on the device, rebuild the batch's resident
 adjacencies, forward, masked BCE/CE loss, backward, global-norm clip
-``min(1, 5 / (norm + 1e-6))``, Adam (optax's and PyTorch's Adam apply
+``min(1, 5 / (norm + 1e-6))`` of this rank's gradient, then the clipped
+gradients SUMMED across the ranks (one ``all_reduce``; not DDP, which
+averages, and before any clip), Adam (optax's and PyTorch's Adam apply
 the same formula), with the optional linear warmup ``lr/100 -> lr`` over
-``lr_warmup`` updates. ``fit`` runs a val pass per epoch, keeps the best
-model at a +1e-2 improvement and saves a rolling latest checkpoint; it
-resumes from that checkpoint, runs the live locality scale-factor tuner,
-the op-timing buckets and a profiler trace of the second epoch.
+``lr_warmup`` updates. Every rank then holds the same parameters; a
+step's logged loss is the mean across ranks. ``fit`` runs a val pass per
+epoch, keeps the best model at a +1e-2 improvement and saves a rolling
+latest checkpoint; it resumes from that checkpoint, runs the live
+locality scale-factor tuner, the op-timing buckets and a profiler trace
+of the second epoch. Across ranks, rank 0 takes each decision (the val
+F1 that picks the best model, the tuner's factor) and broadcasts it, and
+rank 0 alone writes checkpoints, metrics and traces.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import os
 import time
 from typing import List, Optional
@@ -23,25 +30,32 @@ import numpy as np
 import torch
 
 from gnn_tpu_torch.device import resolve_device
+from gnn_tpu_torch.parallel.dist import DistContext, broadcast_from_main
 from gnn_tpu_torch.parallel.feature_cache import ReplicatedFeatures
 from gnn_tpu_torch.train.evalloop import EvalMixin
 from gnn_tpu_torch.train.loss import masked_loss
 from gnn_tpu_torch.train.metrics import EpochMetrics
 from gnn_tpu_torch.train.optiming import OpTimingMixin
 from gnn_tpu_torch.train.stepfns import (clip_by_global_norm, prepare_adjs,
-                                         to_device_batch)
+                                         sum_gradients_, to_device_batch)
 
 
 class Trainer(EvalMixin, OpTimingMixin):
-    """End-to-end trainer mirroring ``main.py``'s behavior on one
-    device (``cuda`` unless the caller passes ``device="cpu"``)."""
+    """End-to-end trainer mirroring ``main.py``'s behavior on one device
+    (``cuda`` unless the caller passes ``device="cpu"``) or, with
+    ``dist``, as one rank of a data-parallel group on ``dist.device``
+    (the pipeline and the feature source are that rank's)."""
 
     def __init__(self, net, pipeline, feats: np.ndarray, lr: float = 0.01,
                  sigmoid_loss: bool = True, seed: int = 0,
                  feature_source=None, resident_graph=None,
                  hot_dense=None, lr_warmup: int = 0,
-                 grad_clip: float = 5.0, device="cuda"):
-        self.device = resolve_device(device)
+                 grad_clip: float = 5.0, device="cuda",
+                 dist: Optional[DistContext] = None):
+        if dist is None:
+            dist = DistContext(device=resolve_device(device))
+        self.dist = dist
+        self.device = dist.device
         self.net = net.to(self.device)
         self.pipeline = pipeline
         self.feature_source = (feature_source if feature_source is not None
@@ -68,11 +82,14 @@ class Trainer(EvalMixin, OpTimingMixin):
             self.agg_state = tuple(torch.as_tensor(d).to(self.device)
                                    for d in hot_dense)
         self._seed = seed
-        # dropout draws from this generator, reseeded from (seed, epoch)
+        # dropout draws from this generator, reseeded from (seed, epoch,
+        # rank): the ranks draw different masks, as the JAX package folds
+        # in the replica index
         self.generator = torch.Generator(device=self.device)
         self.best_val = -1.0
         self.best_params = None
         self.history: List[EpochMetrics] = []
+        self.test_batches = 0
 
     def _lr_at(self, count: int) -> float:
         """optax.linear_schedule(lr/100, lr, warmup) at update ``count``."""
@@ -82,8 +99,10 @@ class Trainer(EvalMixin, OpTimingMixin):
         return self.lr / 100.0 + (self.lr - self.lr / 100.0) * frac
 
     def train_step(self, batch) -> torch.Tensor:
-        """One optimizer step on a device batch; returns the loss."""
-        x = self.feature_source.gather(batch.input_nodes, batch.input_mask)
+        """One optimizer step on a device batch; returns the loss (across
+        ranks, their mean)."""
+        x = self.feature_source.gather(batch.input_nodes, batch.input_mask,
+                                       batch.feat_plan)
         adjs = prepare_adjs(batch, self.agg_state)
         out = self.net(x, adjs, batch.sampled_nodes,
                        generator=self.generator)
@@ -92,11 +111,27 @@ class Trainer(EvalMixin, OpTimingMixin):
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         clip_by_global_norm(self.net.parameters(), self.grad_clip)
+        loss = loss.detach()
+        if self.dist.world_size > 1:
+            # the loss rides in the gradients' buffer: one collective
+            total = loss.reshape(1).clone()
+            sum_gradients_(self.net.parameters(), [total], self.dist)
+            loss = total[0] / self.dist.world_size
         for group in self.optimizer.param_groups:
             group["lr"] = self._lr_at(self.n_updates)
         self.optimizer.step()
         self.n_updates += 1
-        return loss.detach()
+        return loss
+
+    def param_digest(self) -> str:
+        """SHA-1 of the parameters' bytes (ranks must agree bit for
+        bit)."""
+        h = hashlib.sha1()
+        for name, v in self.net.state_dict().items():
+            h.update(name.encode())
+            h.update(v.detach().cpu().contiguous().view(-1).view(
+                torch.uint8).numpy().tobytes())
+        return h.hexdigest()
 
     def train_epoch(self, train_nodes, epoch: int, rank_chunks=None,
                     keep_last_batch: bool = False) -> EpochMetrics:
@@ -104,7 +139,8 @@ class Trainer(EvalMixin, OpTimingMixin):
         epoch's last device batch as ``self.last_batch`` (the op-timing
         probe's operands); otherwise ``last_batch`` is None."""
         # epoch-deterministic randomness (sampling seeds, dropout)
-        self.generator.manual_seed(self._seed * 1_000_003 + epoch)
+        self.generator.manual_seed(self._seed * 1_000_003 + epoch
+                                   + (self.dist.rank << 32))
         self.net.train()
         t_sample = t_move = t_exec = 0.0
         losses, times, shares = [], [], []
@@ -114,7 +150,7 @@ class Trainer(EvalMixin, OpTimingMixin):
             t1 = time.perf_counter()
             t_sample += t1 - t0
             shares.append(self.pipeline.skew_share(mb))
-            batch = to_device_batch(mb, self.device)
+            batch = to_device_batch(mb, self.device, self.feature_source)
             t2 = time.perf_counter()
             t_move += t2 - t1
             loss = float(self.train_step(batch))   # waits for the device
@@ -146,14 +182,21 @@ class Trainer(EvalMixin, OpTimingMixin):
         so the remaining epochs replay the uninterrupted run's.
         ``locality_tuner`` feeds each epoch after the first trained one to
         a `ScaleFactorTuner`; ``op_timing`` fills the spmm and
-        communication buckets; ``profile_dir`` gets a trace of epoch 1."""
+        communication buckets; ``profile_dir`` gets a trace of epoch 1.
+        Across ranks, every rank calls ``fit`` alike: rank 0 alone logs,
+        writes ``metrics`` (pass None elsewhere), checkpoints (a barrier
+        follows each write) and traces, and its val F1 and tuner factor
+        hold on every rank; each epoch's record carries the parameters'
+        digest."""
         from gnn_tpu_torch.train.checkpoint import (checkpoint_path,
                                                     load_checkpoint,
                                                     save_checkpoint)
         from gnn_tpu_torch.train.metrics import (ScaleFactorTuner,
                                                  device_memory_stats)
+        main = self.dist.is_main
+        log = log and main
         tuner = (ScaleFactorTuner(self.pipeline.cfg.scale_factor)
-                 if locality_tuner else None)
+                 if locality_tuner and main else None)
         start_epoch = 0
         if resume and checkpoint_dir is not None and os.path.exists(
                 checkpoint_path(checkpoint_dir, "latest")):
@@ -165,12 +208,16 @@ class Trainer(EvalMixin, OpTimingMixin):
                 self.best_params = {k: v.to(self.device)
                                     for k, v in bp.items()}
                 self.best_val = max(self.best_val, bv)
-            print(f"resumed from {checkpoint_dir} at epoch {start_epoch} "
-                  f"(best val F1 {self.best_val:.3f})", flush=True)
+            if log:
+                print(f"resumed from {checkpoint_dir} at epoch "
+                      f"{start_epoch} (best val F1 {self.best_val:.3f})",
+                      flush=True)
+        # nothing is primed past the last epoch
+        self.pipeline.final_epoch = epochs - 1
         for epoch in range(start_epoch, epochs):
             # profile the second epoch (the first pays one-time set-up)
             with (profile_trace(profile_dir, self.device, epoch)
-                  if profile_dir is not None and epoch == 1
+                  if profile_dir is not None and epoch == 1 and main
                   else contextlib.nullcontext()):
                 m = self.train_epoch(train_nodes, epoch, rank_chunks,
                                      keep_last_batch=op_timing)
@@ -182,7 +229,19 @@ class Trainer(EvalMixin, OpTimingMixin):
                 m.spmm_bwd_time = bwd * steps
                 m.communication_time = comm * steps
             f1, vloss = self.evaluate(valid_nodes, 128, "val")
+            # live scale-factor controller (reference main.py:200-212);
+            # the first trained epoch pays one-time set-up in its
+            # execution bucket, which would read as a tiny ratio and stop
+            # the controller, so it is skipped
+            new_sf = self.pipeline.cfg.scale_factor
+            if tuner is not None and epoch > start_epoch:
+                new_sf = tuner.update(m.data_movement_time,
+                                      m.execution_time)
+            f1, vloss, new_sf = broadcast_from_main([f1, vloss, new_sf],
+                                                    self.dist)
             m.valid_f1, m.valid_loss = f1, vloss
+            if self.dist.world_size > 1:
+                m.param_digest = self.param_digest()
             self.history.append(m)
             if log:
                 print(m.format(self.pipeline.cfg.scale_factor), flush=True)
@@ -201,27 +260,22 @@ class Trainer(EvalMixin, OpTimingMixin):
                             step_losses=m.step_losses,
                             step_times=m.step_times,
                             device_memory=device_memory_stats())
-            # live scale-factor controller (reference main.py:200-212);
-            # the first trained epoch pays one-time set-up in its
-            # execution bucket, which would read as a tiny ratio and stop
-            # the controller, so it is skipped
-            if tuner is not None and epoch > start_epoch:
-                new_sf = tuner.update(m.data_movement_time,
-                                      m.execution_time)
-                if new_sf != self.pipeline.cfg.scale_factor:
-                    self.pipeline.cfg = dataclasses.replace(
-                        self.pipeline.cfg, scale_factor=new_sf)
+            if new_sf != self.pipeline.cfg.scale_factor:
+                self.pipeline.cfg = dataclasses.replace(
+                    self.pipeline.cfg, scale_factor=new_sf)
             # best-model selection at +1e-2 improvement (main.py:197-199)
             if f1 > self.best_val + 1e-2:
                 self.best_val = f1
                 self.best_params = {k: v.detach().clone() for k, v in
                                     self.net.state_dict().items()}
                 if checkpoint_dir is not None:
-                    save_checkpoint(checkpoint_dir, self.best_params,
-                                    step=epoch,
-                                    opt_state=self.optimizer.state_dict(),
-                                    n_updates=self.n_updates,
-                                    best_val=self.best_val)
+                    if main:
+                        save_checkpoint(
+                            checkpoint_dir, self.best_params, step=epoch,
+                            opt_state=self.optimizer.state_dict(),
+                            n_updates=self.n_updates,
+                            best_val=self.best_val)
+                    self.dist.barrier()
             if checkpoint_dir is not None:
                 # rolling crash-recovery checkpoint (next epoch)
                 self.save(checkpoint_dir, step=epoch + 1)
@@ -230,12 +284,17 @@ class Trainer(EvalMixin, OpTimingMixin):
     def save(self, ckpt_dir: str, step: int = 0):
         """The latest checkpoint, the full training state: params,
         optimizer state, update count, ``step`` and the best-val
-        watermark."""
-        from gnn_tpu_torch.train.checkpoint import save_checkpoint
-        return save_checkpoint(ckpt_dir, self.net.state_dict(), step=step,
-                               opt_state=self.optimizer.state_dict(),
-                               n_updates=self.n_updates, name="latest",
-                               best_val=self.best_val)
+        watermark. Rank 0 writes it (every rank holds the same state);
+        the ranks meet at a barrier after the write. Returns its path."""
+        from gnn_tpu_torch.train.checkpoint import (checkpoint_path,
+                                                    save_checkpoint)
+        if self.dist.is_main:
+            save_checkpoint(ckpt_dir, self.net.state_dict(), step=step,
+                            opt_state=self.optimizer.state_dict(),
+                            n_updates=self.n_updates, name="latest",
+                            best_val=self.best_val)
+        self.dist.barrier()
+        return checkpoint_path(ckpt_dir, "latest")
 
     def restore(self, ckpt_dir: str) -> int:
         """Load params, optimizer state, update count and the best-val

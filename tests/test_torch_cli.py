@@ -21,14 +21,17 @@ TINY = ["--dataset", "synthetic:nodes=1200,deg=10,feats=16,classes=5",
 
 
 def test_parser_matches_jax_plus_device():
+    """The JAX CLI's flags and defaults, plus ``--device`` and the
+    collectives' ``--dist_backend``."""
     j = vars(jcli.build_parser().parse_args([]))
     t = vars(tcli.build_parser().parse_args([]))
     assert t.pop("device") == "cuda"
+    assert t.pop("dist_backend") == "auto"
     assert t == j
     jp, tp = jcli.build_parser(), tcli.build_parser()
     jflags = {o for a in jp._actions for o in a.option_strings}
     tflags = {o for a in tp._actions for o in a.option_strings}
-    assert tflags - jflags == {"--device"}
+    assert tflags - jflags == {"--device", "--dist_backend"}
     assert jflags <= tflags
     for a in jp._actions:
         if a.choices:
@@ -154,10 +157,13 @@ def test_ported_flags_run(tmp_path, flag):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--feature_cache"],
-    ["--resident_parts", "2"], ["--n_devices", "2"],
+    ["--resident_parts", "2", "--feature_cache"],
+    ["--resident_parts", "2"],
+    ["--n_devices", "2", "--resident_parts", "2"],
     ["--steps_per_dispatch", "4"]])
 def test_unported_flags_raise(tmp_path, flag):
+    """The part-sharded resident graph (alone, with the cache, under
+    data parallelism) and scan dispatch raise before any rank starts."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(TINY + ["--device", "cpu", "--save_dir",
                           str(tmp_path)] + flag)
