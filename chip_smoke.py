@@ -99,7 +99,28 @@ Phases (any failure exits non-zero without the final result line):
    of layer-0 input rows from its own buffer, its peer's and the host,
    the bytes its all-to-all received a step and its median step (both
    ranks share one card's SMs: not a multi-GPU speed figure);
-8. a ``kernels`` JSON line, then the result line
+8. the part-sharded grid (``--resident_parts``) on the one card, every
+   rank a gloo process on ``cuda:0`` that counts its own kernel launches
+   and writes them, its step losses, parameter digests and memory figures
+   to its run directory: (a) phase 4's small input, one epoch a case on
+   the card and on the CPU: GraphSAGE on one data rank x 2 part ranks
+   with the node-range feature shards and with the composed cache, in
+   full expansion, and GAT; GraphSAGE on 2 x 2 ranks. Every rank of a
+   grid holds the same parameters after each epoch, the card agrees with
+   the CPU to AGREE_RTOL, and each case with the same run unsharded (one
+   rank, or phase 7's two data ranks) to PART_RTOL; (b) the CLI defaults
+   with ``--n_devices 1 --resident_parts 2 --dist_backend gloo
+   --feature_cache --op_timing --epoch_num 1 --test``: equal digests, a
+   falling loss, a communication bucket above 0, each rank's K1 launches
+   accounted for, each rank's resident graph half of phase 5's (within
+   the node ranges' padding), its feature buffer at most half of phase
+   5's table and its peak memory after set-up below phase 5's; it logs
+   the bytes each rank sums over its part group a step, the shares of
+   layer-0 rows from the own part, the other part and the host, and the
+   median step (not a multi-GPU speed figure); (c) the same with
+   ``--model gat`` and no test sweep: equal digests, finite losses, K3
+   and K4 launched phase 5's GAT counts a step (and a val pass);
+9. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -758,11 +779,15 @@ def _small_trainer(dev, model, adj_format="resident", sampler="ladies",
     ``dev``: same batches and initial weights on every device, dropout
     0; on the resident and hot paths a float32 hot block, on the resident
     path stream tiles on (off under full expansion, ``ship_cold=False``,
-    which rebuilds the cold COO on the device). With ``ctx`` (phase 7),
-    rank ``ctx.rank``'s trainer, and with ``cached`` its features through
-    `CachedFeatures` over the greedy placement of 20% of the nodes a rank
-    (alpha 0, the CLI's default). Returns ``(trainer, pipeline,
-    graph)``; the caller closes the pipeline."""
+    which rebuilds the cold COO on the device). With ``ctx`` (phases 7
+    and 8), the trainer of rank ``ctx.rank``, of data rank
+    ``ctx.data_rank`` and, on a grid of part ranks (phase 8), with the
+    resident graph sharded over its part group and the features in
+    node-range shards (`PartShardedFeatures`). With ``cached``, the
+    features through `CachedFeatures` (or, on a grid, `PartCachedFeatures`)
+    over the greedy placement of 20% of the nodes a buffer, a buffer a
+    data rank (a part) (alpha 0, the CLI's default). Returns
+    ``(trainer, pipeline, graph)``; the caller closes the pipeline."""
     import torch
 
     from gnn_tpu_torch.data.synthetic import make_powerlaw_graph
@@ -794,21 +819,27 @@ def _small_trainer(dev, model, adj_format="resident", sampler="ladies",
                         hot_spec=spec, resident_val_free=resident,
                         resident_ship_cold=ship_cold,
                         resident_stream_tiles=resident and ship_cold)
-    ws, rank = (1, 0) if ctx is None else (ctx.world_size, ctx.rank)
+    ws, rank = (1, 0) if ctx is None else (ctx.dp, ctx.data_rank)
+    parts = 1 if ctx is None else ctx.parts
     pipe = BatchPipeline(cfg, lap, g.labels, pool_num=2, seed=0,
                          world_size=ws, rank=rank)
     net = build_model(model, 64, (1, 1), 7, n_feats=40, dropout=0.0, seed=0)
+    from gnn_tpu_torch.parallel import feature_cache as fc
     source = None
     if cached:
-        from gnn_tpu_torch.parallel.feature_cache import CachedFeatures
         from gnn_tpu_torch.placement.engine import create_placement
         placement = create_placement(lap, g.train_nodes,
-                                     per_dev=lap.shape[0] // 5, num_devs=ws,
+                                     per_dev=lap.shape[0] // 5,
+                                     num_devs=ws if parts == 1 else parts,
                                      num_conv_layers=2, alpha=0.0)
-        source = CachedFeatures(g.feats, placement, ctx)
+        source = (fc.CachedFeatures(g.feats, placement, ctx) if parts == 1
+                  else fc.PartCachedFeatures(g.feats, placement, ctx.part,
+                                             device=dev))
+    elif parts > 1:
+        source = fc.PartShardedFeatures(g.feats, ctx.part, device=dev)
     tr = Trainer(net, pipe, g.feats, lr=0.01, sigmoid_loss=False,
                  resident_graph=rg, hot_dense=hot, device=dev,
-                 feature_source=source, dist=ctx)
+                 feature_source=source, dist=ctx, resident_parts=parts)
     return tr, pipe, g
 
 
@@ -956,7 +987,9 @@ def run_cli(save_dir, argv):
 def run_main_path(save_dir, label, argv, per_step):
     """Phase 5: one CLI run (one epoch + val, + the test sweep where
     ``argv`` asks for it), with every launch counter set to 0 just before
-    and read just after; returns its kernel launch counts by JSON name."""
+    and read just after; returns its kernel launch counts by JSON name
+    and its rank record (``rank0.json``: the resident state's bytes, the
+    peak memory after set-up)."""
     import math
 
     import torch
@@ -991,7 +1024,8 @@ def run_main_path(save_dir, label, argv, per_step):
             fail(f"{label}: {name} launches {counts[name]} < {n} x {steps}")
     if test_f1 is not None and not (0.0 <= test_f1 <= 1.0):
         fail(f"{label}: test F1 out of range: {test_f1}")
-    return counts
+    with open(os.path.join(save_dir, "rank0.json")) as f:
+        return counts, json.load(f)
 
 
 def run_probe_path(save_dir, device):
@@ -1436,6 +1470,314 @@ def run_dp_main_path(save_dir):
     return total
 
 
+# phase 8: the data x part grid, every rank under gloo on the one card.
+# Each case's step losses against the same run unsharded (one rank, or
+# phase 7's two data ranks) agree to PART_RTOL: the parts sum the hot
+# products in another order, and on the card K1 sums in a run-dependent
+# order (phase 6's reruns read 1e-8 to 5.4e-6 apart)
+PART_RTOL = 1e-5
+GRID_PARTS = 2
+# one epoch a case keeps phase 8 near two minutes (two epochs took 130 s
+# for (a) alone, PERF.md §6)
+GRID_EPOCHS = 1
+# phase 8 (a)'s cases on one data rank x GRID_PARTS part ranks: (name,
+# model, ship_cold, cached); "full" is full expansion (Trainer only)
+GRID_CASES = [("sharded", "graphsage", True, False),
+              ("cached", "graphsage", True, True),
+              ("full", "graphsage", False, False),
+              ("gat", "gat", True, False)]
+
+
+def _small_grid_rank(rank, rdv, out_dir, device_type, parts, cases):
+    """Phase 8 (a), one rank of a ``world / parts`` x ``parts`` grid: each
+    of ``cases`` on phase 4's small input for GRID_EPOCHS epochs; writes
+    its step losses (the grid's mean) and its digest after each epoch."""
+    import torch
+
+    from gnn_tpu_torch.parallel import dist as tdist
+    if device_type == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads()
+                                  // rdv.world_size))
+    ctx = tdist.init_dist(rank, rdv, device_type, "gloo", parts)
+    rec = {"device": str(ctx.device)}
+    try:
+        for name, model, ship_cold, cached in cases:
+            tr, pipe, g = _small_trainer(ctx.device, model,
+                                         ship_cold=ship_cold, ctx=ctx,
+                                         cached=cached)
+            losses, digests = [], []
+            try:
+                for e in range(GRID_EPOCHS):
+                    losses += tr.train_epoch(g.train_nodes, e).step_losses
+                    digests.append(tr.param_digest())
+            finally:
+                pipe.close()
+            rec[name] = losses
+            rec[f"{name}_digests"] = digests
+    finally:
+        tdist.close_dist(ctx)
+    with open(os.path.join(out_dir, f"grid_{device_type}{world_tag(rdv)}"
+                           f"_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def world_tag(rdv):
+    return f"w{rdv.world_size}"
+
+
+def _spawn_grid(world, parts, device_type, cases, out_dir):
+    from gnn_tpu_torch.parallel import dist as tdist
+    tdist.JOIN_TIMEOUT_S = DP_JOIN_TIMEOUT_S
+    tdist.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
+    tdist.spawn_ranks(world, _small_grid_rank,
+                      (out_dir, device_type, parts, cases),
+                      rendezvous_dir=out_dir)
+    recs = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"grid_{device_type}w{world}_{r}"
+                               ".json")) as f:
+            recs.append(json.load(f))
+    for name, *_ in cases:
+        if any(x[name] != recs[0][name]
+               or x[f"{name}_digests"] != recs[0][f"{name}_digests"]
+               for x in recs):
+            fail(f"grid {device_type} {world} ranks {name}: the ranks "
+                 f"disagree: digests "
+                 f"{[x[f'{name}_digests'] for x in recs]}")
+    return recs[0]
+
+
+def check_grid_small(save_dir):
+    """Phase 8 (a): phase 4's small input on the grid, card and CPU.
+    GraphSAGE with the node-range feature shards and with the composed
+    cache, in full expansion, and GAT, on one data rank x GRID_PARTS part
+    ranks; GraphSAGE on two data ranks x GRID_PARTS part ranks. Fails
+    unless every rank of a grid logs the same step losses and holds the
+    same parameters after each epoch, the card's step losses agree with
+    the CPU's to AGREE_RTOL, and each case agrees with the same run
+    unsharded (one rank in this process; phase 7's two data ranks for the
+    2 x 2 grid, whose replicated table gathers what the shards do) to
+    PART_RTOL."""
+    import math
+
+    out = os.path.join(save_dir, "grid_small")
+    os.makedirs(out)
+    runs = {}
+    for device_type in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        one = _spawn_grid(GRID_PARTS, GRID_PARTS, device_type, GRID_CASES,
+                          out)
+        grid22 = _spawn_grid(2 * GRID_PARTS, GRID_PARTS, device_type,
+                             GRID_CASES[:1], out)
+        ref = {}
+        for name, model, ship_cold, cached in GRID_CASES:
+            if name == "cached":
+                ref[name] = ref["sharded"]
+                continue
+            tr, pipe, g = _small_trainer(device_type, model,
+                                         ship_cold=ship_cold)
+            try:
+                ref[name] = [v for e in range(GRID_EPOCHS) for v in
+                             tr.train_epoch(g.train_nodes, e).step_losses]
+            finally:
+                pipe.close()
+        got = {name: one[name] for name, *_ in GRID_CASES}
+        got["2x2"] = grid22["sharded"]
+        with open(os.path.join(save_dir, "dp_small",
+                               f"small_{device_type}0.json")) as f:
+            # phase 7 trains DP_EPOCHS epochs; the grid the first ones
+            ref["2x2"] = json.load(f)["replicated"][:len(got["2x2"])]
+        runs[device_type] = got
+        log(f"grid small {device_type}: {time.perf_counter() - t0:.1f}s "
+            f"wall (1 x {GRID_PARTS} and 2 x {GRID_PARTS} gloo ranks, "
+            f"epochs a case: {GRID_EPOCHS}); every rank's losses and "
+            f"digests equal")
+        for name, losses in got.items():
+            if len(losses) != len(ref[name]):
+                fail(f"grid small {device_type} {name}: {len(losses)} steps "
+                     f"against {len(ref[name])} unsharded")
+            rel = _rel(losses, ref[name])
+            log(f"grid small {device_type} {name} ({len(losses)} steps): "
+                f"{losses[0]:.5f}..{losses[-1]:.5f}; against the run "
+                f"unsharded max rel diff {rel:.2e}")
+            if not (all(math.isfinite(v) for v in losses)
+                    and losses[-1] < losses[0]):
+                fail(f"grid small {device_type} {name}: losses {losses}")
+            if not rel <= PART_RTOL:
+                fail(f"grid small {device_type} {name}: sharded and "
+                     f"unsharded disagree: {rel:.3e}")
+    for name in runs["cuda"]:
+        rel = _rel(runs["cuda"][name], runs["cpu"][name])
+        log(f"grid small {name}: cuda against cpu max rel diff {rel:.2e}")
+        if not rel <= AGREE_RTOL:
+            fail(f"grid small {name}: cuda and cpu disagree: {rel:.3e}")
+
+
+# the resident graph's tensors of one rank, replicated (phase 5's) and as
+# a part's shards (phase 8's)
+RESIDENT_KEYS = (("slot_of_node", "slot_shard"),
+                 ("row_val", "row_val_shard"),
+                 ("col_val", "col_val_shard"), ("dense", "dense"),
+                 ("dense_t", "dense_t"))
+
+
+def _grid_ranks(d, world):
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    digests = [[e["param_digest"] for e in r["epochs"]] for r in ranks]
+    log(f"grid parameter digests after each epoch: {digests}")
+    if any(x != digests[0] for x in digests):
+        fail(f"grid: the ranks' parameters differ: {digests}")
+    return ranks
+
+
+def run_grid_main_path(save_dir, main_recs):
+    """Phase 8 (b): the CLI defaults with ``--n_devices 1 --resident_parts
+    GRID_PARTS --dist_backend gloo --feature_cache --op_timing
+    --epoch_num 1 --test``, every rank on the one card, in a directory
+    sharing phase 5's set-up caches. Fails unless the ranks hold the same
+    parameters, the losses are finite and fall, the communication bucket
+    is above 0, each rank's K1 launches are its steps' (phase 5's per-step
+    counts) plus 3 a val pass and a test batch plus the op-timing
+    probe's, each rank's resident graph on the card (slot, row and column
+    shards, D and D^T shards) is 1 / GRID_PARTS of phase 5's default
+    run's within the node ranges' padding, its feature buffer at most
+    1 / GRID_PARTS of phase 5's table, and its peak memory after set-up
+    below phase 5's. Returns the ranks' summed launch counts."""
+    import math
+
+    import numpy as np
+
+    d = linked_dir(save_dir, "grid")
+    argv = ["--n_devices", "1", "--resident_parts", str(GRID_PARTS),
+            "--dist_backend", "gloo", "--feature_cache", "--op_timing",
+            "--epoch_num", "1", "--test"]
+    from gnn_tpu_torch.parallel import dist as tdist
+    tdist.JOIN_TIMEOUT_S = DP_JOIN_TIMEOUT_S
+    tdist.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
+    recs, _, wall = run_cli(d, argv)
+    eps = log_epochs("grid", recs)
+    test_f1 = next((r["test_f1"] for r in recs if "test_f1" in r), None)
+    ranks = _grid_ranks(d, GRID_PARTS)
+    losses = [v for r in eps for v in r["step_losses"]]
+    log(f"grid main path: 1 x {GRID_PARTS} ranks on "
+        f"{[r['device'] for r in ranks]} ({ranks[0]['backend']}), "
+        f"{len(losses)} steps in {wall:.1f}s wall (set-up, epoch, val, test "
+        f"sweep); test F1 {test_f1}")
+    if not (losses and all(math.isfinite(v) for v in losses)):
+        fail(f"grid: non-finite or missing losses: {losses}")
+    if not sum(losses[-5:]) / 5 < losses[0]:
+        fail(f"grid: loss did not fall: {losses}")
+    for r in eps:
+        if not (math.isfinite(r["communication_s"])
+                and r["communication_s"] > 0):
+            fail(f"grid epoch {r['epoch']}: communication bucket "
+                 f"{r['communication_s']}")
+    one = main_recs["graphsage"]
+    whole = sum(one["state_bytes"][a] for a, _ in RESIDENT_KEYS)
+    total = dict.fromkeys((k[0] for k in KERNELS), 0)
+    keys = {f"{mod}.{key}": name for name, (mod, key), _, _ in KERNELS}
+    per = DEFAULT_PER_STEP
+    for rec in ranks:
+        rs = sum(len(e["step_losses"]) for e in rec["epochs"])
+        got = {keys[k]: v for k, v in rec["launches"].items()}
+        for k, v in got.items():
+            total[k] += v
+        fwd = got.get("edge_stream_spmm.forward", 0)
+        tr = got.get("edge_stream_spmm.transpose", 0)
+        evals = 3 * (len(rec["epochs"]) + rec["test_batches"])
+        probe_f = fwd - per["edge_stream_spmm.forward"] * rs - evals
+        probe_t = tr - per["edge_stream_spmm.transpose"] * rs
+        log(f"grid rank {rec['rank']} K1 launches: forward {fwd} = "
+            f"{per['edge_stream_spmm.forward']} x {rs} steps + 3 x "
+            f"({len(rec['epochs'])} val passes + {rec['test_batches']} "
+            f"test batches) + {probe_f} probe; transpose {tr} = "
+            f"{per['edge_stream_spmm.transpose']} x {rs} + {probe_t} probe")
+        if not (probe_f == probe_t > 0 and probe_f % 3 == 0):
+            fail(f"grid rank {rec['rank']}: K1 launches do not add up")
+        sb = rec["state_bytes"]
+        mine = sum(sb[b] for _, b in RESIDENT_KEYS)
+        log(f"grid rank {rec['rank']} resident graph on the card: {mine} "
+            f"bytes ({ {b: sb[b] for _, b in RESIDENT_KEYS} }) against "
+            f"{whole} on one rank (phase 5, default path): "
+            f"{mine / whole:.6f}; feature buffer {sb['features']} bytes "
+            f"against the table's {one['state_bytes']['features']}; peak "
+            f"memory after set-up {rec['setup_max_memory']} bytes against "
+            f"{one['setup_max_memory']}")
+        if not whole / GRID_PARTS <= mine <= whole / GRID_PARTS + 64:
+            fail(f"grid rank {rec['rank']}: resident graph {mine} bytes is "
+                 f"not 1/{GRID_PARTS} of {whole}")
+        if sb["features"] > one["state_bytes"]["features"] / GRID_PARTS:
+            fail(f"grid rank {rec['rank']}: feature buffer "
+                 f"{sb['features']} bytes")
+        if not rec["setup_max_memory"] < one["setup_max_memory"]:
+            fail(f"grid rank {rec['rank']}: peak memory after set-up "
+                 f"{rec['setup_max_memory']} not below one rank's "
+                 f"{one['setup_max_memory']}")
+        c = rec["cache"]
+        rows = c["rows_local"] + c["rows_peer"] + c["rows_host"]
+        times = [t for e in rec["epochs"] for t in e["step_times"]]
+        steady = sorted(times[1:]) or times
+        log(f"grid rank {rec['rank']}: bytes summed over the part group a "
+            f"step {rec['epochs'][0]['part_bytes'] / rs:.0f}; layer-0 input "
+            f"rows over {c['batches']} planned batches (training and val): "
+            f"own part's buffer {c['rows_local'] / rows:.4f}, the other "
+            f"part's {c['rows_peer'] / rows:.4f}, host "
+            f"{c['rows_host'] / rows:.4f} of {rows}; median step "
+            f"{steady[len(steady) // 2]:.4f} s on {card()} ({GRID_PARTS} "
+            f"ranks share one card's SMs and gloo stages every collective "
+            f"through the host: not a multi-GPU speed figure)")
+    comm = [r["communication_s"] / len(r["step_losses"]) for r in eps]
+    log(f"grid communication bucket a step (rank 0; the gradient "
+        f"all-reduce + one batch's feature gather, isolated): "
+        f"{' '.join(f'{v:.4f}' for v in comm)} s; median step of rank 0 "
+        f"{np.median(ranks[0]['epochs'][-1]['step_times'][1:]):.4f} s")
+    return total
+
+
+def run_grid_gat(save_dir, main_recs):
+    """Phase 8 (c): phase 8 (b)'s run with ``--model gat`` and no test
+    sweep. Fails unless the ranks hold the same parameters, the losses
+    are finite, and each rank launches K3 and K4's terms 3 times a step
+    and a val pass and bwd_q and bwd_kv 3 times a step (phase 5's GAT
+    per-step counts). Returns the ranks' summed launch counts."""
+    import math
+
+    d = linked_dir(save_dir, "grid_gat")
+    argv = ["--model", "gat", "--n_devices", "1", "--resident_parts",
+            str(GRID_PARTS), "--dist_backend", "gloo", "--feature_cache",
+            "--op_timing", "--epoch_num", "1"]
+    recs, _, wall = run_cli(d, argv)
+    eps = log_epochs("grid gat", recs)
+    ranks = _grid_ranks(d, GRID_PARTS)
+    losses = [v for r in eps for v in r["step_losses"]]
+    log(f"grid gat: 1 x {GRID_PARTS} ranks, {len(losses)} steps in "
+        f"{wall:.1f}s wall (set-up, epoch, val)")
+    if not (losses and all(math.isfinite(v) for v in losses)):
+        fail(f"grid gat: non-finite or missing losses: {losses}")
+    total = dict.fromkeys((k[0] for k in KERNELS), 0)
+    keys = {f"{mod}.{key}": name for name, (mod, key), _, _ in KERNELS}
+    per = MAIN_PATHS[1][2]
+    for rec in ranks:
+        rs = sum(len(e["step_losses"]) for e in rec["epochs"])
+        vals = len(rec["epochs"])
+        got = {keys[k]: v for k, v in rec["launches"].items()}
+        for k, v in got.items():
+            total[k] += v
+        want = {n: c * (rs + (vals if n in ("cold_attention_rowmax",
+                                            "cold_attention_terms") else 0))
+                for n, c in per.items()}
+        log(f"grid gat rank {rec['rank']} K3/K4 launches "
+            f"{ {n: got.get(n, 0) for n in per} }, expected {want} "
+            f"({rs} steps, {vals} val pass)")
+        if any(got.get(n, 0) != v for n, v in want.items()):
+            fail(f"grid gat rank {rec['rank']}: K3/K4 launches do not add "
+                 f"up")
+    return total
+
+
 def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": int(launches),
@@ -1497,9 +1839,11 @@ def main() -> int:
         log(f"phase 4 (agreements): {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         counts = dict.fromkeys((k[0] for k in KERNELS), 0)
+        main_recs = {}
         for label, argv, per_step in MAIN_PATHS:
-            for name, n in run_main_path(save_dir, label, argv,
-                                         per_step).items():
+            got, main_recs[label] = run_main_path(save_dir, label, argv,
+                                                  per_step)
+            for name, n in got.items():
                 counts[name] += n
         for name, n in run_probe_path(save_dir, device).items():
             counts[name] += n
@@ -1515,6 +1859,13 @@ def main() -> int:
         for name, n in run_dp_main_path(save_dir).items():
             counts[name] += n
         log(f"phase 7 (two ranks on one card): "
+            f"{time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        check_grid_small(save_dir)
+        for run in (run_grid_main_path, run_grid_gat):
+            for name, n in run(save_dir, main_recs).items():
+                counts[name] += n
+        log(f"phase 8 (the part-sharded grid on one card): "
             f"{time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)

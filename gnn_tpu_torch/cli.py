@@ -34,11 +34,25 @@ share a card (the collectives go through gloo); on ``cpu`` gloo. Each
 rank clips its own gradient, the clipped gradients are summed, and
 every rank steps the same Adam. ``--feature_cache`` keeps on each rank
 only its placement buffer of the feature table and fetches the other
-input rows from peers and from host RAM. Rank 0 alone prints, writes
-``metrics.jsonl`` and checkpoints; every rank writes ``rank{r}.json``
-(its step losses and times, parameter digests, feature-cache shares and
-kernel launches) into ``--save_dir``. Flags whose paths are not ported
-yet raise ``NotImplementedError`` naming their ROADMAP item.
+input rows from peers and from host RAM.
+
+``--resident_parts P`` (with ``--adj_format resident`` and an explicit
+``--n_devices``) trains a grid of ``n_devices`` data ranks x ``P`` part
+ranks, ``n_devices * P`` processes: the resident state (slot table,
+rank-1 factors, the hot blocks by slot columns) is sharded over the P
+part ranks of each data rank, which sample one batch together, and so
+is the feature table (``PartShardedFeatures``), or, with
+``--feature_cache``, the placement's P buffers (``PartCachedFeatures``;
+the placement then spreads over P buffers, not over the data ranks).
+Under NCCL the grid needs a card a rank; ``--dist_backend gloo`` lets
+its ranks share cards.
+
+Rank 0 alone prints, writes ``metrics.jsonl`` and checkpoints; every
+rank writes ``rank{r}.json`` (its step losses and times, parameter
+digests, bytes summed over its part group, feature-source shares, the
+resident state's device bytes, its peak device memory after set-up and
+its kernel launches) into ``--save_dir``. ``--steps_per_dispatch > 1``
+raises ``NotImplementedError``, by decision.
 """
 from __future__ import annotations
 
@@ -106,8 +120,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="hot-subgraph size (top-K nodes by sample_prob) "
                         "for --adj_format hot / resident")
     p.add_argument("--resident_parts", type=int, default=0,
-                   help="shard the resident state over this many "
-                        "devices (not ported yet)")
+                   help="shard the resident state (and the features) over "
+                        "this many part ranks per data rank: a grid of "
+                        "n_devices x resident_parts ranks")
     p.add_argument("--norm", type=str, default="row",
                    choices=["row", "sym"],
                    help="graph normalization: 'row' = D^-1 A, 'sym' = "
@@ -165,17 +180,25 @@ def resolve_training_defaults(args, steps_per_epoch: int = 10**9) -> int:
 
 def _check_ported(args) -> None:
     """Raise NotImplementedError for flags whose paths are not ported."""
-    todo = [
-        (args.resident_parts > 1, "--resident_parts",
-         "multi-device, the part-sharded resident graph and caches"),
-        (args.steps_per_dispatch > 1, "--steps_per_dispatch > 1",
-         "decision: no scan dispatch in eager PyTorch"),
-    ]
-    for hit, flag, item in todo:
-        if hit:
-            raise NotImplementedError(
-                f"{flag} is not ported to gnn_tpu_torch yet (ROADMAP: "
-                f"{item})")
+    if args.steps_per_dispatch > 1:
+        raise NotImplementedError(
+            "--steps_per_dispatch > 1 is not ported to gnn_tpu_torch "
+            "(ROADMAP: decision: no scan dispatch in eager PyTorch)")
+
+
+def grid_parts(args) -> int:
+    """The part ranks per data rank (1 without ``--resident_parts``).
+    Refuses what the grid cannot run, as the JAX CLI does: the resident
+    format only, and a data-rank count given (the JAX package's
+    ``make_hybrid_mesh`` asserts on the default)."""
+    if args.resident_parts <= 1:
+        return 1
+    if args.adj_format != "resident":
+        raise SystemExit("--resident_parts needs --adj_format resident")
+    if args.n_devices <= 0:
+        raise SystemExit("--resident_parts P trains n_devices x P ranks: "
+                         "give the data ranks with --n_devices")
+    return args.resident_parts
 
 
 def resolve_adj_format(args) -> None:
@@ -193,19 +216,21 @@ def resolve_adj_format(args) -> None:
 
 
 def world_size(args) -> int:
-    """``--n_devices``, where 0 means every visible card on ``cuda`` and
-    one rank on ``cpu``."""
+    """``--n_devices`` times the part ranks, where ``--n_devices 0``
+    means every visible card on ``cuda`` and one rank on ``cpu``."""
     if args.n_devices > 0:
-        return args.n_devices
+        return args.n_devices * grid_parts(args)
     import torch
     return torch.cuda.device_count() if args.device.startswith("cuda") \
         else 1
 
 
-def _setup(args, orders, n_devices, device, say):
-    """Graph, Laplacian, placement, hot block and resident graph. The
-    placement, the sample probabilities and the hot block are cached in
-    ``--save_dir`` (reference ``preprocess.py:317``)."""
+def _setup(args, orders, n_devices, device, say, part=None):
+    """Graph, Laplacian, placement (over ``n_devices`` buffers), hot
+    block and resident graph. The placement, the sample probabilities
+    and the hot block's COO are cached in ``--save_dir`` (reference
+    ``preprocess.py:317``). With a ``part`` of several ranks only its
+    slot-column shards of the blocks are built on ``device``."""
     import numpy as np
     import torch
 
@@ -230,7 +255,8 @@ def _setup(args, orders, n_devices, device, say):
     hot_spec = hot_dense = resident_graph = None
     if args.adj_format in ("hot", "resident"):
         from gnn_tpu_torch.ops.hotdense import (HotSpec,
-                                                build_hot_dense_cached)
+                                                build_hot_dense_cached,
+                                                build_hot_dense_shard)
         from gnn_tpu_torch.placement.engine import compute_sample_prob
         os.makedirs(args.save_dir, exist_ok=True)
         dsname = args.dataset.replace("/", "_").replace(":", "_")
@@ -244,15 +270,20 @@ def _setup(args, orders, n_devices, device, say):
             np.save(prob_path, prob)
         hot_spec = HotSpec.from_sample_prob(prob, args.hot_k)
         bf16 = args.hot_dtype == "bfloat16"
-        dense, dense_t = build_hot_dense_cached(
-            lap, hot_spec, dtype=torch.bfloat16 if bf16 else torch.float32,
-            device=device,
-            cache_path=os.path.join(
-                args.save_dir, f"{dsname}.hotcoo.L{depth}"
-                f".K{args.hot_k}.npz"))
+        kw = dict(dtype=torch.bfloat16 if bf16 else torch.float32,
+                  device=device, cache_path=os.path.join(
+                      args.save_dir, f"{dsname}.hotcoo.L{depth}"
+                      f".K{args.hot_k}.npz"))
+        if part is not None and part.size > 1:
+            dense, dense_t = build_hot_dense_shard(lap, hot_spec, part.rank,
+                                                   part.size, **kw)
+        else:
+            dense, dense_t = build_hot_dense_cached(lap, hot_spec, **kw)
         say(f"hot block: K={hot_spec.k} "
             f"({2 * dense.numel() * dense.element_size() / 2**20:.0f} "
-            f"MiB resident incl. transpose)")
+            f"MiB resident incl. transpose"
+            + (f", a part's {dense.shape[1]} columns" if part is not None
+               and part.size > 1 else "") + ")")
         if args.adj_format == "resident":
             from gnn_tpu_torch.ops.residentgraph import build_resident_graph
             resident_graph = build_resident_graph(
@@ -274,6 +305,8 @@ def train(args, ctx=None):
     from gnn_tpu_torch.models.gnn import build_model
     from gnn_tpu_torch.parallel.dist import DistContext
     from gnn_tpu_torch.parallel.feature_cache import (CachedFeatures,
+                                                      PartCachedFeatures,
+                                                      PartShardedFeatures,
                                                       ReplicatedFeatures)
     from gnn_tpu_torch.placement.engine import get_per_rank_skewed_nodes
     from gnn_tpu_torch.sampling.ladies import SamplerConfig
@@ -283,8 +316,13 @@ def train(args, ctx=None):
 
     resolve_adj_format(args)
     _check_ported(args)
+    parts = grid_parts(args)
     if ctx is None:
         ctx = DistContext(device=resolve_device(args.device))
+    if ctx.parts != parts:
+        raise ValueError(f"--resident_parts {args.resident_parts} needs a "
+                         f"grid of {parts} part ranks; this rank's has "
+                         f"{ctx.parts}")
     device = ctx.device
     main = ctx.is_main
 
@@ -293,17 +331,21 @@ def train(args, ctx=None):
             print(*msg, flush=True)
 
     orders = tuple(int(t) for t in args.orders.split(","))
-    n_devices = ctx.world_size
+    n_devices = ctx.dp
+    composed = parts > 1 and args.feature_cache
+    # the composed cache spreads the placement over the part ranks
+    placement_devs = parts if composed else n_devices
+    part = ctx.part if parts > 1 else None
     # set-up once: rank 0 builds the caches in --save_dir (and the
     # kernels), the other ranks load them after the barrier
     if main:
-        if n_devices > 1 and device.type == "cuda":
+        if ctx.world_size > 1 and device.type == "cuda":
             from gnn_tpu_torch.ops import cuda_build
             cuda_build.build_all()
-        setup = _setup(args, orders, n_devices, device, say)
+        setup = _setup(args, orders, placement_devs, device, say, part)
     ctx.barrier()
     if not main:
-        setup = _setup(args, orders, n_devices, device, say)
+        setup = _setup(args, orders, placement_devs, device, say, part)
     graph, lap, placement, hot_spec, hot_dense, resident_graph = setup
     n = graph.adj_full.shape[0]
 
@@ -331,14 +373,20 @@ def train(args, ctx=None):
     pipe = BatchPipeline(cfg, lap, graph.labels, pool_num=args.pool_num,
                          per_rank_skew=per_rank_skew,
                          local_shuffle=args.local_shuffle, seed=args.seed,
-                         world_size=n_devices, rank=ctx.rank)
+                         world_size=n_devices, rank=ctx.data_rank)
     net = build_model(args.model, args.nhid, orders, graph.num_classes,
                       n_feats=graph.feats.shape[1], seed=args.seed)
     feat_dtype = (torch.bfloat16 if args.feat_dtype == "bfloat16"
                   else torch.float32)
-    if args.feature_cache:
+    if composed:
+        source = PartCachedFeatures(graph.feats, placement, ctx.part,
+                                    dtype=feat_dtype, device=device)
+    elif args.feature_cache:
         source = CachedFeatures(graph.feats, placement, ctx,
                                 dtype=feat_dtype)
+    elif parts > 1:
+        source = PartShardedFeatures(graph.feats, ctx.part,
+                                     dtype=feat_dtype, device=device)
     else:
         source = ReplicatedFeatures(graph.feats, device=device,
                                     dtype=feat_dtype)
@@ -348,7 +396,10 @@ def train(args, ctx=None):
     trainer = Trainer(net, pipe, graph.feats, lr=args.lr,
                       sigmoid_loss=args.sigmoid_loss, seed=args.seed,
                       feature_source=source, resident_graph=resident_graph,
-                      hot_dense=hot_dense, lr_warmup=lr_warmup, dist=ctx)
+                      hot_dense=hot_dense, lr_warmup=lr_warmup, dist=ctx,
+                      resident_parts=args.resident_parts)
+    setup_peak = (torch.cuda.max_memory_allocated(device)
+                  if device.type == "cuda" else 0)
     rank_chunks = None
     if args.local_shuffle and args.pagraph:
         rank_chunks = placement.train_nodes_per_dev
@@ -368,17 +419,19 @@ def train(args, ctx=None):
             say("Test f1 score: %.3f" % f1)
     finally:
         pipe.close()
-    if n_devices > 1:
-        _write_rank_record(args.save_dir, trainer, train_cache,
-                           getattr(source, "row_bytes", 0))
+    _write_rank_record(args.save_dir, trainer, train_cache,
+                       getattr(source, "row_bytes", 0), setup_peak)
     return trainer, graph
 
 
-def _write_rank_record(save_dir, trainer, cache_stats, row_bytes) -> None:
-    """``rank{r}.json`` in ``save_dir``: this rank's epochs (step losses,
-    step seconds, parameter digest), the feature cache's row counts over
-    the training batches, the test sweep's batches, and every kernel's
-    launches in this process."""
+def _write_rank_record(save_dir, trainer, cache_stats, row_bytes,
+                       setup_peak) -> None:
+    """``rank{r}.json`` in ``save_dir``: this rank's place on the grid,
+    its epochs (step losses, step seconds, parameter digest, bytes summed
+    over the part group), the feature source's row counts over the
+    batches it planned before the test sweep, the test sweep's batches,
+    the resident state's and the features' device bytes, the peak device
+    memory after set-up, and every kernel's launches in this process."""
     import importlib
     import json
 
@@ -388,13 +441,18 @@ def _write_rank_record(save_dir, trainer, cache_stats, row_bytes) -> None:
         counter = importlib.import_module(f"gnn_tpu_torch.ops.{mod}").launches
         launches.update({f"{mod}.{k}": v for k, v in counter.items()})
     rec = {"rank": ctx.rank, "world_size": ctx.world_size,
+           "data_rank": ctx.data_rank, "part_rank": ctx.part_rank,
+           "parts": ctx.parts,
            "device": str(ctx.device), "backend": ctx.backend,
            "epochs": [{"epoch": m.epoch, "step_losses": m.step_losses,
                        "step_times": m.step_times,
                        "param_digest": m.param_digest,
+                       "part_bytes": m.part_bytes,
                        "communication_s": m.communication_time}
                       for m in trainer.history],
            "cache": {**cache_stats, "row_bytes": row_bytes},
+           "state_bytes": trainer.state_bytes(),
+           "setup_max_memory": setup_peak,
            "test_batches": trainer.test_batches, "launches": launches}
     with open(os.path.join(save_dir, f"rank{ctx.rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -410,7 +468,7 @@ def _rank_entry(rank, rdv, args, backend) -> None:
         # the ranks share the host's cores
         torch.set_num_threads(max(1, torch.get_num_threads()
                                   // rdv.world_size))
-    ctx = init_dist(rank, rdv, device_type, backend)
+    ctx = init_dist(rank, rdv, device_type, backend, grid_parts(args))
     try:
         train(args, ctx)
     finally:
@@ -422,17 +480,20 @@ def main(argv=None) -> int:
     print(args, flush=True)
     resolve_adj_format(args)
     _check_ported(args)
+    parts = grid_parts(args)
     import torch
 
     from gnn_tpu_torch.parallel import dist
     device_type = torch.device(args.device).type
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         # started by torchrun: join its group
-        if args.n_devices not in (0, int(os.environ["WORLD_SIZE"])):
-            raise SystemExit(f"--n_devices {args.n_devices} under "
-                             f"torchrun with WORLD_SIZE "
-                             f"{os.environ['WORLD_SIZE']}")
-        ctx = dist.init_dist_from_env(device_type, args.dist_backend)
+        if args.n_devices not in (0, int(os.environ["WORLD_SIZE"])
+                                  // parts):
+            raise SystemExit(f"--n_devices {args.n_devices} x "
+                             f"--resident_parts {parts} under torchrun "
+                             f"with WORLD_SIZE {os.environ['WORLD_SIZE']}")
+        ctx = dist.init_dist_from_env(device_type, args.dist_backend,
+                                      parts)
         try:
             train(args, ctx)
         finally:

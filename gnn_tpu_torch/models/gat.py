@@ -26,9 +26,30 @@ Three device strategies:
 ``_TILE_MASK_LIMIT`` floats. Both routes take a value-carrying
 :class:`~gnn_tpu_torch.ops.sparse.COOAdj`, the pattern-only
 :class:`~gnn_tpu_torch.ops.sparse.PatternAdj` or a
-:class:`~gnn_tpu_torch.ops.sparse.BlockedAdj`. The part-sharded resident
-graph is not ported yet and raises ``NotImplementedError`` naming its
-ROADMAP item.
+:class:`~gnn_tpu_torch.ops.sparse.BlockedAdj`.
+
+On the part-sharded resident graph (``adj.part_axis`` set,
+``--resident_parts P``) each part holds a slot-column shard of the block
+and masks its hot scores to the columns it owns. The softmax terms then
+combine over the part group, as the JAX package's ``_psum_terms`` and
+``pmax`` do:
+
+* the row max is a MAX over the part group of a score pass run without
+  gradient (``part_max_``): it is only a shift, so no gradient flows
+  through it;
+* the hot terms (``den``, ``num``) go through :class:`_PartSumTerms`, an
+  ``autograd.Function`` whose forward sums each part's partial terms over
+  the part group and whose backward runs the local VJP and then sums the
+  input cotangents over the part group, so every part holds the whole
+  gradient. An in-place ``all_reduce`` alone would be invisible to
+  autograd (each part would keep the gradient of its own columns only);
+  ``torch.distributed.nn``'s differentiable all-reduce would sum the
+  output cotangent, already equal on every part, and multiply the
+  gradient by P;
+* the cold residual: with stream tiles (K3/K4) it is replicated across
+  the parts and summed by nobody; a cold COO from sharded full expansion
+  (``adj.cold_partial``) holds only this part's rows, so its row max and
+  terms combine like the hot ones.
 """
 from __future__ import annotations
 
@@ -45,6 +66,7 @@ from gnn_tpu_torch.ops.hotdense import HotDenseAdj, _take_rows_fill
 from gnn_tpu_torch.ops.sddmm import stream_sddmm
 from gnn_tpu_torch.ops.sparse import BlockedAdj, PatternAdj
 from gnn_tpu_torch.ops.spmm import StreamBlocks, stream_spmm
+from gnn_tpu_torch.parallel.dist import part_max_, part_sum_
 
 # Per-edge chunk width of the per-edge routes: bounds the [chunk, n_out]
 # gather temporaries (the JAX package's lax.scan chunk)
@@ -55,8 +77,6 @@ _EDGE_CHUNK = 131_072
 _TILE_MASK_LIMIT = 64 * 1024 * 1024
 
 _NEG_INF = float("-inf")
-_SHARDED = ("part-sharded resident attention is not ported yet (ROADMAP "
-            "queue 3: multi-device over torch.distributed)")
 
 
 def _scale(d: int) -> float:
@@ -259,15 +279,46 @@ def tile_attention_aggregate(adj, q_pad, k, v, n_heads: int, bm: int = 128,
     return heads[0] if H == 1 else torch.cat(heads, dim=1)
 
 
+class _PartSumTerms(torch.autograd.Function):
+    """``fn(*args)`` summed over the part group; backward, the local VJP
+    of ``fn`` with its input cotangents summed over the part group (the
+    JAX package's ``_psum_terms``). Every part calls it alike, so the
+    backward's one collective meets the other parts'."""
+
+    @staticmethod
+    def forward(ctx, part, fn, *args):
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_(a.requires_grad)
+                      for a in args]
+            outs = fn(*leaves)
+        ctx.part, ctx.leaves, ctx.outs = part, leaves, outs
+        summed = [o.detach().clone() for o in outs]
+        part_sum_(summed, part)
+        return tuple(summed)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        want = [i for i, a in enumerate(ctx.leaves) if a.requires_grad]
+        got = torch.autograd.grad(ctx.outs, [ctx.leaves[i] for i in want],
+                                  gouts, allow_unused=True)
+        grads = [torch.zeros_like(ctx.leaves[i]) if g is None
+                 else g.contiguous() for i, g in zip(want, got)]
+        part_sum_(grads, ctx.part)
+        out = [None] * len(ctx.leaves)
+        for i, g in zip(want, grads):
+            out[i] = g
+        return (None, None, *out)
+
+
 def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
     """Hot-block attention on a resident layer: the batch's hot-hot edges
     as dense ``[H, rh, ch]`` scores over the batch-present compacted
     slots, the cold residual through K3/K4 (stream tiles, ``adj.es_rc``
     set), the per-edge route (cold COO) or nothing (no cold edge); one
-    row-wise softmax spans both parts."""
-    if getattr(adj, "part_axis", None) is not None or getattr(
-            adj, "cold_partial", False):
-        raise NotImplementedError(_SHARDED)
+    row-wise softmax spans both parts. On a part's shard of the block
+    (``adj.part_axis``) the terms combine over the part group (module
+    docstring)."""
+    part = adj.part_axis
     H = n_heads
     n_out = k.shape[1]
     d = n_out // H
@@ -275,6 +326,9 @@ def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
     dev = k.device
     use_es = adj.es_rc is not None
     cold_empty = (not use_es) and adj.rows.shape[0] == 0
+    if use_es and adj.cold_partial:
+        raise ValueError("stream tiles are replicated across parts (lite "
+                         "mode); a partial cold residual comes as a COO")
 
     # --- hot part: compacted [rh, ch] dense scores ---
     sentinel = 1 << 30
@@ -288,9 +342,15 @@ def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
     n_hot_c = (adj.col_cmp_idx != sentinel).sum()
     row_ok = torch.arange(rh, device=dev) < n_hot_r
     col_ok = torch.arange(ch, device=dev) < n_hot_c
-    d_sub = adj.dense.index_select(0, adj.present_row_slots.long()
-                                   ).index_select(1, adj.present_col_slots
-                                                  .long())
+    d_rows = adj.dense.index_select(0, adj.present_row_slots.long())
+    if part is not None:
+        # this part's slot columns only
+        ksh = adj.dense.shape[1]
+        pcs_loc = adj.present_col_slots.long() - part.rank * ksh
+        col_ok = col_ok & (pcs_loc >= 0) & (pcs_loc < ksh)
+        d_sub = d_rows.index_select(1, pcs_loc.clamp(0, ksh - 1))
+    else:
+        d_sub = d_rows.index_select(1, adj.present_col_slots.long())
     mask_hot = (d_sub != 0) & row_ok[:, None] & col_ok[None, :]
 
     def split(a):   # [n, n_out] -> [H, n, d]
@@ -299,12 +359,24 @@ def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
     qh = split(_take_rows_fill(q_pad, r_loc))
     kh = split(_take_rows_fill(k, c_loc))
     vh = split(_take_rows_fill(v, c_loc))
-    # ONE differentiable score matmul serves the row max (detached: the
-    # max is a softmax shift whose gradient cancels) and the terms below
-    s_hot = torch.matmul(qh, kh.transpose(1, 2)) * scale      # [H, rh, ch]
-    s_hot = torch.where(mask_hot[None], s_hot,
-                        torch.full((), _NEG_INF, device=dev))
-    m_hot = s_hot.detach().amax(dim=2)                        # [H, rh]
+
+    def hot_scores(qh_, kh_):
+        s = torch.matmul(qh_, kh_.transpose(1, 2)) * scale    # [H, rh, ch]
+        return torch.where(mask_hot[None], s,
+                           torch.full((), _NEG_INF, device=dev))
+
+    if part is not None:
+        # the row max crosses the parts: a score pass without gradient,
+        # its max taken over the part group; the differentiable scores
+        # are recomputed inside the terms below
+        with torch.no_grad():
+            m_hot = hot_scores(qh, kh).amax(dim=2).contiguous()
+        part_max_(m_hot, part)
+    else:
+        # ONE differentiable score matmul serves the row max (detached:
+        # the max is a softmax shift whose gradient cancels) and the terms
+        s_hot = hot_scores(qh, kh)
+        m_hot = s_hot.detach().amax(dim=2)                    # [H, rh]
 
     # --- cold residual, pass 1: per-row score max ---
     if use_es:
@@ -321,8 +393,14 @@ def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
     else:
         rows_c, cols_c = adj.rows.long(), adj.cols.long()
         live = adj.vals.float() != 0   # pads ship exactly 0
-        s_cold = _edge_scores(q_pad, k, rows_c, cols_c, live, H, scale)
+        # a partial COO's terms recompute their scores inside the Function
+        # below, so its score pass here serves the max alone
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not adj.cold_partial):
+            s_cold = _edge_scores(q_pad, k, rows_c, cols_c, live, H, scale)
         m_cold = _segment_max(s_cold.detach(), rows_c, adj.nrows)
+        if adj.cold_partial:
+            part_max_(m_cold, part)
 
     # --- one softmax across both parts ---
     m_hot_rows = _take_rows_fill(m_hot.t(), adj.row_cmp_idx,
@@ -331,11 +409,19 @@ def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
     row_max = torch.where(torch.isfinite(row_max), row_max,
                           torch.zeros((), device=dev)).detach()
     rm_cmp = _take_rows_fill(row_max, r_loc)                  # [rh, H]
-    # s_hot is -inf wherever masked BEFORE the exp: a masked entry's raw
-    # s - rm could overflow, and its exp gradient would be 0 * inf = NaN
-    e_hot = torch.exp(s_hot - rm_cmp.t()[:, :, None])
-    den_hot = e_hot.sum(dim=2)                                # [H, rh]
-    num_hot = torch.matmul(e_hot, vh)                         # [H, rh, d]
+
+    def hot_terms(s, vh_):
+        # s is -inf wherever masked BEFORE the exp: a masked entry's raw
+        # s - rm could overflow, and its exp gradient would be 0 * inf
+        e = torch.exp(s - rm_cmp.t()[:, :, None])
+        return e.sum(dim=2), torch.matmul(e, vh_)   # [H, rh], [H, rh, d]
+
+    if part is not None:
+        den_hot, num_hot = _PartSumTerms.apply(
+            part, lambda q_, k_, v_: hot_terms(hot_scores(q_, k_), v_),
+            qh, kh, vh)
+    else:
+        den_hot, num_hot = hot_terms(s_hot, vh)
 
     # --- cold pass 2: softmax denominators + aggregation ---
     if use_es:
@@ -346,10 +432,19 @@ def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
         den_cold = torch.zeros((adj.nrows, H), device=dev)
         num_cold = torch.zeros((adj.nrows, n_out), device=dev)
     else:
-        att = (torch.exp(s_cold - _take_rows_fill(row_max, rows_c))
-               * live[:, None])                               # [nnz, H]
-        den_cold = att.new_zeros((adj.nrows, H)).index_add(0, rows_c, att)
-        num_cold = _edge_aggregate(att, rows_c, cols_c, v, adj.nrows, H)
+        def cold_terms(s_c, v_):
+            att = (torch.exp(s_c - _take_rows_fill(row_max, rows_c))
+                   * live[:, None])                           # [nnz, H]
+            return (att.new_zeros((adj.nrows, H)).index_add(0, rows_c, att),
+                    _edge_aggregate(att, rows_c, cols_c, v_, adj.nrows, H))
+
+        if adj.cold_partial:
+            den_cold, num_cold = _PartSumTerms.apply(
+                part, lambda q_, k_, v_: cold_terms(_edge_scores(
+                    q_, k_, rows_c, cols_c, live, H, scale), v_),
+                q_pad, k, v)
+        else:
+            den_cold, num_cold = cold_terms(s_cold, v)
     num_cold = num_cold.to(v.dtype)
 
     den = _take_rows_fill(den_hot.t(), adj.row_cmp_idx) + den_cold

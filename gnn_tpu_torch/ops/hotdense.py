@@ -12,6 +12,25 @@ resident on the device. Each sampled layer splits into
     cold:   the residual edges, through the edge-stream CUDA kernel
             (`gnn_tpu_torch.ops.edgestream`) or a COO ``index_add_``
 
+On the part-sharded resident graph (``--resident_parts P``,
+`gnn_tpu_torch.parallel.shardedresident`) ``dense`` / ``dense_t`` are
+this rank's slot-column shards ``[k, k/P]`` and the layer carries its
+part group (``part_axis``, the JAX field's name): the D-part gathers and
+contracts only the local slot range (``colpos``, ``nfh``, ``rowpos``
+sliced to it) and one sum over the part group restores the ``[rh, F]``
+product, in :func:`hot_block_forward` and in :func:`hot_block_transpose`
+alike. ``_SpMM``'s backward runs
+:func:`hot_transpose`, so the backward needs no Function of its own:
+its cotangent is the same on every part (every part computed the same
+forward), each part's transposed partial covers its own slot columns,
+and the sum is the whole ``A^T @ g``. (An in-place sum outside the
+forward and transposed products would be invisible to autograd and
+leave each part a partial gradient; the autograd-aware all-reduce of
+``torch.distributed.nn`` would sum the already-equal cotangents and
+multiply the gradient by P.) With ``cold_partial`` (sharded full
+expansion) each part's cold COO holds only the rows it owns, and the
+cold product is summed over the part group too.
+
 Two ways to feed it: the resident rebuild
 (`gnn_tpu_torch.ops.residentgraph`) derives each layer on the device,
 and ``adj_format="hot"`` packs each layer on the host
@@ -37,6 +56,7 @@ import scipy.sparse as sp
 import torch
 
 from gnn_tpu_torch.ops import sparse as sparse_ops
+from gnn_tpu_torch.parallel.dist import PartGroup, part_sum_
 
 
 def _round_up(x: int, m: int) -> int:
@@ -81,18 +101,15 @@ def build_hot_dense(lap: sp.csr_matrix, spec: HotSpec,
     return _densify(spec.k, sub.row, sub.col, sub.data, dtype, device)
 
 
-def build_hot_dense_cached(lap: sp.csr_matrix, spec: HotSpec,
-                           dtype=torch.float32, device="cpu",
-                           cache_path: Optional[str] = None
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`build_hot_dense` with the CSR double slice ``lap[H][:, H]``
-    cached on disk as COO (validated against the exact hot node set)."""
+def hot_coo_cached(lap: sp.csr_matrix, spec: HotSpec,
+                   cache_path: Optional[str] = None):
+    """``(rows, cols, vals)`` of the CSR double slice ``lap[H][:, H]``,
+    cached on disk (validated against the exact hot node set)."""
     if cache_path and os.path.exists(cache_path):
         try:
             z = np.load(cache_path)
             if np.array_equal(z["hot_nodes"], spec.hot_nodes):
-                return _densify(spec.k, z["rows"], z["cols"], z["vals"],
-                                dtype, device)
+                return z["rows"], z["cols"], z["vals"]
         except (OSError, ValueError, KeyError) as e:
             print(f"hot cache {cache_path} unusable ({e}); rebuilding",
                   flush=True)
@@ -105,7 +122,44 @@ def build_hot_dense_cached(lap: sp.csr_matrix, spec: HotSpec,
                      cols=sub.col.astype(np.int32),
                      vals=sub.data.astype(np.float32))
         os.replace(tmp, cache_path)
-    return _densify(spec.k, sub.row, sub.col, sub.data, dtype, device)
+    return sub.row, sub.col, sub.data
+
+
+def build_hot_dense_cached(lap: sp.csr_matrix, spec: HotSpec,
+                           dtype=torch.float32, device="cpu",
+                           cache_path: Optional[str] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`build_hot_dense` with the slice cached (:func:`hot_coo_cached`)."""
+    return _densify(spec.k, *hot_coo_cached(lap, spec, cache_path), dtype,
+                    device)
+
+
+def build_hot_dense_shard(lap: sp.csr_matrix, spec: HotSpec, part_rank: int,
+                          n_parts: int, dtype=torch.float32, device="cpu",
+                          cache_path: Optional[str] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Part ``part_rank``'s slot-column shards of the blocks,
+    ``D[:, lo:hi]`` and ``D^T[:, lo:hi]`` (``= D[lo:hi, :]^T``), each
+    ``[k, k / n_parts]``, built on ``device`` from the cached COO:
+    nothing ``[k, k]`` is made there."""
+    k = spec.k
+    if k % n_parts:
+        raise ValueError(f"hot slot count k={k} (a multiple of 128) "
+                         f"must divide by n_parts={n_parts}")
+    ksh = k // n_parts
+    lo = part_rank * ksh
+    rows, cols, vals = (np.asarray(a) for a in
+                        hot_coo_cached(lap, spec, cache_path))
+    vals = np.asarray(vals, np.float32)
+
+    def block(r, c, sel):
+        d = torch.zeros((k, ksh), dtype=dtype, device=device)
+        d[torch.as_tensor(r[sel], dtype=torch.long, device=device),
+          torch.as_tensor(c[sel] - lo, dtype=torch.long, device=device)] = \
+            torch.as_tensor(vals[sel], device=device).to(dtype)
+        return d
+    return (block(rows, cols, (cols >= lo) & (cols < lo + ksh)),
+            block(cols, rows, (rows >= lo) & (rows < lo + ksh)))
 
 
 @dataclasses.dataclass
@@ -153,6 +207,12 @@ class HotDenseAdj:
     es_nf: Optional[torch.Tensor] = None      # f32 [ncols] col factors
     es_bm: int = 128
     es_bk: int = 0
+    # part-sharded resident state: ``dense`` / ``dense_t`` are this
+    # part's [k, k/P] slot-column shards and the hot products sum over
+    # the part group; ``cold_partial``: the cold COO holds only this
+    # part's rows (sharded full expansion) and its product sums too
+    part_axis: Optional[PartGroup] = None
+    cold_partial: bool = False
 
     @property
     def shape(self):
@@ -295,21 +355,38 @@ def _hot_mm(d_rows: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return d_rows.float() @ b.float()
 
 
+def _slot_range(adj: HotDenseAdj, block: torch.Tensor, *tables):
+    """``tables`` cut to this part's slot range (the block's columns);
+    whole where the block is not sharded."""
+    if adj.part_axis is None:
+        return tables
+    ksh = block.shape[1]
+    lo = adj.part_axis.rank * ksh
+    return tuple(t[lo:lo + ksh] for t in tables)
+
+
 def hot_block_forward(adj: HotDenseAdj, dense: torch.Tensor,
                       x: torch.Tensor) -> torch.Tensor:
-    """The resident-block half of ``A @ x`` (no cold residual)."""
-    xh = _take_rows_fill(x, adj.colpos) * adj.nfh[:, None].to(x.dtype)
+    """The resident-block half of ``A @ x`` (no cold residual); on a
+    sharded block, this part's slot range and one sum over the part
+    group."""
+    colpos, nfh = _slot_range(adj, dense, adj.colpos, adj.nfh)
+    xh = _take_rows_fill(x, colpos) * nfh[:, None].to(x.dtype)
     d_rows = dense.index_select(0, adj.present_row_slots.long())
     yh_c = _hot_mm(d_rows, xh)
+    part_sum_([yh_c], adj.part_axis)
     return _take_rows_fill(yh_c, adj.row_cmp_idx).to(x.dtype)
 
 
 def hot_block_transpose(adj: HotDenseAdj, dense_t: torch.Tensor,
                         g: torch.Tensor) -> torch.Tensor:
-    """The resident-block half of ``A^T @ g`` (no cold residual)."""
-    gh = _take_rows_fill(g, adj.rowpos)
+    """The resident-block half of ``A^T @ g`` (no cold residual),
+    symmetric to :func:`hot_block_forward`."""
+    rowpos, = _slot_range(adj, dense_t, adj.rowpos)
+    gh = _take_rows_fill(g, rowpos)
     dt_rows = dense_t.index_select(0, adj.present_col_slots.long())
     dh_c = _hot_mm(dt_rows, gh)
+    part_sum_([dh_c], adj.part_axis)
     dx_hot = _take_rows_fill(dh_c, adj.col_cmp_idx)
     return (dx_hot * adj.nf_col[:, None]).to(g.dtype)
 
@@ -336,6 +413,9 @@ def hot_forward(adj: HotDenseAdj, x: torch.Tensor) -> torch.Tensor:
     else:
         y = sparse_ops._coo_aggregate(adj.rows, adj.cols, adj.vals, x,
                                       adj.nrows)
+    if adj.cold_partial:
+        # each part aggregated only the cold edges of the rows it owns
+        part_sum_([y], adj.part_axis)
     return y + hot_block_forward(adj, adj.dense, x)
 
 
@@ -347,4 +427,6 @@ def hot_transpose(adj: HotDenseAdj, g: torch.Tensor) -> torch.Tensor:
     else:
         dx = sparse_ops._coo_aggregate(adj.cols_t, adj.rows_t, adj.vals_t,
                                        g, adj.ncols)
+    if adj.cold_partial:
+        part_sum_([dx], adj.part_axis)
     return dx + hot_block_transpose(adj, adj.dense_t, g)

@@ -13,8 +13,15 @@ Three payloads: the default "lite" mode's edge-stream tile payload
 (packed coords for the CUDA kernel) and its forward cold COO, and full
 expansion (``ship_cold=False``), where nothing per-edge ships and the
 device rebuilds the cold COO from the resident CSR by span expansion,
-column filter, hot/cold split and compaction. The part-sharded resident
-graph waits (ROADMAP queue 3).
+column filter, hot/cold split and compaction.
+
+The rebuild runs as well on one part's shard of the state
+(`gnn_tpu_torch.parallel.shardedresident.ShardedResidentGraph`, which
+answers the same lookups with a sum over the part group): the layers it
+yields carry the part, and in full expansion each part expands only the
+CSR rows it owns and marks the layer ``cold_partial``. A layer's slots
+of its rows and columns come from one lookup (one collective on a
+shard).
 
 PyTorch has no counterpart of JAX's out-of-range index modes, so they
 are spelled out: ``mode="fill"`` lookups index a table with one extra
@@ -62,6 +69,14 @@ class ResidentGraph:
                       "row_val", "col_val", "dense", "dense_t")}
         return ResidentGraph(**t, n=int(host["n"]), k=int(host["k"]),
                              col_trivial=bool(host["col_trivial"]))
+
+    def state_bytes(self) -> dict:
+        """Bytes of each resident tensor on the device."""
+        out = {f: getattr(self, f).nbytes for f in
+               ("slot_of_node", "row_val", "col_val", "dense", "dense_t")}
+        out["csr"] = sum(t.nbytes for t in (self.row_ptr, self.col_idx,
+                                            self.val))
+        return out
 
     def slot_lookup(self, ids: torch.Tensor) -> torch.Tensor:
         """Hot slot of each global node id (-1 = cold or id == n)."""
@@ -351,26 +366,41 @@ def materialize_layer(g: ResidentGraph, ref: ResidentLayerRef,
                              torch.zeros((), device=dev))
         return _finish_layer(g, ref, rows_g, cols_g, rr.int(), cc.int(),
                              vv)
-    if getattr(g, "part_axis", None) is not None:
-        raise NotImplementedError(
-            "full expansion on a part-sharded resident graph is not ported "
-            "yet (ROADMAP queue 3: multi-device over torch.distributed)")
     return _expand_layer(g, ref, rows_g, cols_g)
+
+
+def _slots(g, rows_g, cols_g):
+    """``(row slots, col slots)`` of a layer from one lookup."""
+    both = g.slot_lookup(torch.cat([rows_g, cols_g]))
+    return both[: rows_g.shape[0]], both[rows_g.shape[0]:]
 
 
 def _expand_layer(g: ResidentGraph, ref: ResidentLayerRef, rows_g,
                   cols_g) -> HotDenseAdj:
     """Full expansion: the layer's cold COO from the resident CSR, in the
-    order the host slice emits it (row-major, ascending column)."""
+    order the host slice emits it (row-major, ascending column). On a
+    part's shard, only the rows this part owns (the others read degree
+    0), a partial COO whose product the part group sums."""
     nrows, ncols, n = ref.nrows, ref.ncols, g.n
     e_cap, nnz = ref.e_cap, ref.nnz_cold
     dev = rows_g.device
-    e_tot = g.col_idx.shape[0]
-    # the rows' CSR spans; the pad row id n reads row_ptr[n] twice
-    # (degree 0), as JAX's clipped take does
-    rp_lo = g.row_ptr.long().index_select(0, rows_g.clamp(0, n))
-    rp_hi = g.row_ptr.long().index_select(0, (rows_g + 1).clamp(0, n))
-    deg = rp_hi - rp_lo
+    sharded = getattr(g, "part", None) is not None
+    if sharded:
+        if g.row_ptr_shard is None:
+            raise ValueError(
+                "full-expansion resident mode on a part-sharded graph "
+                "needs the row-range CSR shards: build the state with "
+                "ship_csr=True (shard_resident_state)")
+        rp_lo, deg = g.csr_spans(rows_g)
+        col_src, val_src = g.col_idx_shard, g.val_shard
+    else:
+        # the rows' CSR spans; the pad row id n reads row_ptr[n] twice
+        # (degree 0), as JAX's clipped take does
+        rp_lo = g.row_ptr.long().index_select(0, rows_g.clamp(0, n))
+        rp_hi = g.row_ptr.long().index_select(0, (rows_g + 1).clamp(0, n))
+        deg = rp_hi - rp_lo
+        col_src, val_src = g.col_idx, g.val
+    e_tot = col_src.shape[0]
     starts = torch.cumsum(deg, 0) - deg
     e_used = starts[-1] + deg[-1]
     # local row of every edge slot: +1 at each row's first slot
@@ -385,9 +415,9 @@ def _expand_layer(g: ResidentGraph, ref: ResidentLayerRef, rows_g,
     # slots past the CSR read column 0 and value 0 (JAX: mode="fill")
     in_csr = (eptr >= 0) & (eptr < e_tot)
     eptr_c = eptr.clamp(0, max(e_tot - 1, 0))
-    gcol = torch.where(in_csr, g.col_idx.long().index_select(0, eptr_c),
+    gcol = torch.where(in_csr, col_src.long().index_select(0, eptr_c),
                        torch.zeros_like(eptr))
-    ev = torch.where(in_csr, g.val.float().index_select(0, eptr_c),
+    ev = torch.where(in_csr, val_src.float().index_select(0, eptr_c),
                      torch.zeros((), device=dev))
     # global -> local column table; pad columns (cols_g == n) land in the
     # extra entry n, which no edge's column reaches
@@ -398,8 +428,8 @@ def _expand_layer(g: ResidentGraph, ref: ResidentLayerRef, rows_g,
     lc_safe = torch.where(keep, lc, torch.zeros_like(lc))
     w = ev * ref.normfact.index_select(0, lc_safe)
     # hot-hot edges live in the resident block
-    r_hot = g.slot_lookup(rows_g) >= 0
-    c_hot = g.slot_lookup(cols_g) >= 0
+    slots = _slots(g, rows_g, cols_g)
+    r_hot, c_hot = (s >= 0 for s in slots)
     edge_hot = r_hot.index_select(0, lr) & c_hot.index_select(0, lc_safe)
     cold = keep & ~edge_hot
     # compact the cold edges (positions are monotone); pads sit at row
@@ -409,18 +439,21 @@ def _expand_layer(g: ResidentGraph, ref: ResidentLayerRef, rows_g,
     rr = _scatter_drop(nnz, nrows - 1, pos, lr, torch.int32, dev)
     cc = _scatter_drop(nnz, 0, pos, lc_safe, torch.int32, dev)
     vv = _scatter_drop(nnz, 0.0, pos, w, torch.float32, dev)
-    return _finish_layer(g, ref, rows_g, cols_g, rr, cc, vv)
+    return _finish_layer(g, ref, rows_g, cols_g, rr, cc, vv, slots=slots,
+                         cold_partial=sharded)
 
 
 def _finish_layer(g: ResidentGraph, ref: ResidentLayerRef, rows_g, cols_g,
-                  rr, cc, vv, es_rv=None, es_nf=None) -> HotDenseAdj:
+                  rr, cc, vv, es_rv=None, es_nf=None, slots=None,
+                  cold_partial: bool = False) -> HotDenseAdj:
     """Shared tail of the device rebuild: transpose arrays (the forward
-    ones — no col-sorted copy) + all hot-slot plumbing."""
+    ones — no col-sorted copy) + all hot-slot plumbing. ``slots``: the
+    rows' and columns' slots where the caller looked them up already."""
     nrows, ncols = ref.nrows, ref.ncols
     dev = rows_g.device
     k = g.k
-    r_slot = g.slot_lookup(rows_g)
-    c_slot = g.slot_lookup(cols_g)
+    r_slot, c_slot = slots if slots is not None else _slots(g, rows_g,
+                                                            cols_g)
     r_hot = r_slot >= 0
     c_hot = c_slot >= 0
     c_slot_safe = torch.where(c_hot, c_slot, torch.full_like(c_slot, k))
@@ -463,12 +496,13 @@ def _finish_layer(g: ResidentGraph, ref: ResidentLayerRef, rows_g, cols_g,
         col_cmp_idx=col_cmp_idx.int(),
         n_valid_rows=ref.n_valid_rows, n_valid_cols=ref.n_valid_cols,
         dense=g.dense, dense_t=g.dense_t, nrows=nrows, ncols=ncols, k=k,
-        t_sorted=False, **es_kw)
+        t_sorted=False, part_axis=getattr(g, "part", None),
+        cold_partial=cold_partial, **es_kw)
 
 
-def materialize_adjs(g: ResidentGraph, adjs, sampled_nodes,
-                     input_nodes) -> List[Optional[HotDenseAdj]]:
-    """Rebuild every resident layer of a batch. Level sets chain upward
+def layer_ids(adjs, sampled_nodes, input_nodes):
+    """Per layer, the global ids of its rows and columns (None for a
+    layer that is not a `ResidentLayerRef`). Level sets chain upward
     from the global ``input_nodes``: layer l's rows are
     ``level_l[sampled_nodes[l]]``."""
     out = []
@@ -477,9 +511,17 @@ def materialize_adjs(g: ResidentGraph, adjs, sampled_nodes,
         if isinstance(a, ResidentLayerRef):
             idx = sampled_nodes[l].long().clamp(0, level.shape[0] - 1)
             row_ids = level.index_select(0, idx)
-            out.append(materialize_layer(g, a, row_ids, level))
+            out.append((row_ids, level))
             level = row_ids
         else:
             # order-0 layer (None): the node set is unchanged
-            out.append(a)
+            out.append(None)
     return out
+
+
+def materialize_adjs(g: ResidentGraph, adjs, sampled_nodes,
+                     input_nodes) -> List[Optional[HotDenseAdj]]:
+    """Rebuild every resident layer of a batch (:func:`layer_ids`)."""
+    return [a if ids is None else materialize_layer(g, a, *ids)
+            for a, ids in zip(adjs, layer_ids(adjs, sampled_nodes,
+                                              input_nodes))]

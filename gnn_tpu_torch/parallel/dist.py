@@ -1,5 +1,7 @@
-"""Data parallelism over ``torch.distributed``: the counterpart of
-`gnn_tpu.parallel.mesh` (a mesh with one ``data`` axis).
+"""Data parallelism over ``torch.distributed``, and the ``data x part``
+grid of ranks: the counterpart of `gnn_tpu.parallel.mesh` (a mesh with
+one ``data`` axis) and of `gnn_tpu.parallel.multihost.make_hybrid_mesh`
+(the ``(data, part)`` mesh of ``--resident_parts``).
 
 One process per rank. :func:`spawn_ranks` starts ``n`` of them from one
 command (``torch.multiprocessing`` with the ``spawn`` method, a
@@ -23,9 +25,31 @@ travel on :attr:`DistContext.meta_device`, the CPU under gloo.
 A world of one rank is a :class:`DistContext` with no process group; its
 helpers return their inputs unchanged, so one device keeps its exact
 numbers.
+
+The grid (``parts`` > 1): ``dp`` data ranks x ``parts`` part ranks, rank
+``r = d * parts + p`` as the JAX mesh lays out ``devices.reshape(dp,
+part)``. Every rank creates every data group (the ranks of one part
+index, in ``p`` order) and then every part group (the ranks of one data
+index, in ``d`` order) with ``dist.new_group(ranks, backend=...)``, the
+same calls in the same order on every rank, as ``new_group`` requires;
+the backend is named, never a ``DeviceMesh`` default (which picks NCCL
+on ``cuda``, where ranks share the one card under gloo). A part group
+holds the ranks that share one batch and shard the resident state:
+:func:`part_sum_` and :func:`part_max_` reduce over it, inside the
+forward and backward passes (`gnn_tpu_torch.parallel.shardedresident`).
+Gloo takes int32 SUM and float MAX on CUDA tensors as it takes float
+SUM (staging through the host itself), so these collectives need no
+staging of their own. :func:`grid_gradient_sum_` sums the gradients over
+the whole grid and scales them by ``1 / parts``: the sum over data ranks
+of the mean over part ranks. That equals the JAX step (a sum over the
+data axis of gradients the parts hold bit for bit alike) wherever the
+parts agree, and leaves every rank with the same bits where they do not
+(the card's kernels sum in a run-dependent order), since one collective
+delivers the same sums to all.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
 import os
@@ -43,6 +67,24 @@ COLLECTIVE_TIMEOUT_S = 1800.0
 JOIN_TIMEOUT_S = 7 * 24 * 3600.0
 BACKENDS = ("auto", "nccl", "gloo")
 
+# bytes reduced over part groups ("sum", "max"); incremented only where
+# a collective runs (the per-step figure of chip_smoke.py phase 8)
+part_bytes: collections.Counter = collections.Counter()
+
+
+@dataclasses.dataclass(frozen=True)
+class PartGroup:
+    """This rank's place in its part group: ``rank`` of ``size`` part
+    ranks, reduced over ``group``. One part (``size`` 1) reduces
+    nothing."""
+
+    rank: int = 0
+    size: int = 1
+    group: object = None
+
+    def all_reduce_(self, t: torch.Tensor, op) -> None:
+        dist.all_reduce(t, op=op, group=self.group)
+
 
 @dataclasses.dataclass(frozen=True)
 class DistContext:
@@ -54,10 +96,42 @@ class DistContext:
     device: torch.device = torch.device("cpu")
     backend: Optional[str] = None
     group: object = None
+    # the grid: ``parts`` part ranks per data rank, and this rank's data
+    # group (same part index) and part group (same data index); None
+    # where the group would hold one rank
+    parts: int = 1
+    data_group: object = None
+    part_group: object = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def dp(self) -> int:
+        return self.world_size // self.parts
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.parts
+
+    @property
+    def part_rank(self) -> int:
+        return self.rank % self.parts
+
+    @property
+    def part(self) -> PartGroup:
+        return PartGroup(self.part_rank, self.parts, self.part_group)
+
+    def data_view(self) -> "DistContext":
+        """The data ranks of this rank's part index as a context of their
+        own (rank ``data_rank`` of ``dp``): the pipeline's rank and world,
+        and the scope of the test sweep's sums."""
+        if self.parts == 1:
+            return self
+        return DistContext(self.data_rank, self.dp, self.device,
+                           self.backend if self.dp > 1 else None,
+                           self.data_group)
 
     @property
     def meta_device(self) -> torch.device:
@@ -121,8 +195,31 @@ def rank_device(device_type: str, backend: str, rank: int) -> torch.device:
     return torch.device("cuda", rank if backend == "nccl" else rank % cards)
 
 
+def _grid_groups(rank: int, world_size: int, parts: int, backend: str):
+    """``(data_group, part_group)`` of ``rank`` on the ``dp x parts``
+    grid; every rank makes every group, data groups first."""
+    if world_size % parts:
+        raise ValueError(f"{world_size} ranks do not split into "
+                         f"{parts} parts")
+    dp = world_size // parts
+    data_group = part_group = None
+    if dp > 1:
+        for p in range(parts):
+            g = dist.new_group([d * parts + p for d in range(dp)],
+                               backend=backend)
+            if p == rank % parts:
+                data_group = g
+    for d in range(dp):
+        g = dist.new_group([d * parts + p for p in range(parts)],
+                           backend=backend)
+        if d == rank // parts:
+            part_group = g
+    return data_group, part_group
+
+
 def _join_group(rank: int, world_size: int, device_type: str, backend: str,
-                init_method: str, timeout_s: float) -> DistContext:
+                init_method: str, timeout_s: float,
+                parts: int = 1) -> DistContext:
     from gnn_tpu_torch.device import resolve_device
     device = resolve_device(rank_device(device_type, backend, rank))
     if device.type == "cuda":
@@ -130,24 +227,31 @@ def _join_group(rank: int, world_size: int, device_type: str, backend: str,
     dist.init_process_group(
         backend, init_method=init_method, rank=rank, world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s))
-    return DistContext(rank, world_size, device, backend, dist.group.WORLD)
+    data_group = part_group = None
+    if parts > 1:
+        data_group, part_group = _grid_groups(rank, world_size, parts,
+                                              backend)
+    return DistContext(rank, world_size, device, backend, dist.group.WORLD,
+                       parts, data_group, part_group)
 
 
 def init_dist(rank: int, rdv: Rendezvous, device_type: str,
-              backend: str) -> DistContext:
-    """Join the group of a rank started by :func:`spawn_ranks`."""
+              backend: str, parts: int = 1) -> DistContext:
+    """Join the group of a rank started by :func:`spawn_ranks`, as rank
+    ``rank`` of a ``world_size / parts`` x ``parts`` grid."""
     return _join_group(rank, rdv.world_size, device_type, backend,
-                       rdv.init_method, rdv.timeout_s)
+                       rdv.init_method, rdv.timeout_s, parts)
 
 
-def init_dist_from_env(device_type: str, requested: str) -> DistContext:
+def init_dist_from_env(device_type: str, requested: str,
+                       parts: int = 1) -> DistContext:
     """Join the group of a rank started by ``torchrun`` (``RANK``,
     ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT`` in the
     environment)."""
     rank, world_size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     backend = resolve_backend(device_type, requested, world_size)
     return _join_group(rank, world_size, device_type, backend, "env://",
-                       COLLECTIVE_TIMEOUT_S)
+                       COLLECTIVE_TIMEOUT_S, parts)
 
 
 def close_dist(ctx: DistContext) -> None:
@@ -207,6 +311,49 @@ def all_reduce_sum_(tensors: List[torch.Tensor], ctx: DistContext) -> None:
     for t in tensors:
         t.copy_(flat[off:off + t.numel()].view_as(t))
         off += t.numel()
+
+
+def part_sum_(tensors: List[torch.Tensor], part: Optional[PartGroup]
+              ) -> None:
+    """Sum each tensor over the part group, in place, through one
+    ``all_reduce`` (one flat buffer where there are several; the tensors
+    share a dtype and device). One part, or ``part`` None, leaves them
+    untouched. Invisible to autograd: a caller that differentiates
+    through it says how its cotangents combine."""
+    if part is None or part.size == 1 or not tensors:
+        return
+    if len(tensors) == 1 and tensors[0].is_contiguous():
+        flat = tensors[0]
+    else:
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+    part_bytes["sum"] += flat.numel() * flat.element_size()
+    part.all_reduce_(flat, dist.ReduceOp.SUM)
+    if flat is tensors[0]:
+        return
+    off = 0
+    for t in tensors:
+        t.copy_(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()
+
+
+def part_max_(t: torch.Tensor, part: Optional[PartGroup]) -> None:
+    """The elementwise max of a contiguous ``t`` over the part group, in
+    place (``-inf`` entries stay unless another part has more)."""
+    if part is None or part.size == 1:
+        return
+    part_bytes["max"] += t.numel() * t.element_size()
+    part.all_reduce_(t, dist.ReduceOp.MAX)
+
+
+def grid_gradient_sum_(tensors: List[torch.Tensor],
+                       ctx: DistContext) -> None:
+    """Sum each tensor over every rank of the grid and scale it by
+    ``1 / parts``: the sum over data ranks of the mean over part ranks
+    (one ``all_reduce``, so every rank ends with the same bits)."""
+    all_reduce_sum_(tensors, ctx)
+    if ctx.parts > 1:
+        for t in tensors:
+            t.mul_(1.0 / ctx.parts)
 
 
 def sum_across_ranks(values: Sequence[float],

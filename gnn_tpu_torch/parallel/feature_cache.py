@@ -1,12 +1,19 @@
 """Device-resident input features: the counterpart of
-`gnn_tpu.parallel.feature_cache` for the replicated table and the
-placement-driven cache.
+`gnn_tpu.parallel.feature_cache`.
 
 :class:`ReplicatedFeatures` keeps the whole feature table on every
 rank's device. :class:`CachedFeatures` (``--feature_cache``) keeps on
 rank r only buffer r of the placement, and fetches a batch's other input
 rows from the peers that hold them or from host RAM (reference
-``main.py:129-134``, ``preprocess.py:397-399``).
+``main.py:129-134``, ``preprocess.py:397-399``). On the ``data x part``
+grid (``--resident_parts P``) the part ranks of a data group share one
+batch: :class:`PartShardedFeatures` shards the table by node ranges over
+them, and :class:`PartCachedFeatures` (``--resident_parts
+--feature_cache``) gives part p buffer p of a placement over P buffers.
+A gather there is a masked local take plus one sum over the part group:
+every row has one owner, so the sum is the gather. The sum moves the
+whole ``[C, F]`` block, as the JAX package's ``psum`` does; an
+all-to-all of exactly the owned rows would be a design of its own.
 
 Both expose the trainer's three calls: ``plan(mb)`` on the host batch,
 ``gather(input_nodes, input_mask, plan)`` on the device batch (the
@@ -16,8 +23,6 @@ calls it at the same point, since it exchanges rows), and
 rank runs alone on the same batch. Each returns float32 ``x [C, F]``
 equal to ``feats[input_nodes] * input_mask[:, None]`` (with the table
 rounded to ``dtype`` first): the sources move rows and compute nothing.
-The part-sharded tables (``PartShardedFeatures``, ``PartCachedFeatures``)
-wait for the part-sharded slice (ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -29,7 +34,32 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from gnn_tpu_torch.parallel.dist import DistContext
+from gnn_tpu_torch.parallel.dist import DistContext, PartGroup, part_sum_
+
+
+def _host_table(feats: np.ndarray, dtype, on_card: bool) -> torch.Tensor:
+    """The table in host RAM, rounded to ``dtype`` (pinned for a card)."""
+    host = torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(
+        dtype)
+    return host.pin_memory() if on_card else host
+
+
+def _host_rows(host: torch.Tensor, nodes: np.ndarray,
+               on_card: bool) -> torch.Tensor:
+    """``host[nodes]``, pinned for a card (copied without blocking)."""
+    rows = torch.empty((len(nodes), host.shape[1]), dtype=host.dtype,
+                       pin_memory=on_card)
+    torch.index_select(host, 0, torch.from_numpy(nodes), out=rows)
+    return rows
+
+
+def _host_gather(host: torch.Tensor, input_nodes: np.ndarray,
+                 input_mask: np.ndarray, device) -> torch.Tensor:
+    """float32 ``host[input_nodes] * input_mask[:, None]`` on ``device``."""
+    rows = host.index_select(
+        0, torch.from_numpy(np.asarray(input_nodes, np.int64)))
+    return (rows.to(device).float()
+            * torch.from_numpy(input_mask).to(device)[:, None])
 
 
 class ReplicatedFeatures:
@@ -103,10 +133,8 @@ class CachedFeatures:
         self.ctx = ctx
         self.dtype = dtype
         self.device = ctx.device
-        host = torch.from_numpy(
-            np.ascontiguousarray(feats, np.float32)).to(dtype)
         self.on_card = self.device.type == "cuda"
-        self.host = host.pin_memory() if self.on_card else host
+        self.host = _host_table(feats, dtype, self.on_card)
         r = ctx.rank
         own = torch.from_numpy(np.asarray(placement.buffers[r], np.int64))
         self.buffer = self.host.index_select(0, own).to(self.device)
@@ -137,10 +165,7 @@ class CachedFeatures:
         remote = (np.concatenate([part(o) for o in peers]) if peers
                   else np.zeros(0, np.int64))
         host_pos = part(-1)
-        host_rows = torch.empty((len(host_pos), self.buffer.shape[1]),
-                                dtype=self.dtype, pin_memory=self.on_card)
-        torch.index_select(self.host, 0, torch.from_numpy(nodes[host_pos]),
-                           out=host_rows)
+        host_rows = _host_rows(self.host, nodes[host_pos], self.on_card)
         req_counts = [0 if o == r else int(counts[o + 2]) for o in range(ws)]
         self.stats["batches"] += 1
         self.stats["rows_local"] += int(counts[r + 2])
@@ -192,7 +217,141 @@ class CachedFeatures:
 
     def host_gather(self, input_nodes: np.ndarray,
                     input_mask: np.ndarray) -> torch.Tensor:
-        rows = self.host.index_select(
-            0, torch.from_numpy(np.asarray(input_nodes, np.int64)))
-        x = rows.to(self.device).float()
-        return x * torch.from_numpy(input_mask).to(self.device)[:, None]
+        return _host_gather(self.host, input_nodes, input_mask, self.device)
+
+
+class PartShardedFeatures:
+    """The table sharded by node ranges over the part group
+    (``--resident_parts`` without ``--feature_cache``): part p holds
+    rows ``[p * nsh, (p + 1) * nsh)`` on its device. A gather is the
+    masked take of the owned rows plus one sum over the part group; no
+    plan and no host rows. ``stats`` counts, over the batches planned,
+    the valid input rows of the own range (``rows_local``) and of the
+    other parts' (``rows_peer``)."""
+
+    def __init__(self, feats: np.ndarray, part: PartGroup,
+                 dtype=torch.float32, device="cpu"):
+        self.part, self.dtype = part, dtype
+        self.device = torch.device(device)
+        self.host = _host_table(feats, dtype, False)
+        n = feats.shape[0]
+        self.nsh = -(-n // part.size)
+        self.lo = part.rank * self.nsh
+        shard = torch.zeros((self.nsh, feats.shape[1]), dtype=dtype)
+        rows = self.host[self.lo:self.lo + self.nsh]
+        shard[: rows.shape[0]] = rows
+        self.table = shard.to(self.device)
+        self.stats = collections.Counter()
+
+    def plan(self, mb) -> None:
+        nodes = np.asarray(mb.input_nodes, np.int64)
+        valid = np.asarray(mb.input_mask) > 0
+        own = valid & (nodes // self.nsh == self.part.rank)
+        self.stats["batches"] += 1
+        self.stats["rows_local"] += int(own.sum())
+        self.stats["rows_peer"] += int(valid.sum() - own.sum())
+        return None
+
+    def gather(self, input_nodes: torch.Tensor, input_mask: torch.Tensor,
+               plan=None) -> torch.Tensor:
+        loc = input_nodes.long() - self.lo
+        ok = (loc >= 0) & (loc < self.nsh)
+        rows = self.table.index_select(0, loc.clamp(0, self.nsh - 1))
+        x = torch.where(ok[:, None], rows.float(),
+                        torch.zeros((), device=rows.device))
+        part_sum_([x], self.part)
+        return x * input_mask[:, None]
+
+    def host_gather(self, input_nodes: np.ndarray,
+                    input_mask: np.ndarray) -> torch.Tensor:
+        return _host_gather(self.host, input_nodes, input_mask, self.device)
+
+
+@dataclasses.dataclass
+class PartCachePlan:
+    """One batch's routing on one part rank, built on the host: the rows
+    of its own buffer (slots, and positions in ``x``) and the host rows."""
+
+    local_slots: torch.Tensor   # int64
+    local_pos: torch.Tensor     # int64
+    host_rows: torch.Tensor     # dtype [H, F], rows held by no part
+    host_pos: torch.Tensor      # int64
+
+
+class PartCachedFeatures:
+    """The placement-driven cache composed with the part-sharded resident
+    state (``--resident_parts --feature_cache``): part p holds buffer p
+    of ``placement`` (``placement.num_devs`` must be the part count).
+
+    A placement may hold a node on several devices (greedy's top block)
+    or record it only in its owner's view (PaGraph), so ownership comes
+    from a canonical map made at set-up: the first device whose own view
+    holds the node locally. Under it every buffered node has exactly one
+    owner, and the sum over the part group is the gather. Per batch, on
+    the host (:meth:`plan`): the positions and slots of the rows this
+    part owns and the rows no part holds (gathered from the host table);
+    on the device (:meth:`gather`): the owned rows taken from the buffer
+    into a zero block, one sum over the part group, the host rows written
+    over it, the input mask last (bfloat16 rows become float32 right
+    after the take). ``stats`` counts, over the batches planned, the
+    valid input rows from this part's buffer, the other parts' and the
+    host."""
+
+    def __init__(self, feats: np.ndarray, placement, part: PartGroup,
+                 dtype=torch.float32, device="cpu"):
+        if placement.num_devs != part.size:
+            raise ValueError(f"the placement has {placement.num_devs} "
+                             f"buffers for {part.size} parts")
+        self.part, self.dtype = part, dtype
+        self.device = torch.device(device)
+        self.on_card = self.device.type == "cuda"
+        self.host = _host_table(feats, dtype, self.on_card)
+        own = torch.from_numpy(np.asarray(placement.buffers[part.rank],
+                                          np.int64))
+        self.buffer = self.host.index_select(0, own).to(self.device)
+        did = np.asarray(placement.device_id_of_nodes)
+        n = did.shape[1]
+        local = did == np.arange(placement.num_devs)[:, None]
+        self.owner_map = np.where(local.any(axis=0),
+                                  np.argmax(local, axis=0), -1)
+        self.slot_map = np.asarray(placement.idx_of_nodes_on_device)[
+            np.maximum(self.owner_map, 0), np.arange(n)].astype(np.int64)
+        self.row_bytes = self.buffer.shape[1] * self.buffer.element_size()
+        self.stats = collections.Counter()
+
+    def plan(self, mb) -> PartCachePlan:
+        nodes = np.asarray(mb.input_nodes, np.int64)
+        owner = np.where(np.asarray(mb.input_mask) > 0,
+                         self.owner_map[nodes], -2)
+        local = np.flatnonzero(owner == self.part.rank)
+        host_pos = np.flatnonzero(owner == -1)
+        host_rows = _host_rows(self.host, nodes[host_pos], self.on_card)
+        self.stats["batches"] += 1
+        self.stats["rows_local"] += len(local)
+        self.stats["rows_peer"] += int((owner >= 0).sum()) - len(local)
+        self.stats["rows_host"] += len(host_pos)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(
+                self.device, non_blocking=True)
+        return PartCachePlan(
+            local_slots=t(self.slot_map[nodes[local]]), local_pos=t(local),
+            host_rows=host_rows.to(self.device, non_blocking=True),
+            host_pos=t(host_pos))
+
+    def gather(self, input_nodes: torch.Tensor, input_mask: torch.Tensor,
+               plan: PartCachePlan) -> torch.Tensor:
+        if plan is None:
+            raise ValueError("PartCachedFeatures.gather needs the batch's "
+                             "plan")
+        x = torch.zeros((input_nodes.shape[0], self.buffer.shape[1]),
+                        dtype=torch.float32, device=self.device)
+        x.index_copy_(0, plan.local_pos,
+                      self.buffer.index_select(0, plan.local_slots).float())
+        part_sum_([x], self.part)
+        x.index_copy_(0, plan.host_pos, plan.host_rows.float())
+        return x * input_mask[:, None]
+
+    def host_gather(self, input_nodes: np.ndarray,
+                    input_mask: np.ndarray) -> torch.Tensor:
+        return _host_gather(self.host, input_nodes, input_mask, self.device)

@@ -60,14 +60,14 @@ class BatchPipeline:
                  per_rank_skew: Optional[List[List[np.ndarray]]] = None,
                  local_shuffle: bool = False, seed: int = 0,
                  world_size: int = 1, rank: int = 0):
-        """``per_rank_skew``: ``world_size`` per-layer skew lists, one per
-        rank (each rank skews toward its own resident nodes, reference
-        ``sampler.py:23-25``); rank r samples its batches with list r."""
+        """``per_rank_skew``: per-layer skew lists, one per placement
+        buffer (each rank skews toward its own resident nodes, reference
+        ``sampler.py:23-25``); rank r samples its batches with list
+        ``r % len(per_rank_skew)``, the JAX pipeline's rule (the composed
+        ``--resident_parts --feature_cache`` placement has one buffer a
+        part, which may be fewer than the data ranks)."""
         if not 0 <= rank < world_size:
             raise ValueError(f"rank {rank} of {world_size}")
-        if per_rank_skew is not None and len(per_rank_skew) != world_size:
-            raise ValueError(f"per_rank_skew has {len(per_rank_skew)} "
-                             f"ranks; the pipeline has {world_size}")
         self.cfg = cfg
         self.lap = lap_matrix
         self.labels = labels_full
@@ -78,7 +78,7 @@ class BatchPipeline:
         self._skew_mask = None
         if per_rank_skew is not None:
             self._skew_mask = np.zeros(cfg.num_nodes, bool)
-            self._skew_mask[per_rank_skew[rank][0]] = True
+            self._skew_mask[self._skew_of(rank)[0]] = True
         self.pool = ThreadPoolExecutor(max_workers=pool_num)
         self.local_shuffle = local_shuffle
         self._sampler = SAMPLERS[cfg.sampler]
@@ -109,11 +109,13 @@ class BatchPipeline:
             return float("nan")
         return float(self._skew_mask[mb.input_nodes[: mb.n_input]].mean())
 
+    def _skew_of(self, rank):
+        return self.per_rank_skew[rank % len(self.per_rank_skew)]
+
     def _sample_one(self, seed, batch_nodes, cfg, rank=0):
         """One batch of ``batch_nodes`` under ``cfg``, skewed toward rank
         ``rank``'s nodes."""
-        skew = None if self.per_rank_skew is None else \
-            self.per_rank_skew[rank]
+        skew = None if self.per_rank_skew is None else self._skew_of(rank)
         return self._sampler(cfg, seed, batch_nodes, self.lap, self.labels,
                              skew)
 

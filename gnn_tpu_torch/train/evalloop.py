@@ -4,11 +4,16 @@
 
 The val pass is one batch, the same on every rank (drawn from the
 shared stream, skewed as rank 0's), with its features gathered on the
-host path. The test sweep runs sharded: each rank evaluates its share of
-the batches (`BatchPipeline.eval_batches_sharded`) through the training
-path's feature gather, skips fillers, and one ``all_reduce`` sums
-``(f1 * n, n, loss, batches)``; the F1 stays the reference's per-batch
-micro-F1 weighted by valid rows (``main.py:226-241``)."""
+host path; on the ``data x part`` grid, where no rank holds the whole
+state, every rank runs it through the training path's feature gather
+and the sharded forward. The test sweep runs sharded over the data
+ranks: each evaluates its share of the batches
+(`BatchPipeline.eval_batches_sharded`) through the training path's
+feature gather, skips fillers, and one ``all_reduce`` over the data
+ranks sums ``(f1 * n, n, loss, batches)`` (the part ranks of a data
+rank evaluate the same batches in lockstep); the F1 stays the
+reference's per-batch micro-F1 weighted by valid rows
+(``main.py:226-241``)."""
 from __future__ import annotations
 
 import torch
@@ -38,7 +43,7 @@ class EvalMixin:
         try:
             for mb in self.pipeline.eval_batches(target_nodes, batch_size,
                                                  mode):
-                if mode == "val":
+                if mode == "val" and self.dist.parts == 1:
                     batch = to_device_batch(mb, self.device)
                     x = src.host_gather(mb.input_nodes, mb.input_mask)
                 else:
@@ -69,7 +74,8 @@ class EvalMixin:
         if mode != "val":
             self.test_batches = n_batches
             total_f1, total_n, total_loss, n_batches = sum_across_ranks(
-                [total_f1, total_n, total_loss, n_batches], self.dist)
+                [total_f1, total_n, total_loss, n_batches],
+                self.dist.data_view())
         return (total_f1 / max(total_n, 1),
                 total_loss / max(n_batches, 1))
 

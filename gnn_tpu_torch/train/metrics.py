@@ -112,6 +112,9 @@ class EpochMetrics:
     # SHA-1 of the parameters after the epoch (multi-rank runs; every
     # rank must hold the same)
     param_digest: str = ""
+    # bytes this rank reduced over its part group in the epoch's training
+    # steps (part-sharded runs; 0 elsewhere)
+    part_bytes: int = 0
     step_losses: List[float] = dataclasses.field(default_factory=list)
     step_times: List[float] = dataclasses.field(default_factory=list)
 

@@ -1,8 +1,10 @@
 """Op-bucket timing probes (``--op_timing``): per-step spmm forward /
 backward and communication seconds from isolated ops on the epoch's
-last batch, the reference's ``main.py:196`` buckets. The replicated
-branch of `gnn_tpu.train.optiming`; its part-sharded probe waits for the
-part-sharded slice (ROADMAP queue 3)."""
+last batch, the reference's ``main.py:196`` buckets (the counterpart of
+`gnn_tpu.train.optiming`). On the part-sharded resident graph each
+probe is a layer's resident rebuild plus its ``spmm`` or
+``spmm_transpose``, part sums included, as the JAX package's part
+branch times it: no rank holds a layer whole."""
 from __future__ import annotations
 
 import time
@@ -50,15 +52,22 @@ class OpTimingMixin:
         timed alone on ``batch`` (the epoch's last device batch) at the
         layer's input width, with operands drawn from ``default_rng(0)``.
         Pattern layers (GAT off the resident path) have no standalone
-        spmm and are skipped. Communication, across ranks, is the step's
-        one ``all_reduce`` of the flat gradient buffer plus, with the
-        feature cache, ``batch``'s feature gather (its exchange); one
-        device runs no collective and reads 0.0. Every rank runs the
+        spmm and are skipped; on the part-sharded resident graph each
+        call rebuilds the layer as well. Communication, across ranks, is
+        the step's one ``all_reduce`` of the flat gradient buffer plus,
+        with a feature source that exchanges rows (the cache, the part
+        shards), ``batch``'s feature gather; one device runs no
+        collective and reads 0.0. Every rank runs the
         probe at the same point, since it times collectives. The result
         is cached keyed on the current ``scale_factor`` (the same on
         every rank): the sampled-set sizes, and so the buckets, move with
         it."""
+        from gnn_tpu_torch.ops.residentgraph import (layer_ids,
+                                                     materialize_layer)
         from gnn_tpu_torch.ops.sparse import PatternAdj, spmm, spmm_transpose
+        from gnn_tpu_torch.parallel.feature_cache import ReplicatedFeatures
+        from gnn_tpu_torch.parallel.shardedresident import \
+            ShardedResidentGraph
 
         sf_key = float(self.pipeline.cfg.scale_factor)
         cached = getattr(self, "_op_buckets", None)
@@ -66,7 +75,13 @@ class OpTimingMixin:
             return cached[1]
         if batch is None:
             return (float("nan"),) * 3
-        adjs = prepare_adjs(batch, self.agg_state)
+        sharded = isinstance(self.agg_state, ShardedResidentGraph)
+        if sharded:
+            ids = layer_ids(batch.adjs, batch.sampled_nodes,
+                            batch.input_nodes)
+            adjs = list(batch.adjs)
+        else:
+            adjs = prepare_adjs(batch, self.agg_state)
         widths = self._layer_widths()
         rng = np.random.default_rng(0)
 
@@ -74,21 +89,26 @@ class OpTimingMixin:
             return torch.from_numpy(
                 rng.normal(size=(n, w)).astype(np.float32)).to(self.device)
 
+        def layer(l):
+            if not sharded:
+                return adjs[l]
+            return materialize_layer(self.agg_state, batch.adjs[l], *ids[l])
+
         t_fwd = t_bwd = 0.0
         for l, adj in enumerate(adjs):
             if adj is None or isinstance(adj, PatternAdj):
                 continue
             w = widths[l] if l < len(widths) else widths[-1]
             x, g = operand(adj.ncols, w), operand(adj.nrows, w)
-            t_fwd += self._time_s(lambda: spmm(adj, x))
-            t_bwd += self._time_s(lambda: spmm_transpose(adj, g))
+            t_fwd += self._time_s(lambda: spmm(layer(l), x))
+            t_bwd += self._time_s(lambda: spmm_transpose(layer(l), g))
         t_comm = 0.0
         if self.dist.world_size > 1:
             flat = torch.zeros(
                 1 + sum(p.numel() for p in self.net.parameters()),
                 device=self.device)
             t_comm = self._time_s(lambda: all_reduce_sum_([flat], self.dist))
-            if batch.feat_plan is not None:
+            if not isinstance(self.feature_source, ReplicatedFeatures):
                 t_comm += self._time_s(lambda: self.feature_source.gather(
                     batch.input_nodes, batch.input_mask, batch.feat_plan))
         self._op_buckets = (sf_key, (t_fwd, t_bwd, t_comm))

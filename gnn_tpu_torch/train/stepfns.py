@@ -4,7 +4,9 @@ the sum of the clipped gradients across ranks. The per-step recipe itself
 (forward -> masked loss -> backward -> clip at 5 on each rank -> sum
 across ranks -> Adam) lives in `gnn_tpu_torch.train.trainer.Trainer`.
 ``jit``/``shard_map`` have no counterpart here: PyTorch runs eagerly,
-one process per rank."""
+one process per rank. On the ``data x part`` grid the sum spans every
+rank and is scaled by ``1 / parts`` (`gnn_tpu_torch.parallel.dist.
+grid_gradient_sum_`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -58,12 +60,14 @@ def to_device_batch(mb: MiniBatch, device,
 
 def prepare_adjs(batch: DeviceBatch, agg_state) -> List[object]:
     """The batch's adjacency list. ``agg_state`` is the device-resident
-    aggregation state: a ``ResidentGraph`` (resident mode: every layer is
-    rebuilt from it), the hot blocks ``(dense, dense_t)`` (hot format:
+    aggregation state: a ``ResidentGraph`` or this part's
+    ``ShardedResidentGraph`` (resident mode: every layer is rebuilt from
+    it), the hot blocks ``(dense, dense_t)`` (hot format:
     bound into the shipped layers), or None (COO, blocked, pattern: as
     shipped)."""
     from gnn_tpu_torch.ops.residentgraph import ResidentGraph
-    if isinstance(agg_state, ResidentGraph):
+    from gnn_tpu_torch.parallel.shardedresident import ShardedResidentGraph
+    if isinstance(agg_state, (ResidentGraph, ShardedResidentGraph)):
         from gnn_tpu_torch.ops.residentgraph import materialize_adjs
         return materialize_adjs(agg_state, batch.adjs,
                                 batch.sampled_nodes, batch.input_nodes)
@@ -90,12 +94,14 @@ def sum_gradients_(params: Iterable[torch.nn.Parameter],
     """Sum every parameter's gradient, and the ``extra`` tensors, across
     the ranks in place, with one ``all_reduce`` over one flat buffer
     (`gnn_tpu.train.stepfns`' ``psum``; the reference sums without
-    dividing, ``main.py:159``). A parameter without a gradient on this
-    rank takes zeros, so every rank packs the same buffer."""
-    from gnn_tpu_torch.parallel.dist import all_reduce_sum_
+    dividing, ``main.py:159``); on a grid of part ranks, the sum over
+    data ranks of the mean over part ranks. A parameter without a
+    gradient on this rank takes zeros, so every rank packs the same
+    buffer."""
+    from gnn_tpu_torch.parallel.dist import grid_gradient_sum_
     grads = []
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
-    all_reduce_sum_(grads + list(extra), ctx)
+    grid_gradient_sum_(grads + list(extra), ctx)

@@ -16,6 +16,18 @@ locality scale-factor tuner, the op-timing buckets and a profiler trace
 of the second epoch. Across ranks, rank 0 takes each decision (the val
 F1 that picks the best model, the tuner's factor) and broadcasts it, and
 rank 0 alone writes checkpoints, metrics and traces.
+
+On the ``data x part`` grid (``resident_parts`` P > 1) the resident
+state is this part's shard (`gnn_tpu_torch.parallel.shardedresident`)
+and the part ranks of a data group train on one batch, with the
+dropout masks of their data rank. The card's kernels sum in a
+run-dependent order and lite mode computes the cold residual on every
+part, so the parts' gradients differ in their last bits: the step sums
+the clipped gradients over the whole grid and scales them by ``1 / P``
+(the sum over data ranks of the mean over part ranks), which leaves
+every rank with the same parameters and equals the JAX step, whose
+parts agree bit for bit, wherever the parts agree. The logged loss is
+the mean over the grid.
 """
 from __future__ import annotations
 
@@ -30,7 +42,8 @@ import numpy as np
 import torch
 
 from gnn_tpu_torch.device import resolve_device
-from gnn_tpu_torch.parallel.dist import DistContext, broadcast_from_main
+from gnn_tpu_torch.parallel.dist import (DistContext, broadcast_from_main,
+                                         part_bytes)
 from gnn_tpu_torch.parallel.feature_cache import ReplicatedFeatures
 from gnn_tpu_torch.train.evalloop import EvalMixin
 from gnn_tpu_torch.train.loss import masked_loss
@@ -44,16 +57,32 @@ class Trainer(EvalMixin, OpTimingMixin):
     """End-to-end trainer mirroring ``main.py``'s behavior on one device
     (``cuda`` unless the caller passes ``device="cpu"``) or, with
     ``dist``, as one rank of a data-parallel group on ``dist.device``
-    (the pipeline and the feature source are that rank's)."""
+    (the pipeline and the feature source are that rank's). With
+    ``resident_parts`` P > 1, one rank of a ``data x P`` grid
+    (``dist.parts == P``): the resident graph (a `build_resident_graph`
+    dict whose blocks are whole or this part's column shards) is sharded
+    over the part group, and the pipeline is the data rank's."""
 
     def __init__(self, net, pipeline, feats: np.ndarray, lr: float = 0.01,
                  sigmoid_loss: bool = True, seed: int = 0,
                  feature_source=None, resident_graph=None,
                  hot_dense=None, lr_warmup: int = 0,
                  grad_clip: float = 5.0, device="cuda",
-                 dist: Optional[DistContext] = None):
+                 dist: Optional[DistContext] = None,
+                 resident_parts: int = 0):
         if dist is None:
             dist = DistContext(device=resolve_device(device))
+        parts = max(int(resident_parts), 1)
+        if parts > 1 and resident_graph is None:
+            raise ValueError("resident_parts needs resident_graph")
+        if dist.parts != parts:
+            raise ValueError(f"resident_parts={resident_parts} needs a grid "
+                             f"of {parts} part ranks (got {dist.parts}); "
+                             f"join with init_dist(..., parts={parts})")
+        if parts > 1 and (pipeline.world_size, pipeline.rank) != (
+                dist.dp, dist.data_rank):
+            raise ValueError("on a grid the pipeline is the data rank's: "
+                             f"rank {dist.data_rank} of {dist.dp}")
         self.dist = dist
         self.device = dist.device
         self.net = net.to(self.device)
@@ -74,7 +103,15 @@ class Trainer(EvalMixin, OpTimingMixin):
         # (``hot_dense=(dense, dense_t)``): only the blocks live there;
         # batches carry host-packed HotDenseAdj layers
         self.agg_state = None
-        if resident_graph is not None:
+        if parts > 1:
+            # full expansion (the pipeline's resident_ship_cold=False)
+            # reads row-range CSR shards; lite mode needs no device CSR
+            from gnn_tpu_torch.parallel.shardedresident import \
+                shard_resident_state
+            self.agg_state = shard_resident_state(
+                resident_graph, dist.part, self.device,
+                ship_csr=not pipeline.cfg.resident_ship_cold)
+        elif resident_graph is not None:
             from gnn_tpu_torch.ops.residentgraph import ResidentGraph
             self.agg_state = ResidentGraph.from_host(resident_graph,
                                                      self.device)
@@ -83,8 +120,9 @@ class Trainer(EvalMixin, OpTimingMixin):
                                    for d in hot_dense)
         self._seed = seed
         # dropout draws from this generator, reseeded from (seed, epoch,
-        # rank): the ranks draw different masks, as the JAX package folds
-        # in the replica index
+        # data rank): the data ranks draw different masks, as the JAX
+        # package folds in the replica index, and the part ranks of one
+        # data rank the same
         self.generator = torch.Generator(device=self.device)
         self.best_val = -1.0
         self.best_params = None
@@ -116,12 +154,22 @@ class Trainer(EvalMixin, OpTimingMixin):
             # the loss rides in the gradients' buffer: one collective
             total = loss.reshape(1).clone()
             sum_gradients_(self.net.parameters(), [total], self.dist)
-            loss = total[0] / self.dist.world_size
+            loss = total[0] / self.dist.dp
         for group in self.optimizer.param_groups:
             group["lr"] = self._lr_at(self.n_updates)
         self.optimizer.step()
         self.n_updates += 1
         return loss
+
+    def state_bytes(self) -> dict:
+        """Bytes on the device of the resident graph's tensors (by name)
+        and of the feature source's table or buffer (``features``)."""
+        g = self.agg_state
+        out = g.state_bytes() if hasattr(g, "state_bytes") else {}
+        fs = self.feature_source
+        table = getattr(fs, "table", None)
+        out["features"] = (table if table is not None else fs.buffer).nbytes
+        return out
 
     def param_digest(self) -> str:
         """SHA-1 of the parameters' bytes (ranks must agree bit for
@@ -140,10 +188,11 @@ class Trainer(EvalMixin, OpTimingMixin):
         probe's operands); otherwise ``last_batch`` is None."""
         # epoch-deterministic randomness (sampling seeds, dropout)
         self.generator.manual_seed(self._seed * 1_000_003 + epoch
-                                   + (self.dist.rank << 32))
+                                   + (self.dist.data_rank << 32))
         self.net.train()
         t_sample = t_move = t_exec = 0.0
         losses, times, shares = [], [], []
+        bytes_before = sum(part_bytes.values())
         t_start = t0 = time.perf_counter()
         for mb in self.pipeline.train_epoch(train_nodes, rank_chunks,
                                             epoch=epoch):
@@ -167,6 +216,7 @@ class Trainer(EvalMixin, OpTimingMixin):
             sample_wait_time=t_sample,
             total_time=time.perf_counter() - t_start,
             skew_share=float(np.mean(shares)) if shares else float("nan"),
+            part_bytes=sum(part_bytes.values()) - bytes_before,
             step_losses=losses, step_times=times)
 
     def fit(self, train_nodes, valid_nodes, epochs: int, rank_chunks=None,

@@ -1,8 +1,8 @@
 """The port's CLI (gnn_tpu_torch.cli): the JAX package's flags and
 defaults plus ``--device``, CPU runs end to end on every ported format,
 the JAX package's format rules, the single-device extras (locality
-sampling, resume, op timing, profiling), and ``NotImplementedError`` for
-the flags whose paths are not ported."""
+sampling, resume, op timing, profiling), the launch of the ``data x
+part`` grid, and ``NotImplementedError`` for ``--steps_per_dispatch``."""
 import json
 import math
 import os
@@ -156,17 +156,34 @@ def test_ported_flags_run(tmp_path, flag):
         assert os.listdir(flag[1]) == ["trace_epoch1.json"]
 
 
-@pytest.mark.parametrize("flag", [
-    ["--resident_parts", "2", "--feature_cache"],
-    ["--resident_parts", "2"],
-    ["--n_devices", "2", "--resident_parts", "2"],
-    ["--steps_per_dispatch", "4"]])
+@pytest.mark.parametrize("flag", [["--steps_per_dispatch", "4"]])
 def test_unported_flags_raise(tmp_path, flag):
-    """The part-sharded resident graph (alone, with the cache, under
-    data parallelism) and scan dispatch raise before any rank starts."""
+    """Scan dispatch raises before any rank starts."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(TINY + ["--device", "cpu", "--save_dir",
                           str(tmp_path)] + flag)
+
+
+@pytest.mark.parametrize("flag,world", [
+    (["--n_devices", "1", "--resident_parts", "2", "--feature_cache"], 2),
+    (["--n_devices", "1", "--resident_parts", "2"], 2),
+    (["--n_devices", "2", "--resident_parts", "2"], 4)])
+def test_resident_parts_reach_the_grid_launcher(tmp_path, monkeypatch, flag,
+                                                world):
+    """The part-sharded resident graph (alone, with the cache, under data
+    parallelism) parses and starts ``n_devices x resident_parts`` gloo
+    ranks of the CLI's rank entry."""
+    from gnn_tpu_torch.parallel import dist
+    calls = []
+    monkeypatch.setattr(dist, "spawn_ranks",
+                        lambda n, fn, args, rendezvous_dir: calls.append(
+                            (n, fn, args)))
+    assert tcli.main(TINY + ["--device", "cpu", "--save_dir",
+                             str(tmp_path)] + flag) == 0
+    ((n, fn, (args, backend)),) = calls
+    assert (n, fn, backend) == (world, tcli._rank_entry, "gloo")
+    assert (args.resident_parts, tcli.grid_parts(args)) == (2, 2)
+    assert args.feature_cache == ("--feature_cache" in flag)
 
 
 def test_cuda_without_a_card_raises(tmp_path):

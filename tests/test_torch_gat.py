@@ -363,13 +363,28 @@ def test_tile_route_grads_finite_at_large_magnitudes(small_graph):
         assert torch.isfinite(p.grad).all(), name
 
 
-def test_unported_routes_raise(small_graph):
-    """A part-sharded resident layer raises NotImplementedError naming
-    the ROADMAP."""
-    _, ta, _, _ = _layers(small_graph, True)
-    sharded = dataclasses.replace(ta)
-    sharded.part_axis = "part"
-    q = torch.zeros(ta.nrows, 16)
-    k = torch.zeros(ta.ncols, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgat.hot_attention_aggregate(sharded, q, k, k, 1)
+@pytest.mark.parametrize("stream", [False, True])
+def test_one_part_sharded_layer_matches_replicated(small_graph, stream):
+    """The part-sharded attention route on a one-part shard (the block's
+    columns all owned, every part sum a no-op) gives the replicated
+    layer's output and gradients: its score pass without gradient, its
+    recomputed terms and their Function agree with the one-matmul
+    route."""
+    from gnn_tpu_torch.parallel.dist import PartGroup
+    _, ta, sampled, _ = _layers(small_graph, stream)
+    sharded = dataclasses.replace(ta, part_axis=PartGroup())
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(ta.ncols, 16)).astype(np.float32)
+    n_rows = ta.n_valid_rows
+    outs = []
+    for adj in (ta, sharded):
+        conv = tgat.GATConv(16, 32, n_heads=2,
+                            generator=torch.Generator().manual_seed(0))
+        outs.append(_port_grads_and_out(conv, x, adj, sampled, n_rows))
+    (o1, g1), (o2, g2) = outs
+    np.testing.assert_allclose(o2[:n_rows], o1[:n_rows], rtol=1e-6,
+                               atol=1e-6)
+    assert g1.keys() == g2.keys()
+    for name in g1:
+        np.testing.assert_allclose(g2[name], g1[name], rtol=1e-5,
+                                   atol=1e-6, err_msg=name)

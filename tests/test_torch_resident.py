@@ -202,14 +202,38 @@ def test_full_expansion_matches_jax(small_graph, norm, weighted):
                                    tspmm_t(la, g).numpy(), **TOL)
 
 
-def test_full_expansion_on_a_sharded_graph_raises(small_graph):
-    """The part-sharded branch stays with the multi-device queue."""
+def test_full_expansion_on_a_one_part_sharded_graph(small_graph):
+    """Full expansion on a one-part shard of the state (the row-range CSR
+    is the whole CSR, every part sum a no-op) rebuilds the replicated
+    layer: the same cold COO, marked ``cold_partial``, the same plumbing
+    and the same products both ways."""
+    from gnn_tpu_torch.parallel.dist import PartGroup
+    from gnn_tpu_torch.parallel.shardedresident import shard_resident_state
     lap, _, _, tg, tcfg = _both(small_graph, False, "row", False,
                                 ship_cold=False)
     tmb = tlad.ladies_sample(tcfg, 5, small_graph.train_nodes[:64], lap,
                              small_graph.labels)
-    ref = to_device(tmb.adjs[1], "cpu")
-    tg.part_axis = "part"
-    ids = torch.from_numpy(tmb.input_nodes).long()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        trg.materialize_layer(tg, ref, ids[: ref.nrows], ids[: ref.ncols])
+    spec = tcfg.hot_spec
+    d, dt = thd.build_hot_dense(lap, spec, torch.float32, "cpu")
+    sh = shard_resident_state(trg.build_resident_graph(lap, spec, d, dt),
+                              PartGroup(), "cpu", ship_csr=True)
+    adjs = [to_device(a, "cpu") for a in tmb.adjs]
+    args = ([torch.from_numpy(s) for s in tmb.sampled_nodes],
+            torch.from_numpy(tmb.input_nodes))
+    rng = np.random.default_rng(2)
+    for la, sa in zip(trg.materialize_adjs(tg, adjs, *args),
+                      trg.materialize_adjs(sh, adjs, *args)):
+        assert sa.cold_partial and not la.cold_partial
+        for f in ("rows", "cols", "vals", "colpos", "nfh", "rowpos",
+                  "nf_col", "present_row_slots", "row_cmp_idx",
+                  "present_col_slots", "col_cmp_idx"):
+            torch.testing.assert_close(getattr(sa, f), getattr(la, f),
+                                       rtol=0, atol=0, msg=f)
+        x = torch.from_numpy(rng.normal(size=(la.ncols, 8)).astype(
+            np.float32))
+        g = torch.from_numpy(rng.normal(size=(la.nrows, 8)).astype(
+            np.float32))
+        torch.testing.assert_close(tspmm(sa, x), tspmm(la, x), rtol=0,
+                                   atol=0)
+        torch.testing.assert_close(tspmm_t(sa, g), tspmm_t(la, g), rtol=0,
+                                   atol=0)
