@@ -120,7 +120,28 @@ Phases (any failure exits non-zero without the final result line):
    median step (not a multi-GPU speed figure); (c) the same with
    ``--model gat`` and no test sweep: equal digests, finite losses, K3
    and K4 launched phase 5's GAT counts a step (and a val pass);
-9. a ``kernels`` JSON line, then the result line
+9. the entry points and the halo full-graph trainer: (a)
+   ``gnn_tpu_torch.entry``: ``entry``'s forward on the card against the
+   CPU's, then ``dryrun_multichip(4)``, four gloo ranks on ``cuda:0`` in
+   one spawn, one epoch a case of every sharded path (data parallelism
+   with the cache and the hot format, resident, resident with stream
+   tiles, GAT hot-block attention without and with stream tiles, and on
+   2 x 2 ranks the part-sharded resident graph, full expansion, the
+   composed cache and the hybrid DP x cache mode, then one halo step),
+   each rank counting its kernel launches a case: every loss finite,
+   each rank's sharded resident bytes at most 1.06 / P of the whole
+   state, K1 launched in the stream-tile case and K3 / K4 in GAT's; (b)
+   the halo trainer on the gcn Laplacian of the default synthetic graph
+   (orders 1,1,1, nhid 512, softmax CE), HALO_STEPS steps on one rank
+   and on two gloo ranks sharing the card (which attach the graph from a
+   ``GraphBundle`` this process publishes): the step losses agree to
+   HALO_RTOL and fall below the first at some step; it logs the
+   Laplacian's nnz, the plan's halo width, the halo bytes a rank sends a
+   step, each run's median step, peak memory and set-up seconds (not
+   multi-GPU figures); (c) the
+   tests' small graph, three steps on two ranks on the card and on the
+   CPU: the step losses agree to AGREE_RTOL;
+10. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1286,34 +1307,54 @@ DP_COLLECTIVE_TIMEOUT_S = 300.0
 DP_EPOCHS = 2
 
 
-def _small_dp_rank(rank, rdv, out_dir, device_type):
-    """Phase 7 (a), one rank: phase 4's small input, GraphSAGE resident,
-    two epochs with the replicated table and two with the cache; writes
-    its step losses (the mean across the ranks) and parameter digests."""
+# the card's ranks also run the CPU reference: one spawn a world serves
+# both (the same gloo groups; a CPU run's tensors stay on the CPU)
+REF_DEVICES = ("cuda", "cpu")
+
+
+def _join_for(rank, rdv, parts=1):
+    """Join a world of gloo ranks on the card, the host's cores shared
+    among them for the CPU reference runs; returns ``(ctx, views)``,
+    ``views[d]`` the context whose tensors live on device type ``d``."""
+    import dataclasses
+
     import torch
 
     from gnn_tpu_torch.parallel import dist as tdist
-    if device_type == "cpu":
-        torch.set_num_threads(max(1, torch.get_num_threads() // DP_WORLD))
-    ctx = tdist.init_dist(rank, rdv, device_type, "gloo")
-    rec = {"device": str(ctx.device)}
+    torch.set_num_threads(max(1, torch.get_num_threads() // rdv.world_size))
+    ctx = tdist.init_dist(rank, rdv, "cuda", "gloo", parts)
+    return ctx, {d: dataclasses.replace(ctx, device=torch.device(d))
+                 if d == "cpu" else ctx for d in REF_DEVICES}
+
+
+def _small_dp_rank(rank, rdv, out_dir):
+    """Phase 7 (a), one rank, on the card and then on the CPU: phase 4's
+    small input, GraphSAGE resident, two epochs with the replicated table
+    and two with the cache; writes its step losses (the mean across the
+    ranks) and parameter digests, a file a device."""
+    from gnn_tpu_torch.parallel import dist as tdist
+    ctx, views = _join_for(rank, rdv)
+    recs = {}
     try:
-        for cached in (False, True):
-            tr, pipe, g = _small_trainer(ctx.device, "graphsage", ctx=ctx,
-                                         cached=cached)
-            try:
-                losses = [v for e in range(DP_EPOCHS) for v in
-                          tr.train_epoch(g.train_nodes, e).step_losses]
-            finally:
-                pipe.close()
-            key = "cached" if cached else "replicated"
-            rec[key] = losses
-            rec[f"{key}_digest"] = tr.param_digest()
+        for device_type, view in views.items():
+            rec = recs[device_type] = {"device": str(view.device)}
+            for cached in (False, True):
+                tr, pipe, g = _small_trainer(view.device, "graphsage",
+                                             ctx=view, cached=cached)
+                try:
+                    losses = [v for e in range(DP_EPOCHS) for v in
+                              tr.train_epoch(g.train_nodes, e).step_losses]
+                finally:
+                    pipe.close()
+                key = "cached" if cached else "replicated"
+                rec[key] = losses
+                rec[f"{key}_digest"] = tr.param_digest()
     finally:
         tdist.close_dist(ctx)
-    with open(os.path.join(out_dir, f"small_{device_type}{rank}.json"),
-              "w") as f:
-        json.dump(rec, f)
+    for device_type, rec in recs.items():
+        with open(os.path.join(out_dir, f"small_{device_type}{rank}.json"),
+                  "w") as f:
+            json.dump(rec, f)
 
 
 def _spawn_dp(fn, args, out_dir):
@@ -1330,9 +1371,9 @@ def _rel(a, b):
 
 
 def check_dp_small(save_dir):
-    """Phase 7 (a): two gloo ranks on the card (both on ``cuda:0``) and
-    two on the CPU, each with the replicated table and with the cache
-    (`_small_dp_rank`). Fails unless both ranks log the same step losses
+    """Phase 7 (a): two gloo ranks on the card (both on ``cuda:0``), each
+    with the replicated table and with the cache, and the same two ranks
+    again with CPU tensors (`_small_dp_rank`). Fails unless both ranks log the same step losses
     and end with the same parameters, each card run's step losses agree
     with the CPU run's to AGREE_RTOL, the cached runs agree with the
     replicated ones to DP_CACHE_RTOL on the card and bit for bit on the
@@ -1342,15 +1383,17 @@ def check_dp_small(save_dir):
     out = os.path.join(save_dir, "dp_small")
     os.makedirs(out)
     runs = {}
-    for device_type in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        _spawn_dp(_small_dp_rank, (out, device_type), out)
+    t0 = time.perf_counter()
+    _spawn_dp(_small_dp_rank, (out,), out)
+    log(f"dp small: {time.perf_counter() - t0:.1f}s wall (two ranks, card "
+        f"and CPU)")
+    for device_type in REF_DEVICES:
         recs = []
         for r in range(DP_WORLD):
             with open(os.path.join(out, f"small_{device_type}{r}.json")) as f:
                 recs.append(json.load(f))
-        log(f"dp small {device_type}: {time.perf_counter() - t0:.1f}s wall "
-            f"(two ranks on {[r['device'] for r in recs]})")
+        log(f"dp small {device_type}: two ranks on "
+            f"{[r['device'] for r in recs]}")
         for key in ("replicated", "cached"):
             if (recs[0][key] != recs[1][key]
                     or recs[0][f"{key}_digest"] != recs[1][f"{key}_digest"]):
@@ -1488,68 +1531,72 @@ GRID_CASES = [("sharded", "graphsage", True, False),
               ("gat", "gat", True, False)]
 
 
-def _small_grid_rank(rank, rdv, out_dir, device_type, parts, cases):
-    """Phase 8 (a), one rank of a ``world / parts`` x ``parts`` grid: each
-    of ``cases`` on phase 4's small input for GRID_EPOCHS epochs; writes
-    its step losses (the grid's mean) and its digest after each epoch."""
-    import torch
-
+def _small_grid_rank(rank, rdv, out_dir, parts, cases):
+    """Phase 8 (a), one rank of a ``world / parts`` x ``parts`` grid, on
+    the card and then on the CPU: each of ``cases`` on phase 4's small
+    input for GRID_EPOCHS epochs; writes its step losses (the grid's
+    mean) and its digest after each epoch, a file a device."""
     from gnn_tpu_torch.parallel import dist as tdist
-    if device_type == "cpu":
-        torch.set_num_threads(max(1, torch.get_num_threads()
-                                  // rdv.world_size))
-    ctx = tdist.init_dist(rank, rdv, device_type, "gloo", parts)
-    rec = {"device": str(ctx.device)}
+    ctx, views = _join_for(rank, rdv, parts)
+    recs = {}
     try:
-        for name, model, ship_cold, cached in cases:
-            tr, pipe, g = _small_trainer(ctx.device, model,
-                                         ship_cold=ship_cold, ctx=ctx,
-                                         cached=cached)
-            losses, digests = [], []
-            try:
-                for e in range(GRID_EPOCHS):
-                    losses += tr.train_epoch(g.train_nodes, e).step_losses
-                    digests.append(tr.param_digest())
-            finally:
-                pipe.close()
-            rec[name] = losses
-            rec[f"{name}_digests"] = digests
+        for device_type, view in views.items():
+            rec = recs[device_type] = {"device": str(view.device)}
+            for name, model, ship_cold, cached in cases:
+                tr, pipe, g = _small_trainer(view.device, model,
+                                             ship_cold=ship_cold, ctx=view,
+                                             cached=cached)
+                losses, digests = [], []
+                try:
+                    for e in range(GRID_EPOCHS):
+                        losses += tr.train_epoch(g.train_nodes,
+                                                 e).step_losses
+                        digests.append(tr.param_digest())
+                finally:
+                    pipe.close()
+                rec[name] = losses
+                rec[f"{name}_digests"] = digests
     finally:
         tdist.close_dist(ctx)
-    with open(os.path.join(out_dir, f"grid_{device_type}{world_tag(rdv)}"
-                           f"_{rank}.json"), "w") as f:
-        json.dump(rec, f)
+    for device_type, rec in recs.items():
+        with open(os.path.join(out_dir, f"grid_{device_type}"
+                               f"{world_tag(rdv)}_{rank}.json"), "w") as f:
+            json.dump(rec, f)
 
 
 def world_tag(rdv):
     return f"w{rdv.world_size}"
 
 
-def _spawn_grid(world, parts, device_type, cases, out_dir):
+def _spawn_grid(world, parts, cases, out_dir):
+    """One spawn of ``world`` ranks (card and CPU runs); rank 0's record
+    by device type, after checking that every rank's agrees."""
     from gnn_tpu_torch.parallel import dist as tdist
     tdist.JOIN_TIMEOUT_S = DP_JOIN_TIMEOUT_S
     tdist.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
-    tdist.spawn_ranks(world, _small_grid_rank,
-                      (out_dir, device_type, parts, cases),
+    tdist.spawn_ranks(world, _small_grid_rank, (out_dir, parts, cases),
                       rendezvous_dir=out_dir)
-    recs = []
-    for r in range(world):
-        with open(os.path.join(out_dir, f"grid_{device_type}w{world}_{r}"
-                               ".json")) as f:
-            recs.append(json.load(f))
-    for name, *_ in cases:
-        if any(x[name] != recs[0][name]
-               or x[f"{name}_digests"] != recs[0][f"{name}_digests"]
-               for x in recs):
-            fail(f"grid {device_type} {world} ranks {name}: the ranks "
-                 f"disagree: digests "
-                 f"{[x[f'{name}_digests'] for x in recs]}")
-    return recs[0]
+    out = {}
+    for device_type in REF_DEVICES:
+        recs = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"grid_{device_type}w{world}"
+                                   f"_{r}.json")) as f:
+                recs.append(json.load(f))
+        for name, *_ in cases:
+            if any(x[name] != recs[0][name]
+                   or x[f"{name}_digests"] != recs[0][f"{name}_digests"]
+                   for x in recs):
+                fail(f"grid {device_type} {world} ranks {name}: the ranks "
+                     f"disagree: digests "
+                     f"{[x[f'{name}_digests'] for x in recs]}")
+        out[device_type] = recs[0]
+    return out
 
 
 def check_grid_small(save_dir):
-    """Phase 8 (a): phase 4's small input on the grid, card and CPU.
-    GraphSAGE with the node-range feature shards and with the composed
+    """Phase 8 (a): phase 4's small input on the grid, card and CPU (the
+    card's ranks run the CPU cases too, one spawn a grid). GraphSAGE with the node-range feature shards and with the composed
     cache, in full expansion, and GAT, on one data rank x GRID_PARTS part
     ranks; GraphSAGE on two data ranks x GRID_PARTS part ranks. Fails
     unless every rank of a grid logs the same step losses and holds the
@@ -1563,12 +1610,14 @@ def check_grid_small(save_dir):
     out = os.path.join(save_dir, "grid_small")
     os.makedirs(out)
     runs = {}
-    for device_type in ("cuda", "cpu"):
+    t0 = time.perf_counter()
+    ones = _spawn_grid(GRID_PARTS, GRID_PARTS, GRID_CASES, out)
+    grids22 = _spawn_grid(2 * GRID_PARTS, GRID_PARTS, GRID_CASES[:1], out)
+    log(f"grid small spawns: {time.perf_counter() - t0:.1f}s wall (1 x "
+        f"{GRID_PARTS} and 2 x {GRID_PARTS} gloo ranks, card and CPU)")
+    for device_type in REF_DEVICES:
         t0 = time.perf_counter()
-        one = _spawn_grid(GRID_PARTS, GRID_PARTS, device_type, GRID_CASES,
-                          out)
-        grid22 = _spawn_grid(2 * GRID_PARTS, GRID_PARTS, device_type,
-                             GRID_CASES[:1], out)
+        one, grid22 = ones[device_type], grids22[device_type]
         ref = {}
         for name, model, ship_cold, cached in GRID_CASES:
             if name == "cached":
@@ -1588,10 +1637,9 @@ def check_grid_small(save_dir):
             # phase 7 trains DP_EPOCHS epochs; the grid the first ones
             ref["2x2"] = json.load(f)["replicated"][:len(got["2x2"])]
         runs[device_type] = got
-        log(f"grid small {device_type}: {time.perf_counter() - t0:.1f}s "
-            f"wall (1 x {GRID_PARTS} and 2 x {GRID_PARTS} gloo ranks, "
-            f"epochs a case: {GRID_EPOCHS}); every rank's losses and "
-            f"digests equal")
+        log(f"grid small {device_type}: the unsharded runs "
+            f"{time.perf_counter() - t0:.1f}s wall; epochs a case: "
+            f"{GRID_EPOCHS}; every rank's losses and digests equal")
         for name, losses in got.items():
             if len(losses) != len(ref[name]):
                 fail(f"grid small {device_type} {name}: {len(losses)} steps "
@@ -1778,6 +1826,248 @@ def run_grid_gat(save_dir, main_recs):
     return total
 
 
+# phase 9: the entry points' dry run and the halo full-graph trainer. The
+# halo trainer's step losses on one rank and on HALO_WORLD ranks agree to
+# HALO_RTOL: the exchange moves rows exactly, the aggregation sums them in
+# another order (index_add_'s atomics on the card)
+DRYRUN_RANKS = 4
+HALO_RTOL = 1e-4
+HALO_WORLD = 2
+HALO_STEPS = 5
+HALO_SMALL_STEPS = 3
+# (b)'s model: the gcn Laplacian of the CLI's synthetic default graph
+HALO_FULL = dict(orders=(1, 1, 1), nhid=512, lr=0.01, sigmoid_loss=False,
+                 seed=0)
+
+
+def run_dryrun(save_dir):
+    """Phase 9 (a): ``gnn_tpu_torch.entry``. The forward of ``entry`` on
+    the card against the CPU's to AGREE_RTOL, then
+    ``dryrun_multichip(DRYRUN_RANKS)``: four gloo ranks on ``cuda:0``, one
+    epoch a case, each rank counting its kernel launches a case. Fails
+    unless every case's loss is finite on every rank, each rank's
+    part-sharded resident bytes are at most 1.06 / P of the whole state
+    (both checked by ``dryrun_multichip``), K1 launched in the resident
+    stream-tile case and K3 and K4 (terms, bwd_q, bwd_kv) in GAT's.
+    Returns the ranks' launches summed over the cases by JSON name."""
+    import torch
+
+    from gnn_tpu_torch import entry
+    from gnn_tpu_torch.parallel import dist as tdist
+    fn, args = entry.entry("cuda")
+    cfn, cargs = entry.entry("cpu")
+    with torch.no_grad():
+        got, want = fn(*args).cpu().numpy(), cfn(*cargs).numpy()
+    err = float(abs(got - want).max())
+    log(f"entry forward {tuple(got.shape)} on the card against the CPU: "
+        f"max abs err {err:.2e}")
+    if not err <= AGREE_RTOL * float(abs(want).max()):
+        fail(f"entry: the card's forward disagrees: {err:.3e}")
+    tdist.JOIN_TIMEOUT_S = DP_JOIN_TIMEOUT_S
+    tdist.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
+    d = os.path.join(save_dir, "dryrun")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    try:
+        res = entry.dryrun_multichip(DRYRUN_RANKS, "cuda", run_dir=d)
+    except RuntimeError as e:
+        fail(str(e))
+    log(f"dry run: {DRYRUN_RANKS} ranks, {len(res)} cases in "
+        f"{time.perf_counter() - t0:.1f}s wall")
+    if "sharded_resident" not in res:
+        fail("dry run: the part-sharded cases did not run")
+    if not res["resident_stream"]["launches"].get("edgestream.forward"):
+        fail("dry run: K1 was not launched in the stream-tile case")
+    for k in ATTN_KEYS:
+        if not res["gat_stream"]["launches"].get(f"esattn.{k}"):
+            fail(f"dry run: K3/K4 {k} was not launched in GAT's stream-tile "
+                 f"case")
+    keys = {f"{mod}.{key}": name for name, (mod, key), _, _ in KERNELS}
+    total = dict.fromkeys((k[0] for k in KERNELS), 0)
+    for r in res.values():
+        for k, v in r["launches"].items():
+            total[keys[k]] += v
+    return total
+
+
+def _halo_small_kw():
+    """(c)'s input: the tests' small graph, orders 1,1, nhid 32."""
+    import numpy as np
+
+    from gnn_tpu_torch.data.synthetic import make_powerlaw_graph
+    from gnn_tpu_torch.utils.normalize import build_laplacian
+    g = make_powerlaw_graph(2000, 12, 32, 7, seed=0)
+    mask = np.zeros(g.adj_full.shape[0], bool)
+    mask[g.train_nodes] = True
+    return dict(adj=build_laplacian(g.adj_full, "gcn"), feats=g.feats,
+                labels_dense=np.asarray(g.labels.todense(), np.float32),
+                train_mask=mask, orders=(1, 1), nhid=32,
+                num_classes=g.num_classes, lr=0.01, seed=0)
+
+
+def _halo_run(kw, steps, ctx=None):
+    """``steps`` steps of a FullGraphTrainer: one rank on the card, or
+    rank ``ctx.rank`` on ``ctx.device``: losses, step seconds, set-up seconds, peak
+    memory, the plan's figures and the bytes a step this rank sent
+    through the halo exchange."""
+    import torch
+
+    from gnn_tpu_torch.parallel import halo
+    from gnn_tpu_torch.train.fullgraph import FullGraphTrainer
+    dev = ctx.device if ctx is not None else torch.device("cuda")
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr = FullGraphTrainer(dist=ctx, device=dev, **kw)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    setup = time.perf_counter() - t0
+    halo.exchange_bytes["sent"] = 0
+    losses, times = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        losses.append(tr.train_step())      # waits for the device
+        times.append(time.perf_counter() - t)
+    lp = tr.local_plan
+    return dict(losses=losses, step_s=times, setup_s=setup,
+                plan_s=tr.plan_seconds,
+                peak=torch.cuda.max_memory_allocated(dev) if on_card else 0,
+                nnz=int(kw["adj"].nnz), halo_width=tr.plan.halo_width,
+                n_local=tr.plan.n_local,
+                edges_local=int(lp.intra.vals.numel() + lp.halo.vals.numel()),
+                bytes_per_step=halo.exchange_bytes["sent"] / steps)
+
+
+def _halo_rank(rank, rdv, out_dir, bundle_path):
+    """Phase 9 (b) / (c), one rank on the card: (c)'s small input for
+    HALO_SMALL_STEPS steps on the card and on the CPU, then the
+    full-width input attached from the bundle the parent published at
+    ``bundle_path``, HALO_STEPS steps on the card; writes
+    ``halo{rank}.json``."""
+    from gnn_tpu_torch.data.shared import GraphBundle
+    from gnn_tpu_torch.parallel import dist as tdist
+    ctx, views = _join_for(rank, rdv)
+    rec = {"device": str(ctx.device)}
+    keep = []
+    try:
+        for device_type, view in views.items():
+            rec[f"small_{device_type}"] = _halo_run(
+                _halo_small_kw(), HALO_SMALL_STEPS, view)
+        items, keep = GraphBundle.attach(bundle_path)
+        kw = {k: items[k] for k in ("adj", "feats", "labels_dense",
+                                    "train_mask", "num_classes")}
+        rec["full"] = _halo_run(dict(kw, **HALO_FULL), HALO_STEPS, ctx)
+        del items, kw
+    finally:
+        tdist.close_dist(ctx)
+        for seg in keep:
+            seg.close()
+    with open(os.path.join(out_dir, f"halo{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _log_halo(label, r):
+    import numpy as np
+    log(f"halo {label}: set-up {r['setup_s']:.2f}s (the host plan "
+        f"{r['plan_s']:.2f}s), median step "
+        f"{float(np.median(r['step_s'])):.4f}s, peak memory {r['peak']} "
+        f"bytes, n_local {r['n_local']}, halo_width {r['halo_width']}, "
+        f"local edges {r['edges_local']}, halo bytes sent a step "
+        f"{r['bytes_per_step']:.0f}; losses "
+        + " ".join(f"{v:.6f}" for v in r["losses"]))
+
+
+def run_halo(save_dir):
+    """Phase 9 (b) and (c): the halo full-graph trainer. (b) The gcn
+    Laplacian of the CLI's synthetic default graph (100k nodes, degree 50,
+    602 features, 41 classes), orders 1,1,1, nhid 512, softmax CE, lr
+    0.01, seed 0: HALO_STEPS steps on one rank in this process, and on
+    HALO_WORLD gloo ranks sharing ``cuda:0`` that attach the graph from
+    a GraphBundle this process publishes. (c) The tests' small graph,
+    orders 1,1, nhid 32, HALO_SMALL_STEPS steps on the same HALO_WORLD
+    ranks on the card and with CPU tensors. Fails unless (b)'s two runs' step losses agree
+    to HALO_RTOL and fall below the first (at some step), the ranks of a
+    run report the same losses, and
+    (c)'s card run agrees with the CPU run to AGREE_RTOL. Logs the
+    Laplacian's nnz, the plan, the halo bytes a step, the median step,
+    peak memory and set-up seconds (ranks sharing one card: not
+    multi-GPU figures)."""
+    import numpy as np
+    import torch
+
+    from gnn_tpu_torch import cli
+    from gnn_tpu_torch.data.loaders import load_dataset
+    from gnn_tpu_torch.data.shared import GraphBundle
+    from gnn_tpu_torch.parallel import dist as tdist
+    from gnn_tpu_torch.utils.normalize import build_laplacian
+
+    a = cli.build_parser().parse_args([])
+    t0 = time.perf_counter()
+    g = load_dataset(a.dataset, a.data_dir)
+    mask = np.zeros(g.adj_full.shape[0], bool)
+    mask[g.train_nodes] = True
+    kw = dict(adj=build_laplacian(g.adj_full, "gcn"), feats=g.feats,
+              labels_dense=np.asarray(g.labels.todense(), np.float32),
+              train_mask=mask, num_classes=g.num_classes)
+    del g
+    log(f"halo input: {a.dataset} gcn Laplacian, "
+        f"{kw['adj'].shape[0]} nodes, {kw['adj'].nnz} nnz, "
+        f"{kw['feats'].shape[1]} features, {kw['num_classes']} classes, "
+        f"built in {time.perf_counter() - t0:.1f}s")
+    one = _halo_run(dict(kw, **HALO_FULL), HALO_STEPS)
+    _log_halo("full width, 1 rank", one)
+    torch.cuda.empty_cache()
+    out = os.path.join(save_dir, "halo")
+    os.makedirs(out)
+    path = os.path.join(out, "bundle.pkl")
+    bundle = GraphBundle.publish(kw, path)
+    del kw
+    tdist.JOIN_TIMEOUT_S = DP_JOIN_TIMEOUT_S
+    tdist.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
+    try:
+        t0 = time.perf_counter()
+        tdist.spawn_ranks(HALO_WORLD, _halo_rank, (out, path),
+                          rendezvous_dir=out)
+        recs = []
+        for r in range(HALO_WORLD):
+            with open(os.path.join(out, f"halo{r}.json")) as f:
+                recs.append(json.load(f))
+        log(f"halo {HALO_WORLD} ranks on {[x['device'] for x in recs]}: "
+            f"{time.perf_counter() - t0:.1f}s wall")
+    finally:
+        bundle.close()
+    for what in ("small_cuda", "small_cpu", "full"):
+        if any(x[what]["losses"] != recs[0][what]["losses"] for x in recs):
+            fail(f"halo {what}: the ranks disagree")
+    for r, x in enumerate(recs):
+        _log_halo(f"full width, rank {r} of {HALO_WORLD} sharing the card",
+                  x["full"])
+    two = recs[0]["full"]["losses"]
+    rel = _rel(two, one["losses"])
+    log(f"halo full width: {HALO_WORLD} ranks against 1, max rel diff "
+        f"{rel:.2e} on {card()} (ranks share the card: not a multi-GPU "
+        f"figure)")
+    if not rel <= HALO_RTOL:
+        fail(f"halo full width: {HALO_WORLD} ranks and 1 disagree: "
+             f"{rel:.3e}")
+    # the synthetic graph's labels ignore its edges, and Adam's first
+    # steps at lr 0.01 move every weight by about 0.01 (a quarter of the
+    # init's spread), so the loss need not fall step by step: it must
+    # fall below the first step's at some step
+    if not min(one["losses"][1:]) < one["losses"][0]:
+        fail(f"halo full width: loss did not fall: {one['losses']}")
+    c = recs[0]["small_cuda"]["losses"]
+    p = recs[0]["small_cpu"]["losses"]
+    rel = _rel(c, p)
+    log(f"halo small ({HALO_SMALL_STEPS} steps, {HALO_WORLD} ranks): cuda "
+        + " ".join(f"{v:.6f}" for v in c) + ", cpu "
+        + " ".join(f"{v:.6f}" for v in p) + f", max rel diff {rel:.2e}")
+    if not rel <= AGREE_RTOL:
+        fail(f"halo small: cuda and cpu disagree: {rel:.3e}")
+
+
 def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": int(launches),
@@ -1789,6 +2079,7 @@ def _kernel_entry(name, source, replaces, launches, t):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; nothing to drive",
@@ -1867,6 +2158,12 @@ def main() -> int:
                 counts[name] += n
         log(f"phase 8 (the part-sharded grid on one card): "
             f"{time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        for name, n in run_dryrun(save_dir).items():
+            counts[name] += n
+        run_halo(save_dir)
+        log(f"phase 9 (entry, dry run, halo trainer): "
+            f"{time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
 
@@ -1880,6 +2177,8 @@ def main() -> int:
     kernels = [_kernel_entry(name, source, replaces, counts[name],
                              measured[name])
                for name, _, source, replaces in KERNELS]
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s from start to "
+        f"the kernels line")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -432,14 +432,11 @@ def _write_rank_record(save_dir, trainer, cache_stats, row_bytes,
     batches it planned before the test sweep, the test sweep's batches,
     the resident state's and the features' device bytes, the peak device
     memory after set-up, and every kernel's launches in this process."""
-    import importlib
     import json
 
+    from gnn_tpu_torch.ops.cuda_build import launch_counts
     ctx = trainer.dist
-    launches = {}
-    for mod in ("edgestream", "esattn", "spmm", "sddmm"):
-        counter = importlib.import_module(f"gnn_tpu_torch.ops.{mod}").launches
-        launches.update({f"{mod}.{k}": v for k, v in counter.items()})
+    launches = launch_counts()
     rec = {"rank": ctx.rank, "world_size": ctx.world_size,
            "data_rank": ctx.data_rank, "part_rank": ctx.part_rank,
            "parts": ctx.parts,

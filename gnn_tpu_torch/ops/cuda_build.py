@@ -94,3 +94,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _LIBS[name] = lib
         return lib
+
+
+# the modules of gnn_tpu_torch.ops whose wrappers count their kernels'
+# launches (each a ``launches`` Counter)
+KERNEL_MODULES = ("edgestream", "esattn", "spmm", "sddmm")
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launches so far in this process, by
+    ``module.key``."""
+    import importlib
+    out = {}
+    for mod in KERNEL_MODULES:
+        c = importlib.import_module(f"gnn_tpu_torch.ops.{mod}").launches
+        out.update({f"{mod}.{k}": v for k, v in c.items()})
+    return out

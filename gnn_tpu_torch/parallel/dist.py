@@ -46,6 +46,15 @@ data axis of gradients the parts hold bit for bit alike) wherever the
 parts agree, and leaves every rank with the same bits where they do not
 (the card's kernels sum in a run-dependent order), since one collective
 delivers the same sums to all.
+
+The hybrid DP x cache mode (the JAX package's ``CachedFeatures(...,
+axis=PART_AXIS, world_size=dp * P)``): :func:`hybrid_view` of a ``dp x
+P`` grid context makes every rank a data rank with its own batch
+(``parts`` 1, so the gradient sum is one plain ``all_reduce`` over the
+whole world) and hands the grid's part groups to the feature cache
+alone (``cache_parts`` P, :attr:`DistContext.cache_part`): it exchanges
+rows inside groups of P consecutive ranks, and rank r reads buffer
+``r % P``.
 """
 from __future__ import annotations
 
@@ -55,7 +64,7 @@ import datetime
 import os
 import time
 import uuid
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -102,6 +111,11 @@ class DistContext:
     parts: int = 1
     data_group: object = None
     part_group: object = None
+    # the hybrid DP x cache mode (hybrid_view): the feature cache's
+    # buffers sharded over groups of ``cache_parts`` consecutive ranks
+    # (this rank's: ``cache_group``); only the cache exchanges over them
+    cache_parts: int = 1
+    cache_group: object = None
 
     @property
     def is_main(self) -> bool:
@@ -122,6 +136,13 @@ class DistContext:
     @property
     def part(self) -> PartGroup:
         return PartGroup(self.part_rank, self.parts, self.part_group)
+
+    @property
+    def cache_part(self) -> PartGroup:
+        """This rank's place in its cache group: rank ``r`` reads buffer
+        ``r % cache_parts``."""
+        return PartGroup(self.rank % self.cache_parts, self.cache_parts,
+                         self.cache_group)
 
     def data_view(self) -> "DistContext":
         """The data ranks of this rank's part index as a context of their
@@ -241,6 +262,23 @@ def init_dist(rank: int, rdv: Rendezvous, device_type: str,
     ``rank`` of a ``world_size / parts`` x ``parts`` grid."""
     return _join_group(rank, rdv.world_size, device_type, backend,
                        rdv.init_method, rdv.timeout_s, parts)
+
+
+def hybrid_view(ctx: DistContext) -> DistContext:
+    """A grid context's ranks as the hybrid mode's: every rank a data
+    rank of the whole world, the grid's part groups the cache's groups
+    (the same ranks: one data index each)."""
+    return dataclasses.replace(ctx, parts=1, data_group=None,
+                               part_group=None, cache_parts=ctx.parts,
+                               cache_group=ctx.part_group)
+
+
+def process_local_rank_span(total: int, ctx: DistContext
+                            ) -> Tuple[int, int]:
+    """``[start, end)`` of ``total`` work items owned by this rank (one
+    process a rank): host-side loading split over the ranks."""
+    chunk = (total + ctx.world_size - 1) // ctx.world_size
+    return ctx.rank * chunk, min((ctx.rank + 1) * chunk, total)
 
 
 def init_dist_from_env(device_type: str, requested: str,

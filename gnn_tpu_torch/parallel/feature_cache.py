@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -105,8 +105,14 @@ class CachePlan:
 class CachedFeatures:
     """Placement-driven sharded cache with a host fallback
     (``--feature_cache``). Rank r holds buffer r of ``placement``
-    (``placement.num_devs`` must be the world size) on its device; the
-    whole table stays in host RAM, pinned on a card.
+    (``placement.num_devs`` must be the world size, or the size of the
+    group ``part``) on its device; the whole table stays in host RAM,
+    pinned on a card.
+
+    In the hybrid DP x cache mode the exchange runs over ``part``, a
+    group of ``placement.num_devs`` ranks (:attr:`DistContext.cache_part`):
+    rank ``r`` holds buffer ``part.rank`` (``r % P``) and owners are ranks
+    of that group; without ``part`` the group is the whole world.
 
     Per batch, on the host (:meth:`plan`): each valid input row's owner
     and slot from ``placement.device_id_of_nodes[r]`` /
@@ -126,16 +132,22 @@ class CachedFeatures:
     read from the rank's own buffer, from peers and from the host."""
 
     def __init__(self, feats: np.ndarray, placement, ctx: DistContext,
-                 dtype=torch.float32):
-        if placement.num_devs != ctx.world_size:
-            raise ValueError(f"the placement has {placement.num_devs} "
-                             f"buffers for {ctx.world_size} ranks")
+                 dtype=torch.float32, part: Optional[PartGroup] = None):
+        if part is None:
+            part = PartGroup(ctx.rank, ctx.world_size, ctx.group)
+        if placement.num_devs != part.size:
+            raise ValueError(
+                f"the placement has {placement.num_devs} buffers for "
+                f"{ctx.world_size} ranks"
+                + (f" in groups of {part.size}"
+                   if part.size != ctx.world_size else ""))
         self.ctx = ctx
+        self.part = part
         self.dtype = dtype
         self.device = ctx.device
         self.on_card = self.device.type == "cuda"
         self.host = _host_table(feats, dtype, self.on_card)
-        r = ctx.rank
+        r = part.rank
         own = torch.from_numpy(np.asarray(placement.buffers[r], np.int64))
         self.buffer = self.host.index_select(0, own).to(self.device)
         self.owner = np.asarray(placement.device_id_of_nodes[r], np.int64)
@@ -145,7 +157,7 @@ class CachedFeatures:
         self.stats = collections.Counter()
 
     def plan(self, mb) -> CachePlan:
-        ws, r = self.ctx.world_size, self.ctx.rank
+        ws, r = self.part.size, self.part.rank
         nodes = np.asarray(mb.input_nodes, np.int64)
         owner = np.where(np.asarray(mb.input_mask) > 0, self.owner[nodes],
                          -2)
@@ -183,7 +195,7 @@ class CachedFeatures:
     def _exchange(self, plan: CachePlan) -> torch.Tensor:
         """The rows this rank asked its peers for, in ``req_slots``
         order, served by their owners."""
-        meta, group = self.ctx.meta_device, self.ctx.group
+        meta, group = self.ctx.meta_device, self.part.group
         send = torch.tensor(plan.req_counts, dtype=torch.int64, device=meta)
         recv = torch.empty_like(send)
         dist.all_to_all_single(recv, send, group=group)
@@ -208,7 +220,7 @@ class CachedFeatures:
             raise ValueError("CachedFeatures.gather needs the batch's plan")
         x = torch.zeros((input_nodes.shape[0], self.buffer.shape[1]),
                         dtype=torch.float32, device=self.device)
-        if self.ctx.world_size > 1:
+        if self.part.size > 1:
             x.index_copy_(0, plan.remote_pos, self._exchange(plan).float())
         x.index_copy_(0, plan.local_pos,
                       self.buffer.index_select(0, plan.local_slots).float())

@@ -139,9 +139,14 @@ class BatchPipeline:
                 spans = _rank_chunks(n, ws)
                 per_rank = [shuffled[s:e] for s, e in spans]
         else:
-            if len(rank_chunks) != ws:
-                raise ValueError(f"{len(rank_chunks)} rank chunks for "
-                                 f"{ws} ranks")
+            # more lists than ranks (the composed cache's placement has
+            # one a part): every list is shuffled and counts toward the
+            # step count, and rank r samples list r, as in the JAX package
+            if len(rank_chunks) < ws:
+                raise ValueError(
+                    f"{len(rank_chunks)} rank chunks for {ws} ranks: every "
+                    f"rank needs its own list (the JAX pipeline fails "
+                    f"here with an IndexError)")
             per_rank = [
                 c[np.random.default_rng(
                     eid * ws + r).permutation(len(c))]

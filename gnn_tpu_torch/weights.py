@@ -9,6 +9,14 @@ encoder's ``gcs_{i}`` become ``encoder.layers.{i}``: a GAT layer's
 self}.{weight,bias}`` and an order-0 GAT layer's bare ``gcs_{i}/{kernel,
 bias}`` become ``encoder.layers.{i}.{weight,bias}``. Takes numpy arrays
 (or anything ``np.asarray`` accepts), so it needs no JAX.
+
+:func:`fullgraph_params_from_jax` does the same for the full-graph
+trainer's plain parameter dict (`gnn_tpu.train.fullgraph.
+init_fullgraph_params`): ``gcs_{i}/{kernel,bias}`` become
+``gcs.{i}.linear.{weight,bias}``, ``gcs_{i}/{scale,offset}`` become
+``gcs.{i}.{scale,offset}`` and ``head/{kernel,bias}`` become
+``head.{weight,bias}``, for
+`gnn_tpu_torch.train.fullgraph.FullGraphGCN`.
 """
 from __future__ import annotations
 
@@ -41,4 +49,23 @@ def params_from_flax(flax_params) -> Dict[str, torch.Tensor]:
             parts[-1] = "weight"
             a = a.T
         out[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+def fullgraph_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The full-graph trainer's ``{"gcs_{i}": {...}, "head": {...}}``
+    -> torch ``state_dict`` of ``FullGraphGCN``."""
+    out = {}
+    for path, v in _flatten(params):
+        a = np.array(v, np.float32)          # a writable copy
+        layer, leaf = path
+        if layer == "head":
+            prefix = "head."
+        else:
+            prefix = f"gcs.{int(layer.split('_')[1])}."
+            if leaf in ("kernel", "bias"):
+                prefix += "linear."
+        if leaf == "kernel":
+            leaf, a = "weight", a.T
+        out[prefix + leaf] = torch.from_numpy(np.ascontiguousarray(a))
     return out

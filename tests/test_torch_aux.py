@@ -273,3 +273,150 @@ def test_profile_trace_of_epoch_1(fit, tmp_path):
     assert os.listdir(two) == ["trace_epoch1.json"]
     with open(os.path.join(two, "trace_epoch1.json")) as f:
         assert "traceEvents" in f.read(4096)
+
+
+# --- the host modules: reorder, shared memory, the rank span ---
+
+def test_reorder_bit_equal_to_jax(small_graph):
+    """`degree_order`, `reorder_graph` and `reorder_dataset` give the JAX
+    package's arrays bit for bit; the reordered graph keeps its edges,
+    features and labels (the JAX ``test_reorder_preserves_graph``)."""
+    from gnn_tpu.data import reorder as jre
+    from gnn_tpu_torch.data import reorder as tre
+    g = small_graph
+    order = tre.degree_order(g.adj_full)
+    np.testing.assert_array_equal(order, jre.degree_order(g.adj_full))
+    adj, new_of_old = tre.reorder_graph(g.adj_full, order)
+    jadj, jnew = jre.reorder_graph(g.adj_full, order)
+    np.testing.assert_array_equal(new_of_old, jnew)
+    for f in ("indptr", "indices", "data"):
+        np.testing.assert_array_equal(getattr(adj, f), getattr(jadj, f))
+    g2, j2 = tre.reorder_dataset(g), jre.reorder_dataset(g)
+    for f in ("feats", "train_nodes", "valid_nodes", "test_nodes"):
+        np.testing.assert_array_equal(getattr(g2, f), getattr(j2, f))
+    assert (g2.labels != j2.labels).nnz == 0
+    deg = np.asarray(g2.adj_full.sum(axis=1)).ravel()
+    assert np.all(np.diff(deg) <= 1e-6)
+    assert g2.adj_full.nnz == g.adj_full.nnz
+    coo = g.adj_full.tocoo()
+    u, v = coo.row[0], coo.col[0]
+    assert g2.adj_full[new_of_old[u], new_of_old[v]] != 0
+    np.testing.assert_array_equal(g2.feats[new_of_old[u]], g.feats[u])
+
+
+def test_shared_csr_round_trip():
+    """A CSR published in shared memory attaches as the same matrix,
+    under segments named with the port's prefix."""
+    import scipy.sparse as sp
+
+    from gnn_tpu_torch.data.shared import (SharedArray, SharedCSR,
+                                           attach_shared_array,
+                                           attach_shared_csr)
+    m = sp.random(50, 70, density=0.1, format="csr",
+                  random_state=np.random.RandomState(0), dtype=np.float32)
+    with SharedCSR(m) as sh:
+        assert all(n.startswith("gnn_tpu_torch_") for n in sh.handle.names)
+        m2, segs = attach_shared_csr(sh.handle)
+        np.testing.assert_array_equal(m2.toarray(), m.toarray())
+        for s in segs:
+            s.close()
+    a = np.arange(12, dtype=np.int64).reshape(3, 4)
+    owner = SharedArray(a)
+    try:
+        b, seg = attach_shared_array(owner.handle)
+        np.testing.assert_array_equal(b, a)
+        del b
+        seg.close()
+    finally:
+        owner.close()
+
+
+def test_graph_bundle_attach_is_shared_not_copied(tmp_path):
+    """Attaching a published bundle and reading all of it does not grow
+    the attaching process's private (anonymous) memory by anything near
+    the bundle's size (the JAX package's test of the same name)."""
+    import subprocess
+    import sys
+    import textwrap
+
+    import scipy.sparse as sp
+
+    from gnn_tpu_torch.data.shared import GraphBundle
+    rng = np.random.default_rng(0)
+    feats = rng.random((400_000, 32), np.float32)
+    ij = rng.integers(0, 20000, (2, 800_000))
+    lap = sp.csr_matrix((rng.random(800_000, np.float32) + 0.5, tuple(ij)),
+                        shape=(20000, 20000))
+    path = str(tmp_path / "big_bundle.pkl")
+    bundle = GraphBundle.publish(dict(feats=feats, lap=lap, n=20000), path)
+    try:
+        worker = textwrap.dedent(f"""
+            from gnn_tpu_torch.data.shared import GraphBundle
+
+            def rss_anon():
+                with open('/proc/self/status') as f:
+                    for line in f:
+                        if line.startswith('RssAnon'):
+                            return int(line.split()[1]) * 1024
+                return -1
+
+            before = rss_anon()
+            items, keep = GraphBundle.attach({path!r})
+            s = float(items['feats'].sum()) + float(items['lap'].data.sum())
+            grown = rss_anon() - before
+            nbytes = items['feats'].nbytes + items['lap'].data.nbytes
+            assert s != 0 and items['n'] == 20000
+            print(f"GROWN {{grown}} OF {{nbytes}}", flush=True)
+            assert grown < nbytes / 4, (grown, nbytes)
+        """)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, PYTHONPATH=root)
+        r = subprocess.run([sys.executable, "-c", worker], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert "GROWN" in r.stdout
+    finally:
+        bundle.close()
+    assert not os.path.exists(path)
+
+
+@pytest.mark.parametrize("total,world,spans", [
+    (100, 1, [(0, 100)]), (100, 2, [(0, 50), (50, 100)]),
+    (10, 4, [(0, 3), (3, 6), (6, 9), (9, 10)])])
+def test_process_local_rank_span(total, world, spans):
+    """A rank's ``[start, end)`` share of host-side loading: the JAX
+    helper's split by process, here by rank."""
+    from gnn_tpu.parallel.multihost import process_local_rank_span as jspan
+    from gnn_tpu_torch.parallel.dist import (DistContext,
+                                             process_local_rank_span)
+    got = [process_local_rank_span(total, DistContext(rank=r,
+                                                      world_size=world))
+           for r in range(world)]
+    assert got == spans
+    if world == 1:
+        assert jspan(total) == spans[0]
+
+
+def test_attached_bundle_trains_like_the_rebuilt_state(tmp_path):
+    """Two processes: rank 0 builds the set-up and publishes it, rank 1
+    attaches it (its features and Laplacian values in the shared
+    segments) and each trains one epoch alone (rank 0's two batches)
+    from the same weights: the same step losses, bit for bit."""
+    import json
+
+    import torch_dist_worker as dw
+    from gnn_tpu_torch.parallel import dist as tdist
+    saved = tdist.JOIN_TIMEOUT_S, tdist.COLLECTIVE_TIMEOUT_S
+    tdist.JOIN_TIMEOUT_S, tdist.COLLECTIVE_TIMEOUT_S = 300.0, 120.0
+    try:
+        tdist.spawn_ranks(2, dw.bundle_case,
+                          (str(tmp_path), str(tmp_path / "bundle.pkl"),
+                           np.arange(64 * 3)),
+                          rendezvous_dir=str(tmp_path))
+    finally:
+        tdist.JOIN_TIMEOUT_S, tdist.COLLECTIVE_TIMEOUT_S = saved
+    recs = [json.load(open(tmp_path / f"bundle{r}.json")) for r in range(2)]
+    assert recs[0]["shared"] == [False, False]
+    assert recs[1]["shared"] == [True, True]
+    assert len(recs[0]["losses"]) == 2
+    assert recs[1]["losses"] == recs[0]["losses"]

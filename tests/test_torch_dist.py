@@ -154,6 +154,42 @@ def test_rank_batches_match_jax(small_graph, case):
         jp.pool.shutdown(wait=True, cancel_futures=True)
 
 
+def test_more_chunks_than_ranks_sample_like_jax(small_graph):
+    """The composed cache's PaGraph chunks, one a part: two lists for one
+    data rank. Both pipelines shuffle both lists, take the step count
+    over both (the longer list's 4 steps of 64) and sample list 0, bit
+    for bit alike; fewer lists than ranks still raises."""
+    from gnn_tpu.sampling import pipeline as jpl
+    from gnn_tpu_torch.sampling import pipeline as tpl
+    from tests.test_torch_sampler import _cfgs, assert_same_batch
+    lap, jcfg, tcfg = _cfgs(small_graph, "resident", True)
+    jpla, tpla = _placements(small_graph, lap, "pagraph")
+    chunks = [c[:n] for c, n in zip(tpla.train_nodes_per_dev, (100, 200))]
+    for a, b in zip(jpla.train_nodes_per_dev, chunks):
+        np.testing.assert_array_equal(b, a[:len(b)])
+    jp = jpl.BatchPipeline(jcfg, lap, small_graph.labels, world_size=1,
+                           pool_num=2, local_shuffle=True, seed=3)
+    tp = tpl.BatchPipeline(tcfg, lap, small_graph.labels, pool_num=2,
+                           local_shuffle=True, seed=3)
+    try:
+        groups = list(jp._step_groups(None, chunks, 0))
+        got = list(tp.train_epoch(None, chunks, epoch=0))
+        assert len(got) == len(groups) == 4
+        for t, g in zip(got, groups):
+            assert_same_batch(t, g[0])
+        assert tp._rng.bit_generator.state == jp._rng.bit_generator.state
+    finally:
+        tp.close()
+        jp.pool.shutdown(wait=True, cancel_futures=True)
+    two = tpl.BatchPipeline(tcfg, lap, small_graph.labels, pool_num=1,
+                            world_size=2, rank=0)
+    try:
+        with pytest.raises(ValueError, match="1 rank chunks for 2 ranks"):
+            next(two.train_epoch(None, chunks[:1], epoch=0))
+    finally:
+        two.close()
+
+
 def test_sharded_test_sweep_matches_jax(small_graph):
     """The sharded sweep of 3 batches over 2 ranks with locality skews:
     rank r samples batches r, r + 2 with rank (j % 2)'s skew, as the JAX

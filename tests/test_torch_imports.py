@@ -30,6 +30,9 @@ def test_importing_every_module_loads_no_jax():
     assert "gnn_tpu_torch.cli" in names
     assert "gnn_tpu_torch.ops.hotdense" in names
     assert "gnn_tpu_torch.utils.timing" in names
+    for m in ("entry", "parallel.halo", "train.fullgraph", "data.reorder",
+              "data.shared"):
+        assert f"gnn_tpu_torch.{m}" in names, m
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"

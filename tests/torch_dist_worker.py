@@ -222,3 +222,93 @@ def cuda_case(rank, rdv, out_dir, init):
         close_dist(ctx)
     with open(os.path.join(out_dir, f"cuda{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+_BUNDLE_RG = ("row_ptr", "col_idx", "val", "slot_of_node", "row_val",
+              "col_val", "dense", "dense_t")
+
+
+def _publishable(b):
+    """``build``'s set-up as GraphBundle items (arrays, CSRs, numbers)."""
+    g, rg = b["graph"], b["rg"]
+    items = dict(lap=b["lap"], feats=g.feats, labels=g.labels,
+                 train_nodes=g.train_nodes, num_classes=g.num_classes,
+                 hot_nodes=b["cfg"].hot_spec.hot_nodes)
+    for k in _BUNDLE_RG:
+        v = rg[k]
+        items["rg_" + k] = v.numpy() if isinstance(v, torch.Tensor) else v
+    items.update({k: rg[k] for k in ("n", "k", "col_trivial", "val_free")})
+    return items
+
+
+def _from_bundle(items):
+    """``build``'s set-up rebuilt around the attached arrays (no copy)."""
+    import types
+
+    from gnn_tpu_torch.ops.hotdense import HotSpec
+    from gnn_tpu_torch.sampling.ladies import SamplerConfig
+    rg = {k: items["rg_" + k] for k in _BUNDLE_RG}
+    for k in ("dense", "dense_t"):
+        rg[k] = torch.from_numpy(rg[k])
+    rg.update({k: items[k] for k in ("n", "k", "col_trivial", "val_free")})
+    spec = HotSpec(hot_nodes=items["hot_nodes"],
+                   slot_of_node=rg["slot_of_node"], k=items["k"])
+    g = types.SimpleNamespace(feats=items["feats"], labels=items["labels"],
+                              train_nodes=items["train_nodes"],
+                              num_classes=items["num_classes"])
+    cfg = SamplerConfig(num_nodes=items["n"], num_classes=g.num_classes,
+                        adj_format="resident", hot_spec=spec,
+                        resident_val_free=True, resident_stream_tiles=True,
+                        **SAMPLER)
+    return dict(graph=g, lap=items["lap"].tocsr(), cfg=cfg, rg=rg)
+
+
+def _in_segments(a, segs) -> bool:
+    """Whether ``a``'s bytes lie inside one of the shared segments."""
+    lo = a.ctypes.data
+    for seg in segs:
+        base = np.frombuffer(seg.buf, np.uint8).ctypes.data
+        if base <= lo and lo + a.nbytes <= base + seg.size:
+            return True
+    return False
+
+
+def bundle_case(rank, rdv, out_dir, path, targets):
+    """Rank 0 builds the set-up and publishes it as a GraphBundle at
+    ``path``; rank 1 attaches it. Each then trains one epoch alone (a
+    world of one, rank 0's batches) from the same weights and writes its
+    step losses, and whether its feature table and Laplacian values lie
+    in the attached shared-memory segments."""
+    from gnn_tpu_torch.data.shared import GraphBundle
+    from gnn_tpu_torch.models.gnn import build_model
+    ctx = _join(rank, rdv)
+    keep, bundle = [], None
+    try:
+        if rank == 0:
+            b = build()
+            bundle = GraphBundle.publish(_publishable(b), path)
+            ctx.barrier()
+        else:
+            ctx.barrier()
+            items, keep = GraphBundle.attach(path)
+            b = _from_bundle(items)
+        g = b["graph"]
+        init = build_model("graphsage", NHID, SAMPLER["orders"],
+                           g.num_classes, n_feats=g.feats.shape[1],
+                           dropout=0.0).state_dict()
+        tr = make_trainer(b, init, 0)
+        try:
+            m = tr.train_epoch(targets, 0)
+        finally:
+            tr.pipeline.close()
+        shared = [_in_segments(a, keep) for a in (g.feats, b["lap"].data)]
+        rec = {"losses": m.step_losses, "shared": shared}
+        ctx.barrier()
+    finally:
+        for seg in keep:
+            seg.close()
+        if bundle is not None:
+            bundle.close()
+        close_dist(ctx)
+    with open(os.path.join(out_dir, f"bundle{rank}.json"), "w") as f:
+        json.dump(rec, f)
