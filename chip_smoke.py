@@ -141,7 +141,19 @@ Phases (any failure exits non-zero without the final result line):
    multi-GPU figures); (c) the
    tests' small graph, three steps on two ranks on the card and on the
    CPU: the step losses agree to AGREE_RTOL;
-10. a ``kernels`` JSON line, then the result line
+10. grouped dispatch: the CLI defaults for two epochs and a val pass
+   each, eagerly and at ``--steps_per_dispatch 8`` (one CUDA graph
+   replay of 8 steps a group; the 6-step tail replays the one-step graph
+   6 times), in one process and in directories sharing phase 5's set-up
+   caches: every step loss of the grouped run within 1e-3 relative of
+   the eager run's, the val F1s within 1e-3, K1 recorded in both
+   directions for every step of every graph (its launches in the
+   replays: each graph's recorded launches times its replays, since the
+   wrapper's counter sees a capture once and a replay never), the
+   replays covering every step, at most one capture in the second
+   epoch, every capture logged; it logs both runs' median step, the
+   captures and their seconds and the peak memory, beside the card;
+11. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2068,6 +2080,109 @@ def run_halo(save_dir):
         fail(f"halo small: cuda and cpu disagree: {rel:.3e}")
 
 
+# phase 10: the default path at G = 1 (eager steps) and at
+# --steps_per_dispatch GROUP (one CUDA graph replay a group), GROUP_EPOCHS
+# epochs and a val pass each. The two runs sample the same batches and
+# draw the same dropout masks (the generator is registered with the
+# graphs); K1 sums in a run-dependent order and the grouped run's
+# capturable Adam rounds its update in float32, so their step losses
+# agree to GROUP_RTOL and their val F1s to GROUP_F1_TOL, not bit for bit
+GROUP = 8
+GROUP_EPOCHS = 2
+GROUP_RTOL = 1e-3
+GROUP_F1_TOL = 1e-3
+
+
+def run_grouped(save_dir):
+    """Phase 10: the CLI defaults with ``--n_devices 1 --epoch_num
+    GROUP_EPOCHS``, eagerly and at ``--steps_per_dispatch GROUP``, in one
+    process and in directories that share phase 5's set-up caches, every
+    launch counter set to 0 before each run and read after. Fails unless
+    the runs take the same steps, every step loss of the grouped run
+    agrees with the eager run's to GROUP_RTOL and the val F1s to
+    GROUP_F1_TOL, every graph recorded K1's per-step launches of the
+    default path (DEFAULT_PER_STEP) for each of its steps, the replays
+    ran every step, the second epoch captured at most one graph, and
+    every capture is in the rank record and was logged. K1's launches
+    in the grouped run are the counters' (the warm-up steps before each
+    capture, the val passes) plus each graph's captured launches times
+    its replays. Logs both runs' median step (epoch 1's, steady), the
+    captures and their seconds, and each run's peak memory, beside the
+    card. Returns the launch counts of both runs."""
+    import gc
+    import math
+
+    import torch
+
+    runs = {}
+    total = {}
+    for g in (1, GROUP):
+        label = f"G={g}"
+        d = linked_dir(save_dir, f"group{g}")
+        torch.cuda.reset_peak_memory_stats()
+        recs, counts, wall = run_cli(d, [
+            "--n_devices", "1", "--epoch_num", str(GROUP_EPOCHS),
+            "--steps_per_dispatch", str(g)])
+        gc.collect()
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(d, "rank0.json")) as f:
+            rank = json.load(f)
+        eps = log_epochs(label, recs)
+        replayed = rank.get("replayed_launches", {})
+        for name, (mod, key), _, _ in KERNELS:
+            n = counts[name] + (replayed.get(key, 0)
+                                if mod == "edgestream" else 0)
+            total[name] = total.get(name, 0) + n
+        runs[g] = dict(eps=eps, counts=counts, rank=rank, peak=peak)
+        times = eps[-1]["step_times"]
+        log(f"grouped {label}: {wall:.1f}s wall, median step (epoch "
+            f"{eps[-1]['epoch']}) {sorted(times)[len(times) // 2]:.5f}s, "
+            f"peak memory {peak} bytes, launches counted "
+            f"{ {k: v for k, v in counts.items() if v} }, replayed "
+            f"{replayed}, on {card()}")
+    one, grp = runs[1], runs[GROUP]
+    if [len(r["step_losses"]) for r in one["eps"]] != [
+            len(r["step_losses"]) for r in grp["eps"]] or \
+            len(one["eps"]) != GROUP_EPOCHS:
+        fail("grouped: the runs took different steps")
+    rel = max(abs(a - b) / abs(b)
+              for ra, rb in zip(grp["eps"], one["eps"])
+              for a, b in zip(ra["step_losses"], rb["step_losses"]))
+    df1 = max(abs(ra["valid_f1"] - rb["valid_f1"])
+              for ra, rb in zip(grp["eps"], one["eps"]))
+    log(f"grouped: G={GROUP} against G=1, max rel step-loss diff "
+        f"{rel:.3e}, max val F1 diff {df1:.3e}")
+    if not (math.isfinite(rel) and rel <= GROUP_RTOL):
+        fail(f"grouped: step losses differ by {rel:.3e}")
+    if not df1 <= GROUP_F1_TOL:
+        fail(f"grouped: val F1s differ by {df1:.3e}")
+    caps = grp["rank"]["captures"]
+    steps = sum(len(r["step_losses"]) for r in grp["eps"])
+    for c in caps:
+        log(f"grouped capture: {c['steps']} steps, shapes {c['key']}, "
+            f"{c['seconds']:.3f}s, K1 recorded {c['launches']}, "
+            f"{c['replays']} replays")
+        for key, n in (("forward", DEFAULT_PER_STEP[
+                "edge_stream_spmm.forward"]), ("transpose", DEFAULT_PER_STEP[
+                "edge_stream_spmm.transpose"])):
+            if c["launches"].get(key, 0) < n * c["steps"]:
+                fail(f"grouped: a {c['steps']}-step graph recorded "
+                     f"{c['launches']} K1 launches, under {n} {key} a step")
+    replayed_steps = sum(c["steps"] * c["replays"] for c in caps)
+    if replayed_steps != steps:
+        fail(f"grouped: the replays ran {replayed_steps} steps of {steps}")
+    per_epoch = [r["captures"] for r in grp["eps"]]
+    log(f"grouped: captures by epoch {per_epoch}, "
+        f"{sum(c['seconds'] for c in caps):.2f}s in all; peak memory "
+        f"G=1 {one['peak']} / G={GROUP} {grp['peak']} bytes")
+    if per_epoch[1] > 1:
+        fail(f"grouped: epoch 1 captured {per_epoch[1]} graphs")
+    if sum(per_epoch) != len(caps) or any(
+            r["capture_s"] <= 0 for r in grp["eps"] if r["captures"]):
+        fail(f"grouped: captures {per_epoch} by epoch, {len(caps)} logged")
+    return total
+
+
 def _kernel_entry(name, source, replaces, launches, t):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": int(launches),
@@ -2163,6 +2278,11 @@ def main() -> int:
             counts[name] += n
         run_halo(save_dir)
         log(f"phase 9 (entry, dry run, halo trainer): "
+            f"{time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        for name, n in run_grouped(save_dir).items():
+            counts[name] += n
+        log(f"phase 10 (grouped dispatch): "
             f"{time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)

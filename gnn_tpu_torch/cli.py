@@ -51,8 +51,16 @@ Rank 0 alone prints, writes ``metrics.jsonl`` and checkpoints; every
 rank writes ``rank{r}.json`` (its step losses and times, parameter
 digests, bytes summed over its part group, feature-source shares, the
 resident state's device bytes, its peak device memory after set-up and
-its kernel launches) into ``--save_dir``. ``--steps_per_dispatch > 1``
-raises ``NotImplementedError``, by decision.
+its kernel launches) into ``--save_dir``.
+
+``--steps_per_dispatch G`` (one rank, ``--adj_format resident``, a
+model without attention) trains G steps a dispatch: on ``cuda`` one
+replay of a CUDA graph that holds G captured steps, on ``cpu`` the same
+grouped loop eagerly (`gnn_tpu_torch.train.dispatch`). Each group is
+re-padded to the sticky caps of a shape book kept in ``--save_dir``, so
+a rerun starts at the shapes the last run reached. GAT, the other
+formats, ``--feature_cache`` and more than one rank at G > 1 raise
+``NotImplementedError`` before any rank starts.
 """
 from __future__ import annotations
 
@@ -138,7 +146,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"],
                    help="device feature-table dtype")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
-                   help="train steps per dispatch (only 1 is ported)")
+                   help="train steps per dispatch: > 1 replays a CUDA "
+                        "graph of G steps per group on cuda (one rank, "
+                        "resident format, no attention)")
     p.add_argument("--feature_cache", action="store_true",
                    help="placement-driven sharded feature cache: each "
                         "rank holds its placement buffer, other rows come "
@@ -179,11 +189,20 @@ def resolve_training_defaults(args, steps_per_epoch: int = 10**9) -> int:
 
 
 def _check_ported(args) -> None:
-    """Raise NotImplementedError for flags whose paths are not ported."""
-    if args.steps_per_dispatch > 1:
+    """Raise NotImplementedError for flag combinations whose paths are
+    not ported: ``--steps_per_dispatch > 1`` runs one rank on the
+    resident format with a replicated feature table and no attention."""
+    if args.steps_per_dispatch <= 1:
+        return
+    from gnn_tpu_torch.train.dispatch import unported
+    why = unported(ranks=max(args.n_devices, 1) * max(args.resident_parts, 1),
+                   resident=args.adj_format == "resident",
+                   replicated=not args.feature_cache,
+                   attention=args.model == "gat")
+    if why:
         raise NotImplementedError(
-            "--steps_per_dispatch > 1 is not ported to gnn_tpu_torch "
-            "(ROADMAP: decision: no scan dispatch in eager PyTorch)")
+            "--steps_per_dispatch > 1 is not ported for " + ", ".join(why)
+            + " (ROADMAP.md queues the rest)")
 
 
 def grid_parts(args) -> int:
@@ -370,10 +389,18 @@ def train(args, ctx=None):
         scale_factor=scale_factor, adj_format=args.adj_format,
         hot_spec=hot_spec, resident_val_free=val_free,
         resident_stream_tiles=stream_tiles)
+    # the grouped path's sticky shape caps, persisted per configuration
+    # (the JAX CLI's book name)
+    book_tag = (f"{args.dataset.replace('/', '_').replace(':', '_')}"
+                f".{args.model}.{args.sampler}.o{args.orders}"
+                f".s{args.samp_num}.b{args.batch_size}.{args.adj_format}"
+                f".w{n_devices}")
     pipe = BatchPipeline(cfg, lap, graph.labels, pool_num=args.pool_num,
                          per_rank_skew=per_rank_skew,
                          local_shuffle=args.local_shuffle, seed=args.seed,
-                         world_size=n_devices, rank=ctx.data_rank)
+                         world_size=n_devices, rank=ctx.data_rank,
+                         shape_book_path=os.path.join(
+                             args.save_dir, f"{book_tag}.shapebook.json"))
     net = build_model(args.model, args.nhid, orders, graph.num_classes,
                       n_feats=graph.feats.shape[1], seed=args.seed)
     feat_dtype = (torch.bfloat16 if args.feat_dtype == "bfloat16"
@@ -397,7 +424,8 @@ def train(args, ctx=None):
                       sigmoid_loss=args.sigmoid_loss, seed=args.seed,
                       feature_source=source, resident_graph=resident_graph,
                       hot_dense=hot_dense, lr_warmup=lr_warmup, dist=ctx,
-                      resident_parts=args.resident_parts)
+                      resident_parts=args.resident_parts,
+                      steps_per_dispatch=args.steps_per_dispatch)
     setup_peak = (torch.cuda.max_memory_allocated(device)
                   if device.type == "cuda" else 0)
     rank_chunks = None
@@ -431,7 +459,9 @@ def _write_rank_record(save_dir, trainer, cache_stats, row_bytes,
     over the part group), the feature source's row counts over the
     batches it planned before the test sweep, the test sweep's batches,
     the resident state's and the features' device bytes, the peak device
-    memory after set-up, and every kernel's launches in this process."""
+    memory after set-up, every kernel's launches in this process and,
+    under grouped dispatch, the CUDA graph captures and replayed
+    launches."""
     import json
 
     from gnn_tpu_torch.ops.cuda_build import launch_counts
@@ -451,6 +481,13 @@ def _write_rank_record(save_dir, trainer, cache_stats, row_bytes,
            "state_bytes": trainer.state_bytes(),
            "setup_max_memory": setup_peak,
            "test_batches": trainer.test_batches, "launches": launches}
+    if trainer._dispatch is not None:
+        # grouped dispatch: the CUDA graph captures (each with the K1
+        # launches it recorded and its replays) and the launches the
+        # replays ran, which ``launches`` does not see
+        rec["captures"] = trainer._dispatch.captures
+        rec["replayed_launches"] = dict(
+            trainer._dispatch.replayed_launches())
     with open(os.path.join(save_dir, f"rank{ctx.rank}.json"), "w") as f:
         json.dump(rec, f)
 
@@ -497,6 +534,11 @@ def main(argv=None) -> int:
             dist.close_dist(ctx)
         return 0
     n = world_size(args)
+    if n > 1 and args.steps_per_dispatch > 1:
+        # --n_devices 0 on a machine of several cards
+        raise NotImplementedError(
+            f"--steps_per_dispatch > 1 is not ported for {n} ranks "
+            f"(ROADMAP.md queues the rest)")
     if n <= 1:
         train(args)
         return 0

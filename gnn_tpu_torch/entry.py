@@ -20,8 +20,11 @@ part-sharded resident graph (each rank's resident bytes at most 1.06 /
 P of the whole state), its full expansion, the composed cache and the
 hybrid DP x cache mode; and the halo full-graph trainer, partitioned
 over the ``2 x n/2`` grid when there is one, else over the ``n`` ranks.
-The JAX dry run's multi-step scan (``steps_per_dispatch``) is not ported,
-by decision; the dry run says so.
+The JAX dry run's multi-step scan case (``steps_per_dispatch`` 2 on
+every rank) is not ported: grouped dispatch is ported for one rank
+(`gnn_tpu_torch.train.dispatch`, a CUDA graph replay of G steps), and
+its multi-rank case waits for NCCL ranks, since a graph cannot capture
+gloo's host-staged collectives. The dry run says so.
 
     python -m gnn_tpu_torch.entry                 # on the card, 4 ranks
     python -m gnn_tpu_torch.entry --device cpu    # on the CPU
@@ -47,9 +50,10 @@ NHID = 64
 # a rank's resident bytes on the part-sharded grid, as a share of the
 # whole state over P (the node ranges' padding)
 RESIDENT_SLACK = 1.06
-SCAN_NOTE = ("multi-step scan (steps_per_dispatch > 1) not ported, by "
-             "decision: PyTorch runs eagerly, there is no jit dispatch to "
-             "amortize")
+SCAN_NOTE = ("multi-step scan (steps_per_dispatch > 1) on several ranks "
+             "not ported: grouped dispatch runs one rank (a CUDA graph "
+             "replay of G steps); its multi-rank case waits for NCCL ranks "
+             "(gloo's host-staged collectives cannot be captured)")
 
 
 def _tiny_setup(batch_size=32, samp_num=64, n_nodes=512, n_feats=32,

@@ -43,8 +43,18 @@ ECAP = 256
 
 # kernel launches by direction ("forward" / "transpose") and of the
 # segment-grid kernel ("seg"); incremented only where a CUDA kernel is
-# launched
+# launched. A launch recorded into a CUDA graph under capture counts in
+# ``captured`` instead: it runs at each replay of the graph
+# (`gnn_tpu_torch.train.dispatch` multiplies)
 launches: collections.Counter = collections.Counter()
+captured: collections.Counter = collections.Counter()
+
+
+def _count(key: str) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        captured[key] += 1
+    else:
+        launches[key] += 1
 
 
 def _round_up(x: int, m: int) -> int:
@@ -428,7 +438,7 @@ def edge_stream_spmm(tiles: EdgeTiles, x: torch.Tensor, rv: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"edge_stream_spmm: CUDA launch failed "
                            f"(cudaError {err})")
-    launches["transpose" if transpose else "forward"] += 1
+    _count("transpose" if transpose else "forward")
     return y
 
 
@@ -497,5 +507,5 @@ def edge_stream_spmm_seg(tiles: EdgeTiles, seg_ptr: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"edge_stream_spmm_seg: CUDA launch failed "
                            f"(cudaError {err})")
-    launches["seg"] += 1
+    _count("seg")
     return y

@@ -244,22 +244,38 @@ def pack_blocked(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
                       ncols=int(ncols_pad), bm=bm, bk=bk)
 
 
+# per-batch counts of the adjacency dataclasses: they vary between
+# batches of one padded shape, so they ride to the device as tensors
+COUNT_FIELDS = ("n_valid_rows", "n_valid_cols", "n_cold", "n_edges")
+
+
 def to_device(obj, device):
     """Copy a host dataclass's numpy array fields to ``device`` as
-    tensors (0-d arrays and numpy scalars become Python ints). Returns a
-    new dataclass; ``None`` and non-dataclass objects pass through."""
+    tensors. Its counts (:data:`COUNT_FIELDS`, Python or numpy integers)
+    become 0-d int64 tensors on ``device``, all of them in one copy:
+    a CUDA graph captures what a kernel reads from a tensor, but bakes a
+    Python int into the kernel as a constant. The shape fields
+    (``nrows``, ``ncols``, pads) stay Python ints. Returns a new
+    dataclass; ``None`` and non-dataclass objects pass through."""
     if obj is None or not dataclasses.is_dataclass(obj):
         return obj
     fields = {}
+    counts = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
-        if isinstance(v, np.ndarray) and v.ndim == 0:
+        if f.name in COUNT_FIELDS and v is not None:
+            counts[f.name] = int(v)
+        elif isinstance(v, np.ndarray) and v.ndim == 0:
             fields[f.name] = v.item()
         elif isinstance(v, np.generic):
             fields[f.name] = v.item()
         elif isinstance(v, np.ndarray):
             fields[f.name] = torch.from_numpy(
                 np.ascontiguousarray(v)).to(device)
+    if counts:
+        t = torch.tensor(list(counts.values()), dtype=torch.int64).to(
+            device)
+        fields.update({k: t[i] for i, k in enumerate(counts)})
     return dataclasses.replace(obj, **fields)
 
 

@@ -10,20 +10,31 @@ batches are those the JAX pipeline samples for rank r. As the trainer
 runs its val pass and checkpoint after an epoch, the pool already
 samples the next epoch's first batches (cross-epoch priming).
 
-What the JAX pipeline has and this one does not, by decision (ROADMAP):
-``ShapeBook`` and the group stacking/re-padding exist to stop XLA from
-recompiling on new shapes; PyTorch runs eagerly, so each batch keeps the
-shapes its sampler gave it.
+Per-step training (:meth:`BatchPipeline.train_epoch`) keeps the shapes
+the sampler gave each batch. Grouped training (``--steps_per_dispatch
+G``, :meth:`BatchPipeline.train_epoch_grouped`) yields G batches at a
+time re-padded to common shapes, as the JAX pipeline does: the group's
+largest bucket, raised to a :class:`ShapeBook`'s sticky caps. The card
+runs a group as one replay of a CUDA graph captured for those shapes, so
+a new shape means a new capture; the caps only grow, so after the first
+groups every group meets the same shapes. The padded arrays equal, bit
+for bit, those the JAX pipeline's ``train_epoch_grouped`` stacks; the
+port keeps a list of G batches where JAX stacks ``[G, ws, ...]``.
+Only the resident format's layers are re-padded (the one format that
+runs grouped).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import warnings
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from gnn_tpu_torch.ops.residentgraph import ResidentLayerRef
 from gnn_tpu_torch.sampling.ladies import MiniBatch, SamplerConfig, SAMPLERS
 
 
@@ -31,6 +42,122 @@ from gnn_tpu_torch.sampling.ladies import MiniBatch, SamplerConfig, SAMPLERS
 QUEUE_DEPTH = 8
 # steps of the next epoch sampled while the trainer runs an epoch's tail
 PRIME_DEPTH = 6 * QUEUE_DEPTH
+
+
+class ShapeBook:
+    """Sticky per-layer shape caps: every cap only grows, and every group
+    pads up to the recorded maximum, so the number of distinct padded
+    shapes (CUDA graph captures on the card) is the number of growth
+    events, a handful early in the first epoch. Padding is inert (zero
+    edges, zero-count tile entries, unread hot-slot rows), so the
+    results do not change. Keys are ``(layer, nrows, ncols, type,
+    kind)``, as the JAX package's. With a ``path`` the book is loaded
+    from it and rewritten (tmp + rename) on every growth, so a rerun
+    starts at the steady-state caps; a book that cannot be read starts
+    empty."""
+
+    def __init__(self, path: Optional[str] = None):
+        self._caps = {}
+        self._path = path
+        if path is not None and os.path.exists(path):
+            try:
+                with open(path) as f:
+                    self._caps = {str(k): int(v)
+                                  for k, v in json.load(f).items()}
+            except (OSError, ValueError, TypeError, AttributeError) as e:
+                print(f"shape book {path} unusable ({e}); starting empty",
+                      flush=True)
+
+    def cap(self, key: tuple, value: int) -> int:
+        """The cap for ``key``, first raised to ``value``."""
+        k = "|".join(str(x) for x in key)
+        cur = self._caps.get(k, 0)
+        if value > cur:
+            self._caps[k] = cur = value
+            self._save()
+        return cur
+
+    def _save(self):
+        if self._path is None:
+            return
+        tmp = f"{self._path}.{os.getpid()}.tmp"
+        try:
+            with open(tmp, "w") as f:
+                json.dump(self._caps, f)
+            os.replace(tmp, self._path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+
+def _book_cap(book: ShapeBook, l: int, a, kind: str, value: int) -> int:
+    """Sticky cap keyed by (layer, padded shape, type, kind)."""
+    return book.cap((l, a.nrows, a.ncols, type(a).__name__, kind), value)
+
+
+def _unify_layer(layer: List[ResidentLayerRef], l: int,
+                 book: ShapeBook) -> List[ResidentLayerRef]:
+    """One layer's resident refs of a group, re-padded to common shapes:
+    the group's largest, raised to the book's caps (the JAX pipeline's
+    ``_unify_layer`` for ``ResidentLayerRef``). The lite COO's arrays pad
+    with zero-valued edges at the last row, the stream tiles with
+    zero-count entries (``repad_tiles``); ``e_cap``, ``rh_pad`` and
+    ``ch_pad`` size device buffers and take the group's maximum."""
+    if not isinstance(layer[0], ResidentLayerRef):
+        raise TypeError(
+            f"grouped dispatch re-pads the resident format's layers only, "
+            f"not {type(layer[0]).__name__} (ROADMAP.md)")
+    nnz = _book_cap(book, l, layer[0], "nnz",
+                    max(x.nnz_cold for x in layer))
+
+    def ext(a, fill=0):
+        if a is None or a.shape[0] == nnz:
+            return a
+        return np.concatenate(
+            [a, np.full(nnz - a.shape[0], fill, a.dtype)])
+
+    if layer[0].cols is not None:
+        layer = [dataclasses.replace(a, cols=ext(a.cols),
+                                     rows=ext(a.rows, a.nrows - 1),
+                                     vals=ext(a.vals)) for a in layer]
+    if layer[0].es_rc is not None:
+        from gnn_tpu_torch.ops.edgestream import repad_tiles
+        nbp = _book_cap(book, l, layer[0], "nbp",
+                        max(x.es_rc.shape[0] for x in layer))
+        ncr = _book_cap(book, l, layer[0], "ncr",
+                        max(x.es_coords.shape[0] for x in layer))
+        fixed = []
+        for a in layer:
+            c2, rc2, off2, ord2, v2 = repad_tiles(
+                a.es_coords, a.es_rc, a.es_off, a.es_ord, nbp, ncr,
+                a.nrows // a.es_bm, a.ncols // a.es_bk, vals=a.es_vals)
+            fixed.append(dataclasses.replace(
+                a, es_coords=c2, es_rc=rc2, es_off=off2, es_ord=ord2,
+                es_vals=v2))
+        layer = fixed
+    caps = dict(
+        e_cap=_book_cap(book, l, layer[0], "ecap",
+                        max(x.e_cap for x in layer)),
+        nnz_cold=nnz,
+        rh_pad=_book_cap(book, l, layer[0], "rh",
+                         max(x.rh_pad for x in layer)),
+        ch_pad=_book_cap(book, l, layer[0], "ch",
+                         max(x.ch_pad for x in layer)))
+    return [dataclasses.replace(a, **caps) for a in layer]
+
+
+def unify_group(mbs: List[MiniBatch], book: ShapeBook) -> List[MiniBatch]:
+    """A group's batches with every layer re-padded to the group's common
+    shapes (:func:`_unify_layer`); the node sets and labels already share
+    the sampler's static caps."""
+    out = [dataclasses.replace(mb, adjs=list(mb.adjs)) for mb in mbs]
+    for l in range(len(mbs[0].adjs)):
+        if mbs[0].adjs[l] is None:
+            continue
+        for mb, a in zip(out, _unify_layer([mb.adjs[l] for mb in mbs], l,
+                                           book)):
+            mb.adjs[l] = a
+    return out
 
 
 def _rank_chunks(n_targets: int, world_size: int):
@@ -59,13 +186,16 @@ class BatchPipeline:
                  pool_num: int = 4,
                  per_rank_skew: Optional[List[List[np.ndarray]]] = None,
                  local_shuffle: bool = False, seed: int = 0,
-                 world_size: int = 1, rank: int = 0):
+                 world_size: int = 1, rank: int = 0,
+                 shape_book_path: Optional[str] = None):
         """``per_rank_skew``: per-layer skew lists, one per placement
         buffer (each rank skews toward its own resident nodes, reference
         ``sampler.py:23-25``); rank r samples its batches with list
         ``r % len(per_rank_skew)``, the JAX pipeline's rule (the composed
         ``--resident_parts --feature_cache`` placement has one buffer a
-        part, which may be fewer than the data ranks)."""
+        part, which may be fewer than the data ranks).
+        ``shape_book_path``: where the grouped path's :class:`ShapeBook`
+        persists (None: in memory only)."""
         if not 0 <= rank < world_size:
             raise ValueError(f"rank {rank} of {world_size}")
         self.cfg = cfg
@@ -82,6 +212,7 @@ class BatchPipeline:
         self.pool = ThreadPoolExecutor(max_workers=pool_num)
         self.local_shuffle = local_shuffle
         self._sampler = SAMPLERS[cfg.sampler]
+        self.shape_book = ShapeBook(shape_book_path)
         self._seed = seed
         self._rng = np.random.default_rng(seed)
         self._epoch = 0
@@ -200,8 +331,10 @@ class BatchPipeline:
 
     def train_epoch(self, target_nodes: np.ndarray,
                     rank_chunks: Optional[List[np.ndarray]] = None,
-                    epoch: Optional[int] = None) -> Iterator[MiniBatch]:
-        """Yield this rank's minibatches of one epoch. Passing ``epoch``
+                    epoch: Optional[int] = None,
+                    depth: int = QUEUE_DEPTH) -> Iterator[MiniBatch]:
+        """Yield this rank's minibatches of one epoch, keeping ``depth``
+        steps sampled ahead. Passing ``epoch``
         pins the epoch's shuffle and sampling randomness to (seed, epoch)
         and primes epoch + 1 once this epoch is submitted (up to
         ``final_epoch``). A primed epoch is adopted only for the same
@@ -242,7 +375,7 @@ class BatchPipeline:
             if submitted == num_steps:
                 maybe_prime()
 
-        while submitted < min(num_steps, QUEUE_DEPTH):
+        while submitted < min(num_steps, depth):
             submit()
         if submitted >= num_steps:
             maybe_prime()
@@ -251,6 +384,30 @@ class BatchPipeline:
             if submitted < num_steps:
                 submit()
             yield fut.result()
+
+    def train_epoch_grouped(self, target_nodes: np.ndarray,
+                            rank_chunks: Optional[List[np.ndarray]] = None,
+                            epoch: Optional[int] = None, group: int = 1
+                            ) -> Iterator[Tuple[List[MiniBatch], int]]:
+        """Yield ``(batches, n_valid)``: ``group`` consecutive batches of
+        :meth:`train_epoch` re-padded to common shapes
+        (:func:`unify_group`, the pipeline's :attr:`shape_book`). The
+        last group, when the epoch's steps do not divide by ``group``,
+        repeats its last batch up to ``group`` and carries ``n_valid <
+        group``: only its first ``n_valid`` batches are steps. About two
+        groups are sampled ahead, so the pool works while a group
+        trains."""
+        pending: List[MiniBatch] = []
+        for mb in self.train_epoch(target_nodes, rank_chunks, epoch,
+                                   depth=max(QUEUE_DEPTH, 2 * group + 1)):
+            pending.append(mb)
+            if len(pending) == group:
+                yield unify_group(pending, self.shape_book), group
+                pending = []
+        if pending:
+            n_valid = len(pending)
+            pending += [pending[-1]] * (group - n_valid)
+            yield unify_group(pending, self.shape_book), n_valid
 
     def eval_batches(self, target_nodes: np.ndarray, batch_size: int,
                      mode: str = "val") -> Iterator[MiniBatch]:

@@ -92,7 +92,8 @@ class EpochMetrics:
     across ranks). ``skew_share`` is the mean share of a batch's layer-0 input
     nodes in the locality skew set (NaN without locality sampling).
     ``step_losses``/``step_times`` hold each training step's loss and
-    host-clock seconds (the step ends with the loss read back)."""
+    host-clock seconds (the step ends with the loss read back; under
+    grouped dispatch, a group's seconds divided over its steps)."""
 
     epoch: int
     train_loss: float
@@ -115,6 +116,10 @@ class EpochMetrics:
     # bytes this rank reduced over its part group in the epoch's training
     # steps (part-sharded runs; 0 elsewhere)
     part_bytes: int = 0
+    # CUDA graphs captured in the epoch and their seconds (grouped
+    # dispatch on the card), kept out of the step times
+    captures: int = 0
+    capture_time: float = 0.0
     step_losses: List[float] = dataclasses.field(default_factory=list)
     step_times: List[float] = dataclasses.field(default_factory=list)
 

@@ -3,8 +3,9 @@ to the device, rebuilding its adjacencies, the per-rank gradient clip and
 the sum of the clipped gradients across ranks. The per-step recipe itself
 (forward -> masked loss -> backward -> clip at 5 on each rank -> sum
 across ranks -> Adam) lives in `gnn_tpu_torch.train.trainer.Trainer`.
-``jit``/``shard_map`` have no counterpart here: PyTorch runs eagerly,
-one process per rank. On the ``data x part`` grid the sum spans every
+``shard_map`` has no counterpart here: PyTorch runs one process per
+rank; the jitted ``lax.scan`` of G steps is a CUDA graph replay
+(`gnn_tpu_torch.train.dispatch`). On the ``data x part`` grid the sum spans every
 rank and is scaled by ``1 / parts`` (`gnn_tpu_torch.parallel.dist.
 grid_gradient_sum_`)."""
 from __future__ import annotations
@@ -37,10 +38,13 @@ class DeviceBatch:
 def to_device_batch(mb: MiniBatch, device,
                     feature_source=None) -> DeviceBatch:
     """Copy a host batch to ``device``: every adjacency's numpy arrays
-    become tensors of the same dtype (int16 cols stay int16), 0-d counts
-    Python ints. An adjacency object that several layers share (the
-    subgraph sampler's square layer) is copied once and stays shared.
-    With a ``feature_source``, the batch carries its plan."""
+    become tensors of the same dtype (int16 cols stay int16), its counts
+    0-d int64 tensors on ``device`` and its shapes Python ints
+    (`gnn_tpu_torch.ops.sparse.to_device`: a CUDA graph replays what a
+    tensor holds but bakes an int in). An adjacency object that several
+    layers share (the subgraph sampler's square layer) is copied once and
+    stays shared. With a ``feature_source``, the batch carries its
+    plan."""
     def t(a):
         return torch.from_numpy(a).to(device)
     moved = {}

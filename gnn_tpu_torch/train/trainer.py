@@ -69,7 +69,7 @@ class Trainer(EvalMixin, OpTimingMixin):
                  hot_dense=None, lr_warmup: int = 0,
                  grad_clip: float = 5.0, device="cuda",
                  dist: Optional[DistContext] = None,
-                 resident_parts: int = 0):
+                 resident_parts: int = 0, steps_per_dispatch: int = 1):
         if dist is None:
             dist = DistContext(device=resolve_device(device))
         parts = max(int(resident_parts), 1)
@@ -95,8 +95,26 @@ class Trainer(EvalMixin, OpTimingMixin):
         self.lr = lr
         self.lr_warmup = int(lr_warmup)
         self.grad_clip = grad_clip
+        self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
+        if self.steps_per_dispatch > 1:
+            from gnn_tpu_torch.models.gat import GATEncoder
+            from gnn_tpu_torch.train.dispatch import unported
+            why = unported(
+                ranks=dist.world_size, resident=resident_graph is not None,
+                replicated=isinstance(self.feature_source,
+                                      ReplicatedFeatures),
+                attention=isinstance(self.net.encoder, GATEncoder))
+            if why:
+                raise NotImplementedError(
+                    "steps_per_dispatch > 1 is not ported for "
+                    + ", ".join(why) + " (ROADMAP.md)")
+        # grouped dispatch on the card captures Adam's step into a CUDA
+        # graph, which needs its state and step count on the device
+        self._capturable = (self.steps_per_dispatch > 1
+                            and self.device.type == "cuda")
         self.optimizer = torch.optim.Adam(self.net.parameters(),
-                                          lr=self._lr_at(0))
+                                          lr=self._lr_at(0),
+                                          capturable=self._capturable)
         self.n_updates = 0
         # resident-graph mode: slot table, rank-1 factors and hot blocks
         # live on the device; batches carry ResidentLayerRefs. Hot format
@@ -124,6 +142,10 @@ class Trainer(EvalMixin, OpTimingMixin):
         # package folds in the replica index, and the part ranks of one
         # data rank the same
         self.generator = torch.Generator(device=self.device)
+        self._dispatch = None
+        if self.steps_per_dispatch > 1:
+            from gnn_tpu_torch.train.dispatch import GroupedDispatch
+            self._dispatch = GroupedDispatch(self, self.steps_per_dispatch)
         self.best_val = -1.0
         self.best_params = None
         self.history: List[EpochMetrics] = []
@@ -137,8 +159,18 @@ class Trainer(EvalMixin, OpTimingMixin):
         return self.lr / 100.0 + (self.lr - self.lr / 100.0) * frac
 
     def train_step(self, batch) -> torch.Tensor:
-        """One optimizer step on a device batch; returns the loss (across
-        ranks, their mean)."""
+        """One optimizer step on a device batch at the lr of update
+        ``n_updates``; returns the loss (across ranks, their mean)."""
+        for group in self.optimizer.param_groups:
+            group["lr"] = self._lr_at(self.n_updates)
+        loss = self._step(batch)
+        self.n_updates += 1
+        return loss
+
+    def _step(self, batch) -> torch.Tensor:
+        """Forward, loss, backward, clip, the sum across ranks and Adam at
+        the param groups' lr; no host sync (grouped dispatch captures it
+        into a CUDA graph)."""
         x = self.feature_source.gather(batch.input_nodes, batch.input_mask,
                                        batch.feat_plan)
         adjs = prepare_adjs(batch, self.agg_state)
@@ -155,10 +187,7 @@ class Trainer(EvalMixin, OpTimingMixin):
             total = loss.reshape(1).clone()
             sum_gradients_(self.net.parameters(), [total], self.dist)
             loss = total[0] / self.dist.dp
-        for group in self.optimizer.param_groups:
-            group["lr"] = self._lr_at(self.n_updates)
         self.optimizer.step()
-        self.n_updates += 1
         return loss
 
     def state_bytes(self) -> dict:
@@ -183,13 +212,18 @@ class Trainer(EvalMixin, OpTimingMixin):
 
     def train_epoch(self, train_nodes, epoch: int, rank_chunks=None,
                     keep_last_batch: bool = False) -> EpochMetrics:
-        """One epoch of training steps. ``keep_last_batch`` keeps the
-        epoch's last device batch as ``self.last_batch`` (the op-timing
-        probe's operands); otherwise ``last_batch`` is None."""
+        """One epoch of training steps, in groups of
+        ``steps_per_dispatch`` (`gnn_tpu_torch.train.dispatch`) when it is
+        above 1. ``keep_last_batch`` keeps the epoch's last device batch
+        as ``self.last_batch`` (the op-timing probe's operands); otherwise
+        ``last_batch`` is None."""
         # epoch-deterministic randomness (sampling seeds, dropout)
         self.generator.manual_seed(self._seed * 1_000_003 + epoch
                                    + (self.dist.data_rank << 32))
         self.net.train()
+        if self._dispatch is not None:
+            return self._dispatch.train_epoch(train_nodes, epoch,
+                                              rank_chunks, keep_last_batch)
         t_sample = t_move = t_exec = 0.0
         losses, times, shares = [], [], []
         bytes_before = sum(part_bytes.values())
@@ -309,6 +343,7 @@ class Trainer(EvalMixin, OpTimingMixin):
                             total_s=m.total_time,
                             step_losses=m.step_losses,
                             step_times=m.step_times,
+                            captures=m.captures, capture_s=m.capture_time,
                             device_memory=device_memory_stats())
             if new_sf != self.pipeline.cfg.scale_factor:
                 self.pipeline.cfg = dataclasses.replace(
@@ -322,7 +357,7 @@ class Trainer(EvalMixin, OpTimingMixin):
                     if main:
                         save_checkpoint(
                             checkpoint_dir, self.best_params, step=epoch,
-                            opt_state=self.optimizer.state_dict(),
+                            opt_state=self._opt_state(),
                             n_updates=self.n_updates,
                             best_val=self.best_val)
                     self.dist.barrier()
@@ -340,7 +375,7 @@ class Trainer(EvalMixin, OpTimingMixin):
                                                     save_checkpoint)
         if self.dist.is_main:
             save_checkpoint(ckpt_dir, self.net.state_dict(), step=step,
-                            opt_state=self.optimizer.state_dict(),
+                            opt_state=self._opt_state(),
                             n_updates=self.n_updates, name="latest",
                             best_val=self.best_val)
         self.dist.barrier()
@@ -355,9 +390,31 @@ class Trainer(EvalMixin, OpTimingMixin):
         self.net.load_state_dict(params)
         if opt_state is not None:
             self.optimizer.load_state_dict(opt_state)
+            if self._capturable:
+                for group in self.optimizer.param_groups:
+                    group["capturable"] = True
+                for st in self.optimizer.state.values():
+                    st["step"] = st["step"].to(self.device)
             self.n_updates = n_updates
+            if self._dispatch is not None:
+                # captured graphs read the replaced state tensors
+                self._dispatch.clear()
         self.best_val = max(self.best_val, best_val)
         return step
+
+    def _opt_state(self) -> dict:
+        """Adam's state dict in the eager layout whatever the dispatch
+        (``capturable`` off, each step count a CPU tensor), so a
+        checkpoint resumes at any ``steps_per_dispatch``."""
+        sd = self.optimizer.state_dict()
+        if not self._capturable:
+            return sd
+        return {"state": {k: {n: v.detach().cpu() if n == "step" else v
+                              for n, v in st.items()}
+                          for k, st in sd["state"].items()},
+                "param_groups": [dict(g, capturable=False)
+                                 for g in sd["param_groups"]]}
+
 
 
 @contextlib.contextmanager

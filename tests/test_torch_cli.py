@@ -2,7 +2,8 @@
 defaults plus ``--device``, CPU runs end to end on every ported format,
 the JAX package's format rules, the single-device extras (locality
 sampling, resume, op timing, profiling), the launch of the ``data x
-part`` grid, and ``NotImplementedError`` for ``--steps_per_dispatch``."""
+part`` grid, grouped dispatch (``--steps_per_dispatch``) and the
+``NotImplementedError`` of its combinations not ported."""
 import json
 import math
 import os
@@ -156,9 +157,33 @@ def test_ported_flags_run(tmp_path, flag):
         assert os.listdir(flag[1]) == ["trace_epoch1.json"]
 
 
-@pytest.mark.parametrize("flag", [["--steps_per_dispatch", "4"]])
-def test_unported_flags_raise(tmp_path, flag):
-    """Scan dispatch raises before any rank starts."""
+def test_grouped_dispatch_trains_on_cpu(tmp_path):
+    """``--steps_per_dispatch 4`` trains one epoch on the CPU: the 12
+    steps of 720 train nodes as three groups of four, every
+    step's loss finite and timed, no capture off the card, and the shape
+    book written in ``--save_dir``."""
+    save = str(tmp_path / "save")
+    assert tcli.main(TINY + ["--device", "cpu", "--steps_per_dispatch",
+                             "4", "--save_dir", save]) == 0
+    (rec,) = [json.loads(l) for l in open(os.path.join(save,
+                                                       "metrics.jsonl"))]
+    assert len(rec["step_losses"]) == len(rec["step_times"]) == 12
+    assert all(math.isfinite(v) for v in rec["step_losses"])
+    assert rec["captures"] == 0 and rec["capture_s"] == 0.0
+    assert any(f.endswith(".shapebook.json") for f in os.listdir(save))
+
+
+@pytest.mark.parametrize("flag", [
+    ["--steps_per_dispatch", "4", "--model", "gat"],
+    ["--steps_per_dispatch", "4", "--adj_format", "hot"],
+    ["--steps_per_dispatch", "4", "--n_devices", "2"],
+    ["--steps_per_dispatch", "4", "--feature_cache"]])
+def test_unported_flags_raise(tmp_path, monkeypatch, flag):
+    """Grouped dispatch with GAT, another format, more than one rank or
+    the feature cache raises before any rank starts."""
+    from gnn_tpu_torch.parallel import dist
+    monkeypatch.setattr(dist, "spawn_ranks", lambda *a, **k: pytest.fail(
+        "a rank was started"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(TINY + ["--device", "cpu", "--save_dir",
                           str(tmp_path)] + flag)

@@ -23,7 +23,9 @@ GRID_CASES = ["sharded_resident", "full_expansion", "composed",
               "hybrid_cache"]
 
 
-def test_entry_matches_the_jax_forward():
+def _entries_agree():
+    """The JAX entry and the port's on the CPU: the same batch, and the
+    same logits within 1e-5 from the flax weights carried across."""
     import __graft_entry__ as jentry
     import jax
 
@@ -43,6 +45,31 @@ def test_entry_matches_the_jax_forward():
     # (no dropout: two calls agree bit for bit)
     a, b = fn(params, x, adjs, sampled), fn(params, x, adjs, sampled)
     assert a.shape == want.shape and torch.equal(a, b)
+
+
+def test_entry_matches_the_jax_forward():
+    """Both entries sample outside a pipeline, so both native samplers
+    are pinned to one width first (an earlier test in this process may
+    have left either at any width)."""
+    from torch_sampler_width import same_sampler_width
+    same_sampler_width()
+    _entries_agree()
+
+
+def test_entry_agrees_after_the_widths_diverge():
+    """Each library set to a different width, as a pipeline built by an
+    earlier test leaves it; the pinned helper brings them to one width
+    and the entries agree again."""
+    from gnn_tpu import native as jnative
+    from gnn_tpu_torch import native as tnative
+    from torch_sampler_width import same_sampler_width
+    jlib, tlib = jnative.get_lib(), tnative.get_lib()
+    if jlib is None or tlib is None:
+        pytest.skip("a native sampler library does not load")
+    jlib.set_threads(1)
+    tlib.set_threads(3)
+    same_sampler_width()
+    _entries_agree()
 
 
 @pytest.mark.parametrize("n", [2, 4])

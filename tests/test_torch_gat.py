@@ -38,6 +38,7 @@ from gnn_tpu_torch.ops import residentgraph as trg
 from gnn_tpu_torch.ops.sparse import to_device
 from gnn_tpu_torch.sampling import ladies as tlad
 from gnn_tpu_torch.weights import params_from_flax
+from torch_sampler_width import same_sampler_width
 
 OUT_TOL = dict(rtol=1e-4, atol=1e-4)
 GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
@@ -65,6 +66,7 @@ def _layers(graph, stream, hot_k=256, model="graphsage", seed=11):
     tg = trg.ResidentGraph.from_host(
         trg.build_resident_graph(lap, tspec, td, tdt), "cpu")
     tgt = graph.train_nodes[:64]
+    same_sampler_width()
     jmb = jlad.ladies_sample(jlad.SamplerConfig(hot_spec=jspec, **kw), seed,
                              tgt, lap, graph.labels)
     tmb = tlad.ladies_sample(tlad.SamplerConfig(hot_spec=tspec, **kw), seed,

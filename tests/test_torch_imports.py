@@ -31,7 +31,7 @@ def test_importing_every_module_loads_no_jax():
     assert "gnn_tpu_torch.ops.hotdense" in names
     assert "gnn_tpu_torch.utils.timing" in names
     for m in ("entry", "parallel.halo", "train.fullgraph", "data.reorder",
-              "data.shared"):
+              "data.shared", "train.dispatch"):
         assert f"gnn_tpu_torch.{m}" in names, m
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"

@@ -39,6 +39,7 @@ from gnn_tpu_torch.parallel import shardedresident as tsr
 from gnn_tpu_torch.parallel.dist import PartGroup
 from gnn_tpu_torch.placement import engine as teng
 from gnn_tpu_torch.sampling import ladies as tlad
+from torch_sampler_width import same_sampler_width
 
 N_PARTS = 4
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -70,17 +71,6 @@ class ThreadPart(PartGroup):
 
     def all_reduce_(self, t, op):
         self.meeting.reduce(self.rank, t, op)
-
-
-def same_sampler_width(threads=2):
-    """Both packages' native samplers at one OpenMP width: their draws
-    follow it, and a pipeline built earlier in this process may have set
-    either (ROADMAP §3)."""
-    from gnn_tpu import native as jnative
-    from gnn_tpu_torch import native as tnative
-    for lib in (jnative.get_lib(), tnative.get_lib()):
-        if lib is not None:
-            lib.set_threads(threads)
 
 
 def run_parts(n_parts, fn):

@@ -22,6 +22,7 @@ from gnn_tpu_torch.ops.sparse import (spmm as tspmm,
                                       spmm_transpose as tspmm_t,
                                       to_device)
 from gnn_tpu_torch.sampling import ladies as tlad
+from torch_sampler_width import same_sampler_width
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -72,6 +73,7 @@ def test_materialized_layers_match_jax(small_graph, stream, norm,
                                        weighted):
     lap, jg, jcfg, tg, tcfg = _both(small_graph, stream, norm, weighted)
     tgt = small_graph.train_nodes[:64]
+    same_sampler_width()
     jmb = jlad.ladies_sample(jcfg, 5, tgt, lap, small_graph.labels)
     tmb = tlad.ladies_sample(tcfg, 5, tgt, lap, small_graph.labels)
     jadjs = jrg.materialize_adjs(
@@ -129,6 +131,7 @@ def test_bf16_hot_block_matches_jax(small_graph):
     tg = trg.ResidentGraph.from_host(
         trg.build_resident_graph(lap, tspec, td, tdt), "cpu")
     tgt = small_graph.train_nodes[64:128]
+    same_sampler_width()
     jmb = jlad.ladies_sample(jlad.SamplerConfig(hot_spec=jspec, **kw), 9,
                              tgt, lap, small_graph.labels)
     tmb = tlad.ladies_sample(tlad.SamplerConfig(hot_spec=tspec, **kw), 9,
@@ -149,6 +152,7 @@ def test_bf16_hot_block_matches_jax(small_graph):
 
 
 def _materialize_both(jg, jcfg, tg, tcfg, lap, graph, seed, tgt):
+    same_sampler_width()
     jmb = jlad.ladies_sample(jcfg, seed, tgt, lap, graph.labels)
     tmb = tlad.ladies_sample(tcfg, seed, tgt, lap, graph.labels)
     jadjs = jrg.materialize_adjs(

@@ -15,6 +15,7 @@ from gnn_tpu.utils.normalize import build_laplacian
 from gnn_tpu_torch.ops.hotdense import HotSpec as THotSpec
 from gnn_tpu_torch.sampling import ladies as tlad
 from gnn_tpu_torch.sampling import pipeline as tpl
+from torch_sampler_width import same_sampler_width
 
 MB_FIELDS = ["input_nodes", "input_mask", "labels", "label_mask",
              "batch_nodes"]
@@ -81,6 +82,7 @@ def test_ladies_sample_matches_jax(small_graph, adj_format, stream,
                             ship_cold=ship_cold)
     for seed, lo in [(5, 0), (11, 200)]:
         tgt = small_graph.train_nodes[lo:lo + 64]
+        same_sampler_width()
         jmb = jlad.ladies_sample(jcfg, seed, tgt, lap, small_graph.labels)
         tmb = tlad.ladies_sample(tcfg, seed, tgt, lap, small_graph.labels)
         assert_same_batch(tmb, jmb)
@@ -130,6 +132,7 @@ def test_subgraph_sample_matches_jax(small_graph, adj_format, stream,
     assert tlad.SAMPLERS["subgraph"] is tlad.subgraph_sample
     for seed, lo in [(5, 0), (11, 200)]:
         tgt = small_graph.train_nodes[lo:lo + 64]
+        same_sampler_width()
         jmb = jlad.subgraph_sample(jcfg, seed, tgt, lap, small_graph.labels)
         tmb = tlad.subgraph_sample(tcfg, seed, tgt, lap, small_graph.labels)
         assert_same_batch(tmb, jmb)

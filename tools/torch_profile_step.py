@@ -8,6 +8,7 @@
         --dataset synthetic:nodes=50000,deg=30 --samp_num 2048 --batch_size 512
     python3 tools/torch_profile_step.py --adj_format hot
     python3 tools/torch_profile_step.py --sampler subgraph
+    python3 tools/torch_profile_step.py --epoch --steps_per_dispatch 8
 
 Sets up the configuration `gnn_tpu_torch.cli` would train (its defaults
 unless CLI flags are given, e.g. ``--model gat``, ``--adj_format
@@ -15,7 +16,11 @@ blocked`` / ``hot`` or ``--sampler subgraph``), runs ``--warmup``
 steps, then ``--steps`` steps under ``torch.profiler``, and prints:
 
 * per step: seconds waiting for the sampler, moving the batch to the
-  card, and running the step (ending with the loss read back);
+  card, and running the step (ending with the loss read back); with
+  ``--epoch``, the trainer's own epoch loop instead (epoch 0 unprofiled,
+  epoch 1 under the profiler, per step its epoch's mean), which is how
+  ``--steps_per_dispatch G`` runs (a CUDA graph replay a group; its
+  captures fall in epoch 0);
 * the device busy share over the window (kernel time / wall time);
 * device time per step by kind of kernel (dense matmuls, the port's
   hand-written kernels, everything else);
@@ -55,6 +60,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--epoch", action="store_true",
+                    help="profile the trainer's epoch 1 after epoch 0")
     own, rest = ap.parse_known_args()
 
     import torch
@@ -87,16 +94,25 @@ def main() -> int:
             float(trainer.train_step(b))
             return t1 - t0, t2 - t1, time.perf_counter() - t2
 
-        for _ in range(own.warmup):
-            step()
+        if own.epoch:
+            trainer.train_epoch(graph.train_nodes, 0)
+        else:
+            for _ in range(own.warmup):
+                step()
         torch.cuda.synchronize()
         split = [0.0, 0.0, 0.0]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(own.steps):
-                for i, v in enumerate(step()):
-                    split[i] += v
+            if own.epoch:
+                m = trainer.train_epoch(graph.train_nodes, 1)
+                own.steps = len(m.step_losses)
+                split = [m.sample_wait_time, m.data_movement_time,
+                         m.execution_time]
+            else:
+                for _ in range(own.steps):
+                    for i, v in enumerate(step()):
+                        split[i] += v
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         pipe.close()
@@ -112,8 +128,10 @@ def main() -> int:
     busy = sum(by_name.values()) / 1e6
     n = own.steps
     print(f"gpu: {torch.cuda.get_device_name(0)}")
-    print(f"window: {n} steps after {own.warmup} warm-up, "
-          f"{wall / n * 1e3:.3f} ms/step wall")
+    print(f"window: {n} steps after "
+          + ("epoch 0" if own.epoch else f"{own.warmup} warm-up")
+          + f", {wall / n * 1e3:.3f} ms/step wall, steps_per_dispatch "
+          f"{trainer.steps_per_dispatch}")
     print(f"host per step: sampler wait {split[0] / n * 1e3:.3f} ms, "
           f"to device {split[1] / n * 1e3:.3f} ms, step "
           f"{split[2] / n * 1e3:.3f} ms")
