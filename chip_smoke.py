@@ -141,18 +141,24 @@ Phases (any failure exits non-zero without the final result line):
    multi-GPU figures); (c) the
    tests' small graph, three steps on two ranks on the card and on the
    CPU: the step losses agree to AGREE_RTOL;
-10. grouped dispatch: the CLI defaults for two epochs and a val pass
-   each, eagerly and at ``--steps_per_dispatch 8`` (one CUDA graph
-   replay of 8 steps a group; the 6-step tail replays the one-step graph
-   6 times), in one process and in directories sharing phase 5's set-up
-   caches: every step loss of the grouped run within 1e-3 relative of
-   the eager run's, the val F1s within 1e-3, K1 recorded in both
-   directions for every step of every graph (its launches in the
-   replays: each graph's recorded launches times its replays, since the
-   wrapper's counter sees a capture once and a replay never), the
+10. grouped dispatch, four pairs of runs at the CLI defaults, two
+   epochs and a val pass each, eagerly and at ``--steps_per_dispatch 8``
+   (one CUDA graph replay of 8 steps a group; the 6-step tail replays
+   the one-step graph 6 times), in one process and in directories
+   sharing phase 5's set-up caches: the default path (K1), ``--model
+   gat`` (the resident path, K3 and K4 inside the graphs), ``--adj_format
+   hot`` and ``--adj_format coo`` (no kernel of the port's). Each pair:
+   every step loss of the grouped run within 1e-3 relative of the eager
+   run's, the val F1s within 1e-3, every graph recording the path's
+   per-step kernel launches (phase 5's counts) for each of its steps,
+   exactly and no other (K1 3 forward and 2 transposed; K3, K4 terms,
+   bwd_q and bwd_kv 3 each; none on the hot and coo formats), the
    replays covering every step, at most one capture in the second
-   epoch, every capture logged; it logs both runs' median step, the
-   captures and their seconds and the peak memory, beside the card;
+   epoch, every capture logged. The kernels' launches in the replays
+   are each graph's recorded launches times its replays, since a
+   wrapper's counter sees a capture once and a replay never. It logs
+   each run's median step of epoch 1, its captures and their seconds and
+   its peak memory (flagged above 4 GB), beside the card;
 11. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -2080,106 +2086,140 @@ def run_halo(save_dir):
         fail(f"halo small: cuda and cpu disagree: {rel:.3e}")
 
 
-# phase 10: the default path at G = 1 (eager steps) and at
-# --steps_per_dispatch GROUP (one CUDA graph replay a group), GROUP_EPOCHS
-# epochs and a val pass each. The two runs sample the same batches and
-# draw the same dropout masks (the generator is registered with the
-# graphs); K1 sums in a run-dependent order and the grouped run's
-# capturable Adam rounds its update in float32, so their step losses
-# agree to GROUP_RTOL and their val F1s to GROUP_F1_TOL, not bit for bit
+# phase 10: each main path that runs grouped, at G = 1 (eager steps) and
+# at --steps_per_dispatch GROUP (one CUDA graph replay a group),
+# GROUP_EPOCHS epochs and a val pass each. The two runs sample the same
+# batches and draw the same dropout masks (the generator is registered
+# with the graphs); K1, K3 and K4 sum in a run-dependent order and the
+# grouped run's capturable Adam rounds its update in float32, so their
+# step losses agree to GROUP_RTOL and their val F1s to GROUP_F1_TOL, not
+# bit for bit
 GROUP = 8
 GROUP_EPOCHS = 2
 GROUP_RTOL = 1e-3
 GROUP_F1_TOL = 1e-3
+# the pairs: label, CLI arguments, and the kernel launches each graph
+# records a step (JSON name -> count: phase 5's per-step counts of the
+# path; none on the hot and coo formats)
+GROUP_PAIRS = [
+    ("default", [], DEFAULT_PER_STEP),
+    ("gat", ["--model", "gat"],
+     next(ps for label, _, ps in MAIN_PATHS if label == "gat")),
+    ("hot", ["--adj_format", "hot"], {}),
+    ("coo", ["--adj_format", "coo"], {}),
+]
+# a grouped run's peak memory above this is flagged in the log (GAT's
+# eager peak is 3.15 GB, PERF.md section 5)
+GROUP_PEAK_FLAG = 4e9
 
 
-def run_grouped(save_dir):
-    """Phase 10: the CLI defaults with ``--n_devices 1 --epoch_num
-    GROUP_EPOCHS``, eagerly and at ``--steps_per_dispatch GROUP``, in one
-    process and in directories that share phase 5's set-up caches, every
-    launch counter set to 0 before each run and read after. Fails unless
-    the runs take the same steps, every step loss of the grouped run
-    agrees with the eager run's to GROUP_RTOL and the val F1s to
-    GROUP_F1_TOL, every graph recorded K1's per-step launches of the
-    default path (DEFAULT_PER_STEP) for each of its steps, the replays
-    ran every step, the second epoch captured at most one graph, and
-    every capture is in the rank record and was logged. K1's launches
-    in the grouped run are the counters' (the warm-up steps before each
-    capture, the val passes) plus each graph's captured launches times
-    its replays. Logs both runs' median step (epoch 1's, steady), the
-    captures and their seconds, and each run's peak memory, beside the
-    card. Returns the launch counts of both runs."""
+def _grouped_run(save_dir, label, argv, g):
+    """One CLI run of a phase 10 pair at ``--steps_per_dispatch g`` in a
+    directory sharing phase 5's set-up caches; returns its epoch records,
+    launch counts, rank record and peak memory, and logs them."""
     import gc
-    import math
 
     import torch
 
-    runs = {}
+    d = linked_dir(save_dir, f"group_{label}_{g}")
+    torch.cuda.reset_peak_memory_stats()
+    recs, counts, wall = run_cli(d, argv + [
+        "--n_devices", "1", "--epoch_num", str(GROUP_EPOCHS),
+        "--steps_per_dispatch", str(g)])
+    gc.collect()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(d, "rank0.json")) as f:
+        rank = json.load(f)
+    eps = log_epochs(f"grouped {label} G={g}", recs)
+    times = eps[-1]["step_times"]
+    log(f"grouped {label} G={g}: {wall:.1f}s wall, median step (epoch "
+        f"{eps[-1]['epoch']}) {sorted(times)[len(times) // 2]:.5f}s, peak "
+        f"memory {peak} bytes, captures {len(rank.get('captures', []))} "
+        f"in {sum(c['seconds'] for c in rank.get('captures', [])):.3f}s, "
+        f"launches counted { {k: v for k, v in counts.items() if v} }, "
+        f"replayed {rank.get('replayed_launches', {})}, on {card()}")
+    return dict(eps=eps, counts=counts, rank=rank, peak=peak)
+
+
+def check_grouped_pair(save_dir, label, argv, per_step):
+    """Phase 10, one pair: ``argv`` eagerly and at ``--steps_per_dispatch
+    GROUP``. Fails unless the runs take the same steps, every step loss
+    of the grouped run agrees with the eager run's to GROUP_RTOL and the
+    val F1s to GROUP_F1_TOL, every graph recorded exactly ``per_step``
+    launches of each kernel for each of its steps and no other, the
+    replays ran every step, the second epoch captured at most one graph,
+    and every capture is in the rank record and was logged. Returns the
+    launch counts of both runs by JSON name: the counters' (the warm-up
+    steps before each capture, the val passes) plus each graph's
+    captured launches times its replays."""
+    import math
+
     total = {}
+    runs = {}
     for g in (1, GROUP):
-        label = f"G={g}"
-        d = linked_dir(save_dir, f"group{g}")
-        torch.cuda.reset_peak_memory_stats()
-        recs, counts, wall = run_cli(d, [
-            "--n_devices", "1", "--epoch_num", str(GROUP_EPOCHS),
-            "--steps_per_dispatch", str(g)])
-        gc.collect()
-        peak = torch.cuda.max_memory_allocated()
-        with open(os.path.join(d, "rank0.json")) as f:
-            rank = json.load(f)
-        eps = log_epochs(label, recs)
-        replayed = rank.get("replayed_launches", {})
+        runs[g] = r = _grouped_run(save_dir, label, argv, g)
+        replayed = r["rank"].get("replayed_launches", {})
         for name, (mod, key), _, _ in KERNELS:
-            n = counts[name] + (replayed.get(key, 0)
-                                if mod == "edgestream" else 0)
-            total[name] = total.get(name, 0) + n
-        runs[g] = dict(eps=eps, counts=counts, rank=rank, peak=peak)
-        times = eps[-1]["step_times"]
-        log(f"grouped {label}: {wall:.1f}s wall, median step (epoch "
-            f"{eps[-1]['epoch']}) {sorted(times)[len(times) // 2]:.5f}s, "
-            f"peak memory {peak} bytes, launches counted "
-            f"{ {k: v for k, v in counts.items() if v} }, replayed "
-            f"{replayed}, on {card()}")
+            total[name] = (total.get(name, 0) + r["counts"][name]
+                           + replayed.get(f"{mod}.{key}", 0))
     one, grp = runs[1], runs[GROUP]
     if [len(r["step_losses"]) for r in one["eps"]] != [
             len(r["step_losses"]) for r in grp["eps"]] or \
             len(one["eps"]) != GROUP_EPOCHS:
-        fail("grouped: the runs took different steps")
+        fail(f"grouped {label}: the runs took different steps")
     rel = max(abs(a - b) / abs(b)
               for ra, rb in zip(grp["eps"], one["eps"])
               for a, b in zip(ra["step_losses"], rb["step_losses"]))
     df1 = max(abs(ra["valid_f1"] - rb["valid_f1"])
               for ra, rb in zip(grp["eps"], one["eps"]))
-    log(f"grouped: G={GROUP} against G=1, max rel step-loss diff "
+    log(f"grouped {label}: G={GROUP} against G=1, max rel step-loss diff "
         f"{rel:.3e}, max val F1 diff {df1:.3e}")
     if not (math.isfinite(rel) and rel <= GROUP_RTOL):
-        fail(f"grouped: step losses differ by {rel:.3e}")
+        fail(f"grouped {label}: step losses differ by {rel:.3e}")
     if not df1 <= GROUP_F1_TOL:
-        fail(f"grouped: val F1s differ by {df1:.3e}")
+        fail(f"grouped {label}: val F1s differ by {df1:.3e}")
     caps = grp["rank"]["captures"]
     steps = sum(len(r["step_losses"]) for r in grp["eps"])
+    keys = {name: f"{mod}.{key}" for name, (mod, key), _, _ in KERNELS}
     for c in caps:
-        log(f"grouped capture: {c['steps']} steps, shapes {c['key']}, "
-            f"{c['seconds']:.3f}s, K1 recorded {c['launches']}, "
+        log(f"grouped {label} capture: {c['steps']} steps, shapes "
+            f"{c['key']}, {c['seconds']:.3f}s, recorded {c['launches']}, "
             f"{c['replays']} replays")
-        for key, n in (("forward", DEFAULT_PER_STEP[
-                "edge_stream_spmm.forward"]), ("transpose", DEFAULT_PER_STEP[
-                "edge_stream_spmm.transpose"])):
-            if c["launches"].get(key, 0) < n * c["steps"]:
-                fail(f"grouped: a {c['steps']}-step graph recorded "
-                     f"{c['launches']} K1 launches, under {n} {key} a step")
+        want = {keys[name]: n * c["steps"] for name, n in per_step.items()}
+        if c["launches"] != want:
+            fail(f"grouped {label}: a {c['steps']}-step graph recorded "
+                 f"{c['launches']}, not {want}")
     replayed_steps = sum(c["steps"] * c["replays"] for c in caps)
     if replayed_steps != steps:
-        fail(f"grouped: the replays ran {replayed_steps} steps of {steps}")
+        fail(f"grouped {label}: the replays ran {replayed_steps} steps of "
+             f"{steps}")
     per_epoch = [r["captures"] for r in grp["eps"]]
-    log(f"grouped: captures by epoch {per_epoch}, "
+    log(f"grouped {label}: captures by epoch {per_epoch}, "
         f"{sum(c['seconds'] for c in caps):.2f}s in all; peak memory "
         f"G=1 {one['peak']} / G={GROUP} {grp['peak']} bytes")
+    if grp["peak"] > GROUP_PEAK_FLAG:
+        log(f"grouped {label}: FLAG: G={GROUP} peak memory {grp['peak']} "
+            f"bytes is above {GROUP_PEAK_FLAG:.0f}")
     if per_epoch[1] > 1:
-        fail(f"grouped: epoch 1 captured {per_epoch[1]} graphs")
+        fail(f"grouped {label}: epoch 1 captured {per_epoch[1]} graphs")
     if sum(per_epoch) != len(caps) or any(
             r["capture_s"] <= 0 for r in grp["eps"] if r["captures"]):
-        fail(f"grouped: captures {per_epoch} by epoch, {len(caps)} logged")
+        fail(f"grouped {label}: captures {per_epoch} by epoch, {len(caps)} "
+             f"logged")
+    return total
+
+
+def run_grouped(save_dir):
+    """Phase 10: every pair of GROUP_PAIRS (:func:`check_grouped_pair`),
+    each run with every launch counter set to 0 before it and read after;
+    returns the launch counts of all the runs by JSON name."""
+    total = {}
+    for label, argv, per_step in GROUP_PAIRS:
+        t0 = time.perf_counter()
+        for name, n in check_grouped_pair(save_dir, label, argv,
+                                          per_step).items():
+            total[name] = total.get(name, 0) + n
+        log(f"phase 10 pair {label}: {time.perf_counter() - t0:.1f}s")
     return total
 
 

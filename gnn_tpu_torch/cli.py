@@ -53,14 +53,17 @@ digests, bytes summed over its part group, feature-source shares, the
 resident state's device bytes, its peak device memory after set-up and
 its kernel launches) into ``--save_dir``.
 
-``--steps_per_dispatch G`` (one rank, ``--adj_format resident``, a
-model without attention) trains G steps a dispatch: on ``cuda`` one
+``--steps_per_dispatch G`` trains G steps a dispatch: on ``cuda`` one
 replay of a CUDA graph that holds G captured steps, on ``cpu`` the same
-grouped loop eagerly (`gnn_tpu_torch.train.dispatch`). Each group is
-re-padded to the sticky caps of a shape book kept in ``--save_dir``, so
-a rerun starts at the shapes the last run reached. GAT, the other
-formats, ``--feature_cache`` and more than one rank at G > 1 raise
-``NotImplementedError`` before any rank starts.
+grouped loop eagerly (`gnn_tpu_torch.train.dispatch`). It runs on one
+rank with the replicated feature table, on ``--adj_format resident``
+for every model and on ``--adj_format hot`` / ``coo`` for GraphSAGE,
+GCN and GIN. Each group is re-padded to the sticky caps of a shape book
+kept in ``--save_dir``, so a rerun starts at the shapes the last run
+reached. GAT on another format (``hot`` turns into ``pattern`` for GAT),
+the ``blocked`` and ``pattern`` formats, ``--feature_cache`` and more
+than one rank at G > 1 raise ``NotImplementedError`` before any rank
+starts.
 """
 from __future__ import annotations
 
@@ -147,8 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device feature-table dtype")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
                    help="train steps per dispatch: > 1 replays a CUDA "
-                        "graph of G steps per group on cuda (one rank, "
-                        "resident format, no attention)")
+                        "graph of G steps per group on cuda (one rank; "
+                        "resident format, or hot / coo without "
+                        "attention)")
     p.add_argument("--feature_cache", action="store_true",
                    help="placement-driven sharded feature cache: each "
                         "rank holds its placement buffer, other rows come "
@@ -190,15 +194,16 @@ def resolve_training_defaults(args, steps_per_epoch: int = 10**9) -> int:
 
 def _check_ported(args) -> None:
     """Raise NotImplementedError for flag combinations whose paths are
-    not ported: ``--steps_per_dispatch > 1`` runs one rank on the
-    resident format with a replicated feature table and no attention."""
+    not ported: ``--steps_per_dispatch > 1`` runs what
+    `gnn_tpu_torch.train.dispatch.unported` allows (the Trainer asks the
+    same function). Called after :func:`resolve_adj_format`."""
     if args.steps_per_dispatch <= 1:
         return
     from gnn_tpu_torch.train.dispatch import unported
-    why = unported(ranks=max(args.n_devices, 1) * max(args.resident_parts, 1),
-                   resident=args.adj_format == "resident",
-                   replicated=not args.feature_cache,
-                   attention=args.model == "gat")
+    why = unported(adj_format=args.adj_format,
+                   attention=args.model == "gat",
+                   ranks=max(args.n_devices, 1) * max(args.resident_parts, 1),
+                   replicated=not args.feature_cache)
     if why:
         raise NotImplementedError(
             "--steps_per_dispatch > 1 is not ported for " + ", ".join(why)
@@ -482,7 +487,7 @@ def _write_rank_record(save_dir, trainer, cache_stats, row_bytes,
            "setup_max_memory": setup_peak,
            "test_batches": trainer.test_batches, "launches": launches}
     if trainer._dispatch is not None:
-        # grouped dispatch: the CUDA graph captures (each with the K1
+        # grouped dispatch: the CUDA graph captures (each with the kernel
         # launches it recorded and its replays) and the launches the
         # replays ran, which ``launches`` does not see
         rec["captures"] = trainer._dispatch.captures

@@ -97,16 +97,31 @@ def load(name: str) -> ctypes.CDLL:
 
 
 # the modules of gnn_tpu_torch.ops whose wrappers count their kernels'
-# launches (each a ``launches`` Counter)
+# launches (each a ``launches`` Counter and a ``captured`` one, through
+# :func:`count_launch`)
 KERNEL_MODULES = ("edgestream", "esattn", "spmm", "sddmm")
 
 
-def launch_counts() -> dict:
-    """Every kernel wrapper's launches so far in this process, by
-    ``module.key``."""
+def count_launch(launches, captured, key: str) -> None:
+    """Count one kernel launch under ``key``: in ``captured`` when the
+    current stream is capturing a CUDA graph (the launch then runs at
+    each replay of the graph; `gnn_tpu_torch.train.dispatch`
+    multiplies), else in ``launches``."""
+    import torch
+    if torch.cuda.is_current_stream_capturing():
+        captured[key] += 1
+    else:
+        launches[key] += 1
+
+
+def launch_counts(kind: str = "launches") -> dict:
+    """Every kernel wrapper's launches so far in this process
+    (``kind="launches"``), or those recorded into CUDA graphs
+    (``"captured"``), by ``module.key``."""
     import importlib
     out = {}
     for mod in KERNEL_MODULES:
-        c = importlib.import_module(f"gnn_tpu_torch.ops.{mod}").launches
+        c = getattr(importlib.import_module(f"gnn_tpu_torch.ops.{mod}"),
+                    kind)
         out.update({f"{mod}.{k}": v for k, v in c.items()})
     return out

@@ -33,6 +33,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gnn_tpu_torch.ops import cuda_build
+
 # edges per coord row (the coord grid is [n_coord_rows, EC]) and the tail
 # pad in coord rows the TPU kernel's two block views need; kept so the
 # packed arrays stay identical to the JAX package's
@@ -48,13 +50,6 @@ ECAP = 256
 # (`gnn_tpu_torch.train.dispatch` multiplies)
 launches: collections.Counter = collections.Counter()
 captured: collections.Counter = collections.Counter()
-
-
-def _count(key: str) -> None:
-    if torch.cuda.is_current_stream_capturing():
-        captured[key] += 1
-    else:
-        launches[key] += 1
 
 
 def _round_up(x: int, m: int) -> int:
@@ -339,7 +334,6 @@ def edge_stream_spmm_ref(tiles: EdgeTiles, x: torch.Tensor,
 
 
 def _lib():
-    from gnn_tpu_torch.ops import cuda_build
     lib = cuda_build.load("edge_stream")
     if lib.edge_stream_spmm_f32.argtypes is None:
         p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
@@ -438,7 +432,8 @@ def edge_stream_spmm(tiles: EdgeTiles, x: torch.Tensor, rv: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"edge_stream_spmm: CUDA launch failed "
                            f"(cudaError {err})")
-    _count("transpose" if transpose else "forward")
+    cuda_build.count_launch(launches, captured,
+                            "transpose" if transpose else "forward")
     return y
 
 
@@ -507,5 +502,5 @@ def edge_stream_spmm_seg(tiles: EdgeTiles, seg_ptr: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"edge_stream_spmm_seg: CUDA launch failed "
                            f"(cudaError {err})")
-    _count("seg")
+    cuda_build.count_launch(launches, captured, "seg")
     return y

@@ -40,8 +40,11 @@ HP = 128
 CUDA_MAX_HEADS = 32
 
 # kernel launches ("rowmax", "terms", "bwd_q", "bwd_kv"); incremented only
-# where a CUDA kernel is launched
+# where a CUDA kernel is launched. A launch recorded into a CUDA graph
+# under capture counts in ``captured`` instead: it runs at each replay of
+# the graph (`gnn_tpu_torch.train.dispatch` multiplies)
 launches: collections.Counter = collections.Counter()
+captured: collections.Counter = collections.Counter()
 
 
 def live_edges(coords: torch.Tensor, blk_rc: torch.Tensor,
@@ -246,7 +249,7 @@ def _launch(key, coords, blk_rc, off, t_order, H, bm, bk, **arrays):
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
-    launches[key] += 1
+    cuda_build.count_launch(launches, captured, key)
     return outs
 
 

@@ -16,11 +16,15 @@ import ctypes
 
 import torch
 
+from gnn_tpu_torch.ops import cuda_build
 from gnn_tpu_torch.ops.spmm import StreamBlocks, check_tensor
 
 # kernel launches ("sddmm"); incremented only where the CUDA kernel is
-# launched
+# launched. A launch recorded into a CUDA graph under capture counts in
+# ``captured`` instead: it runs at each replay of the graph
+# (`gnn_tpu_torch.train.dispatch` multiplies)
 launches: collections.Counter = collections.Counter()
+captured: collections.Counter = collections.Counter()
 
 
 def sddmm_reference(blk_rc, x: torch.Tensor, y: torch.Tensor,
@@ -35,7 +39,6 @@ def sddmm_reference(blk_rc, x: torch.Tensor, y: torch.Tensor,
 
 
 def _kernel():
-    from gnn_tpu_torch.ops import cuda_build
     fn = cuda_build.load("stream_spmm").stream_sddmm_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -74,7 +77,7 @@ def stream_sddmm(blk_rc: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"stream_sddmm: CUDA launch failed "
                            f"(cudaError {err})")
-    launches["sddmm"] += 1
+    cuda_build.count_launch(launches, captured, "sddmm")
     return out
 
 

@@ -32,9 +32,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gnn_tpu_torch.ops import cuda_build
+
 # kernel launches by orientation ("forward" / "transpose"); incremented
-# only where the CUDA kernel is launched
+# only where the CUDA kernel is launched. A launch recorded into a CUDA
+# graph under capture counts in ``captured`` instead: it runs at each
+# replay of the graph (`gnn_tpu_torch.train.dispatch` multiplies)
 launches: collections.Counter = collections.Counter()
+captured: collections.Counter = collections.Counter()
 
 # thread blocks that fill the card: two waves of one resident block (256
 # threads, ~200 KB of shared memory) on each of the H100's 132 SMs; below
@@ -145,7 +150,6 @@ def stream_spmm_ref(stream: StreamBlocks, x: torch.Tensor,
 
 
 def _kernel():
-    from gnn_tpu_torch.ops import cuda_build
     fn = cuda_build.load("stream_spmm").stream_spmm_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -236,7 +240,8 @@ def _launch(stream: StreamBlocks, x: torch.Tensor, transpose: bool
     if err != 0:
         raise RuntimeError(f"stream_spmm: CUDA launch failed "
                            f"(cudaError {err})")
-    launches["transpose" if transpose else "forward"] += 1
+    cuda_build.count_launch(launches, captured,
+                            "transpose" if transpose else "forward")
     return y
 
 

@@ -20,8 +20,10 @@ a new shape means a new capture; the caps only grow, so after the first
 groups every group meets the same shapes. The padded arrays equal, bit
 for bit, those the JAX pipeline's ``train_epoch_grouped`` stacks; the
 port keeps a list of G batches where JAX stacks ``[G, ws, ...]``.
-Only the resident format's layers are re-padded (the one format that
-runs grouped).
+The resident format's layers (`ResidentLayerRef`) and the shipped COO
+and hot formats' (`COOAdj`, `HotDenseAdj`) are re-padded; the pattern
+and blocked formats' raise, as those formats do not run grouped yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -34,8 +36,11 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from gnn_tpu_torch.ops.hotdense import HotDenseAdj
 from gnn_tpu_torch.ops.residentgraph import ResidentLayerRef
-from gnn_tpu_torch.sampling.ladies import MiniBatch, SamplerConfig, SAMPLERS
+from gnn_tpu_torch.ops.sparse import COOAdj
+from gnn_tpu_torch.sampling.ladies import (MiniBatch, SamplerConfig,
+                                           SAMPLERS, bucket_size)
 
 
 # steps sampled ahead of the trainer
@@ -95,18 +100,67 @@ def _book_cap(book: ShapeBook, l: int, a, kind: str, value: int) -> int:
     return book.cap((l, a.nrows, a.ncols, type(a).__name__, kind), value)
 
 
-def _unify_layer(layer: List[ResidentLayerRef], l: int,
-                 book: ShapeBook) -> List[ResidentLayerRef]:
-    """One layer's resident refs of a group, re-padded to common shapes:
+def _repad_coo(adj, nnz_pad: int):
+    """A shipped COO's edge arrays padded to ``nnz_pad`` edges (the JAX
+    pipeline's ``_repad_coo``): pad rows at the last row, cols and values
+    0, so row-sorted edges stay sorted; a col-sorted copy (``rows_t`` /
+    ``cols_t`` / ``vals_t``) pads its cols at the last column."""
+    pad = nnz_pad - adj.rows.shape[0]
+    if pad == 0:
+        return adj
+
+    def ext(a, fill=0):
+        return np.concatenate([a, np.full(pad, fill, a.dtype)])
+
+    fields = dict(rows=ext(adj.rows, adj.nrows - 1), cols=ext(adj.cols),
+                  vals=ext(adj.vals))
+    if isinstance(adj, HotDenseAdj):
+        fields.update(rows_t=ext(adj.rows_t),
+                      cols_t=ext(adj.cols_t, adj.ncols - 1),
+                      vals_t=ext(adj.vals_t))
+    return dataclasses.replace(adj, **fields)
+
+
+def _unify_shipped(layer: list, l: int, book: ShapeBook) -> list:
+    """One layer's shipped COO or hot layers of a group, re-padded (the
+    JAX pipeline's ``_unify_layer`` for ``COOAdj`` / ``HotDenseAdj``):
+    the edges to the bucket of the group's largest count, raised to the
+    book's cap; a hot layer's batch-present slot lists with zeros to the
+    group's longest, raised to its caps. A pad slot stays inert: no
+    ``row_cmp_idx`` / ``col_cmp_idx`` entry points at it."""
+    nnz = _book_cap(book, l, layer[0], "nnz",
+                    bucket_size(max(a.rows.shape[0] for a in layer)))
+    layer = [_repad_coo(a, nnz) for a in layer]
+    if not isinstance(layer[0], HotDenseAdj):
+        return layer
+    rh = _book_cap(book, l, layer[0], "rh",
+                   max(a.present_row_slots.shape[0] for a in layer))
+    ch = _book_cap(book, l, layer[0], "ch",
+                   max(a.present_col_slots.shape[0] for a in layer))
+
+    def pad1(a, m):
+        return np.concatenate([a, np.zeros(m - a.shape[0], a.dtype)])
+
+    return [dataclasses.replace(
+        a, present_row_slots=pad1(a.present_row_slots, rh),
+        present_col_slots=pad1(a.present_col_slots, ch)) for a in layer]
+
+
+def _unify_layer(layer: list, l: int, book: ShapeBook) -> list:
+    """One layer's adjacencies of a group, re-padded to common shapes:
     the group's largest, raised to the book's caps (the JAX pipeline's
-    ``_unify_layer`` for ``ResidentLayerRef``). The lite COO's arrays pad
+    ``_unify_layer``). Shipped COO and hot layers go to
+    :func:`_unify_shipped`. Of resident refs, the lite COO's arrays pad
     with zero-valued edges at the last row, the stream tiles with
     zero-count entries (``repad_tiles``); ``e_cap``, ``rh_pad`` and
-    ``ch_pad`` size device buffers and take the group's maximum."""
+    ``ch_pad`` size device buffers and take the group's maximum. The
+    pattern and blocked formats' layers raise."""
+    if isinstance(layer[0], (COOAdj, HotDenseAdj)):
+        return _unify_shipped(layer, l, book)
     if not isinstance(layer[0], ResidentLayerRef):
         raise TypeError(
-            f"grouped dispatch re-pads the resident format's layers only, "
-            f"not {type(layer[0]).__name__} (ROADMAP.md)")
+            f"grouped dispatch does not re-pad {type(layer[0]).__name__} "
+            f"layers yet (ROADMAP.md)")
     nnz = _book_cap(book, l, layer[0], "nnz",
                     max(x.nnz_cold for x in layer))
 

@@ -34,6 +34,16 @@ slot 0 on the card: the parameters update exactly ``n_valid`` times, and
 no step is computed and thrown away (the JAX scan masks its padded
 steps instead).
 
+What runs grouped (:func:`unported` says why the rest does not): one
+rank with a replicated feature table, on the resident format for every
+model (GAT's cold residual launches K3/K4 inside the graph, as the
+default path launches K1) and on the shipped ``hot`` and ``coo`` formats
+for the models without attention (their cold residual is chunked
+``index_add_`` over the group's padded edges). A capture records the
+kernel launches its steps make (the wrappers' ``captured`` counters,
+by ``module.key``), and :meth:`GroupedDispatch.replayed_launches`
+multiplies them by the graph's replays.
+
 On a CPU device the same grouped loop runs the steps eagerly. On the
 card a failed capture or replay raises: nothing falls back to eager
 steps or to the CPU.
@@ -49,7 +59,7 @@ from typing import List
 import numpy as np
 import torch
 
-from gnn_tpu_torch.ops import edgestream
+from gnn_tpu_torch.ops.cuda_build import launch_counts
 from gnn_tpu_torch.ops.sparse import COUNT_FIELDS
 from gnn_tpu_torch.train.stepfns import DeviceBatch, to_device_batch
 
@@ -60,22 +70,28 @@ WARMUP_STEPS = 3
 MAX_BUCKETS = 2
 
 
-def unported(*, ranks: int, resident: bool, replicated: bool,
-             attention: bool) -> List[str]:
+# the (adjacency format, attention) pairs grouped dispatch runs: every
+# model on the resident format, the models without attention on the
+# shipped hot and coo formats
+GROUPED_FORMATS = frozenset({("resident", False), ("resident", True),
+                             ("hot", False), ("coo", False)})
+
+
+def unported(*, adj_format: str, attention: bool, ranks: int,
+             replicated: bool) -> List[str]:
     """Why grouped dispatch cannot run a configuration (empty when it
-    can): it runs one rank on the resident format with a replicated
-    feature table and a model without attention. The CLI asks before
-    any rank starts, `Trainer` when it is built; ROADMAP.md queues the
-    rest."""
+    can): the adjacency format and whether the model is GAT
+    (``attention``) must be one of :data:`GROUPED_FORMATS`, on one rank
+    with a replicated feature table. The CLI asks before any rank
+    starts, `Trainer` when it is built; ROADMAP.md queues the rest."""
     why = []
     if ranks > 1:
         why.append(f"{ranks} ranks")
-    if not resident:
-        why.append("a format other than resident")
+    if (adj_format, attention) not in GROUPED_FORMATS:
+        why.append(f"GAT on the {adj_format} format" if attention
+                   else f"the {adj_format} format")
     if not replicated:
         why.append("a feature source other than the replicated table")
-    if attention:
-        why.append("GAT")
     return why
 
 
@@ -177,7 +193,8 @@ class GroupedDispatch:
     """The grouped epoch loop of one `Trainer` (one rank, a replicated
     feature table). ``captures`` lists every capture: its step count,
     a digest of its shapes, its seconds, the kernel launches it recorded
-    (K1's, by direction) and the graph's replays so far."""
+    (by ``module.key``, as `cuda_build.launch_counts` names them) and the
+    graph's replays so far."""
 
     def __init__(self, trainer, group: int):
         if group < 2:
@@ -242,7 +259,7 @@ class GroupedDispatch:
                         if torch.is_tensor(v):
                             v.zero_()
         tr.generator.set_state(gen_state)
-        before = collections.Counter(edgestream.captured)
+        before = collections.Counter(launch_counts("captured"))
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(tr.generator)
         lr_float = [g["lr"] for g in tr.optimizer.param_groups]
@@ -255,7 +272,7 @@ class GroupedDispatch:
         finally:
             for g, lr in zip(tr.optimizer.param_groups, lr_float):
                 g["lr"] = lr
-        recorded = collections.Counter(edgestream.captured)
+        recorded = collections.Counter(launch_counts("captured"))
         recorded.subtract(before)
         rec = {"steps": n_steps, "seconds": time.perf_counter() - t0,
                "key": f"{zlib.crc32(repr(key).encode()):08x}",
@@ -300,10 +317,10 @@ class GroupedDispatch:
                                     for c in self.captures[n_caps:])
 
     def replayed_launches(self) -> collections.Counter:
-        """K1's launches inside the replays so far, by direction: each
-        graph's captured launches times its replays (the wrapper's own
-        counter sees a capture once, as ``edgestream.captured``, and a
-        replay never)."""
+        """The kernel launches inside the replays so far, by
+        ``module.key``: each graph's captured launches times its replays
+        (a wrapper's own counter sees a capture once, in its module's
+        ``captured``, and a replay never)."""
         out = collections.Counter()
         for rec in self.captures:
             for k, v in rec["launches"].items():

@@ -99,11 +99,14 @@ class Trainer(EvalMixin, OpTimingMixin):
         if self.steps_per_dispatch > 1:
             from gnn_tpu_torch.models.gat import GATEncoder
             from gnn_tpu_torch.train.dispatch import unported
+            # the format is the sampler's: the coo format has neither a
+            # resident graph nor hot blocks
             why = unported(
-                ranks=dist.world_size, resident=resident_graph is not None,
+                adj_format=pipeline.cfg.adj_format,
+                attention=isinstance(self.net.encoder, GATEncoder),
+                ranks=dist.world_size,
                 replicated=isinstance(self.feature_source,
-                                      ReplicatedFeatures),
-                attention=isinstance(self.net.encoder, GATEncoder))
+                                      ReplicatedFeatures))
             if why:
                 raise NotImplementedError(
                     "steps_per_dispatch > 1 is not ported for "

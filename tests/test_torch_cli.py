@@ -174,13 +174,35 @@ def test_grouped_dispatch_trains_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--steps_per_dispatch", "4", "--model", "gat"],
-    ["--steps_per_dispatch", "4", "--adj_format", "hot"],
+    ["--adj_format", "hot"], ["--adj_format", "coo"], ["--model", "gat"]],
+    ids=["hot", "coo", "gat"])
+def test_grouped_dispatch_trains_each_format_on_cpu(tmp_path, flag):
+    """``--steps_per_dispatch 2`` on the other combinations that run
+    grouped (GraphSAGE on the hot and coo formats, GAT on the resident
+    format) trains one epoch on the CPU: the 12 steps as six groups of
+    two, every step's loss finite and timed, no capture off the card."""
+    save = str(tmp_path / "save")
+    assert tcli.main(TINY + ["--device", "cpu", "--steps_per_dispatch",
+                             "2", "--save_dir", save] + flag) == 0
+    (rec,) = [json.loads(l) for l in open(os.path.join(save,
+                                                       "metrics.jsonl"))]
+    assert len(rec["step_losses"]) == len(rec["step_times"]) == 12
+    assert all(math.isfinite(v) for v in rec["step_losses"])
+    assert rec["captures"] == 0 and rec["capture_s"] == 0.0
+
+
+@pytest.mark.parametrize("flag", [
+    ["--steps_per_dispatch", "2", "--model", "gat", "--adj_format",
+     "pattern"],
+    ["--steps_per_dispatch", "4", "--adj_format", "blocked"],
     ["--steps_per_dispatch", "4", "--n_devices", "2"],
-    ["--steps_per_dispatch", "4", "--feature_cache"]])
+    ["--steps_per_dispatch", "4", "--feature_cache"],
+    ["--steps_per_dispatch", "4", "--model", "gat", "--adj_format", "hot"],
+    ["--steps_per_dispatch", "4", "--model", "gat", "--adj_format", "coo"]])
 def test_unported_flags_raise(tmp_path, monkeypatch, flag):
-    """Grouped dispatch with GAT, another format, more than one rank or
-    the feature cache raises before any rank starts."""
+    """Grouped dispatch with GAT on a format other than resident (``hot``
+    turns into ``pattern`` for GAT), the blocked format, more than one
+    rank or the feature cache raises before any rank starts."""
     from gnn_tpu_torch.parallel import dist
     monkeypatch.setattr(dist, "spawn_ranks", lambda *a, **k: pytest.fail(
         "a rank was started"))

@@ -13,7 +13,18 @@ def same_sampler_width(threads=2):
     """Set both packages' native samplers to ``threads`` OpenMP threads
     (where the library loads)."""
     from gnn_tpu import native as jnative
+    port_sampler_width(threads)
+    lib = jnative.get_lib()
+    if lib is not None:
+        lib.set_threads(threads)
+
+
+def port_sampler_width(threads=2):
+    """Set the port's native sampler alone to ``threads`` OpenMP threads
+    (where the library loads): for tests that run without the JAX
+    package, whose draws would otherwise follow the machine's core
+    count."""
     from gnn_tpu_torch import native as tnative
-    for lib in (jnative.get_lib(), tnative.get_lib()):
-        if lib is not None:
-            lib.set_threads(threads)
+    lib = tnative.get_lib()
+    if lib is not None:
+        lib.set_threads(threads)
