@@ -71,6 +71,8 @@ import argparse
 import os
 import sys
 
+from gnn_tpu_torch.utils.timing import span, spanned
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -249,12 +251,16 @@ def world_size(args) -> int:
         else 1
 
 
+@spanned("setup.cli")
 def _setup(args, orders, n_devices, device, say, part=None):
     """Graph, Laplacian, placement (over ``n_devices`` buffers), hot
     block and resident graph. The placement, the sample probabilities
     and the hot block's COO are cached in ``--save_dir`` (reference
     ``preprocess.py:317``). With a ``part`` of several ranks only its
-    slot-column shards of the blocks are built on ``device``."""
+    slot-column shards of the blocks are built on ``device``. A span
+    ``setup.cli`` with one child a step: ``setup.load``,
+    ``setup.laplacian``, ``setup.placement``, ``setup.sample_prob``,
+    ``setup.hot_block``, ``setup.resident_graph``."""
     import numpy as np
     import torch
 
@@ -262,19 +268,23 @@ def _setup(args, orders, n_devices, device, say, part=None):
     from gnn_tpu_torch.placement.engine import create_placement
     from gnn_tpu_torch.utils.normalize import build_laplacian
 
-    graph = load_dataset(args.dataset, args.data_dir)
+    with span("setup.load"):
+        graph = load_dataset(args.dataset, args.data_dir)
     n = graph.adj_full.shape[0]
-    lap = build_laplacian(graph.adj_full, args.model, norm=args.norm)
+    with span("setup.laplacian"):
+        lap = build_laplacian(graph.adj_full, args.model, norm=args.norm)
 
     strategy = ("pagraph" if args.pagraph else
                 "random" if args.random else
                 "naive" if args.naive else "greedy")
     per_dev = int(args.buffer_size * n)
     say("buffer_size: ", per_dev)
-    placement = create_placement(
-        lap, graph.train_nodes, per_dev=per_dev, num_devs=n_devices,
-        num_conv_layers=sum(orders), alpha=args.alpha, strategy=strategy,
-        cache_dir=args.save_dir, dataset=args.dataset.replace("/", "_"))
+    with span("setup.placement"):
+        placement = create_placement(
+            lap, graph.train_nodes, per_dev=per_dev, num_devs=n_devices,
+            num_conv_layers=sum(orders), alpha=args.alpha,
+            strategy=strategy, cache_dir=args.save_dir,
+            dataset=args.dataset.replace("/", "_"))
 
     hot_spec = hot_dense = resident_graph = None
     if args.adj_format in ("hot", "resident"):
@@ -287,22 +297,25 @@ def _setup(args, orders, n_devices, device, say, part=None):
         depth = sum(orders)
         prob_path = os.path.join(args.save_dir,
                                  f"{dsname}.sampprob.L{depth}.npy")
-        if os.path.exists(prob_path):
-            prob = np.load(prob_path)
-        else:
-            prob = compute_sample_prob(lap, graph.train_nodes, depth)
-            np.save(prob_path, prob)
-        hot_spec = HotSpec.from_sample_prob(prob, args.hot_k)
+        with span("setup.sample_prob"):
+            if os.path.exists(prob_path):
+                prob = np.load(prob_path)
+            else:
+                prob = compute_sample_prob(lap, graph.train_nodes, depth)
+                np.save(prob_path, prob)
+            hot_spec = HotSpec.from_sample_prob(prob, args.hot_k)
         bf16 = args.hot_dtype == "bfloat16"
         kw = dict(dtype=torch.bfloat16 if bf16 else torch.float32,
                   device=device, cache_path=os.path.join(
                       args.save_dir, f"{dsname}.hotcoo.L{depth}"
                       f".K{args.hot_k}.npz"))
-        if part is not None and part.size > 1:
-            dense, dense_t = build_hot_dense_shard(lap, hot_spec, part.rank,
-                                                   part.size, **kw)
-        else:
-            dense, dense_t = build_hot_dense_cached(lap, hot_spec, **kw)
+        with span("setup.hot_block"):
+            if part is not None and part.size > 1:
+                dense, dense_t = build_hot_dense_shard(
+                    lap, hot_spec, part.rank, part.size, **kw)
+            else:
+                dense, dense_t = build_hot_dense_cached(lap, hot_spec,
+                                                        **kw)
         say(f"hot block: K={hot_spec.k} "
             f"({2 * dense.numel() * dense.element_size() / 2**20:.0f} "
             f"MiB resident incl. transpose"
@@ -310,9 +323,10 @@ def _setup(args, orders, n_devices, device, say, part=None):
                and part.size > 1 else "") + ")")
         if args.adj_format == "resident":
             from gnn_tpu_torch.ops.residentgraph import build_resident_graph
-            resident_graph = build_resident_graph(
-                lap, hot_spec, dense, dense_t,
-                val_dtype="bfloat16" if bf16 else np.float32)
+            with span("setup.resident_graph"):
+                resident_graph = build_resident_graph(
+                    lap, hot_spec, dense, dense_t,
+                    val_dtype="bfloat16" if bf16 else np.float32)
         else:
             hot_dense = (dense, dense_t)
     return graph, lap, placement, hot_spec, hot_dense, resident_graph

@@ -18,6 +18,8 @@ import subprocess
 import threading
 import time
 
+from gnn_tpu_torch.utils.timing import span, spanned
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -76,9 +78,11 @@ def build(name: str) -> str:
     return so_path
 
 
+@spanned("setup.kernels")
 def build_all() -> list:
     """Compile every ``csrc/*.cu`` that is not built yet, one nvcc each,
-    all started together; returns the sources' names."""
+    all started together (a span ``setup.kernels``); returns the
+    sources' names."""
     from concurrent.futures import ThreadPoolExecutor
     names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
     with ThreadPoolExecutor(len(names)) as ex:
@@ -87,11 +91,13 @@ def build_all() -> list:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (built at first use)."""
+    """The loaded library for ``csrc/<name>.cu`` (built at first use; the
+    first load is a span ``setup.kernels``)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            with span("setup.kernels"):
+                lib = ctypes.CDLL(build(name))
             _LIBS[name] = lib
         return lib
 

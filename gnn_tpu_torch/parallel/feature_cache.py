@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from gnn_tpu_torch.parallel.dist import DistContext, PartGroup, part_sum_
+from gnn_tpu_torch.utils.timing import spanned
 
 
 def _host_table(feats: np.ndarray, dtype, on_card: bool) -> torch.Tensor:
@@ -67,6 +68,7 @@ class ReplicatedFeatures:
     halves its memory and gather bytes; rows are cast back to float32
     right after the gather."""
 
+    @spanned("setup.features")
     def __init__(self, feats: np.ndarray, dtype=torch.float32,
                  device="cpu"):
         self.dtype = dtype

@@ -27,6 +27,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from gnn_tpu_torch.ops import sparse as sparse_ops
+from gnn_tpu_torch.utils.timing import span
 
 _NATIVE_GRAPHS: dict = {}
 
@@ -258,36 +259,38 @@ def ladies_sample(cfg: SamplerConfig, seed: int, batch_nodes: np.ndarray,
         if skewed_sampling_nodes is not None:
             skew = skewed_sampling_nodes[li]
         tiles_pre = None
-        if lib is not None:
-            from gnn_tpu_torch.native import ladies_layer_native
-            # direct-to-tiles: the cold slice emits packed coords
-            tile_spec, es_dims = _tile_spec(cfg, hot_node, r_cap, c_cap)
-            out = ladies_layer_native(
-                lib, ngraph, prev, cfg.samp_num,
-                int(rng.integers(2 ** 63 - 1)), skew, cfg.scale_factor,
-                hot_node=hot_node, tile_spec=tile_spec)
-            if tile_spec is not None:
-                after, normfact, coords, tile_cnt = out
-                tiles_pre = (coords, tile_cnt, *es_dims)
-                rows = cols = np.zeros(0, np.int32)
-                vals = np.zeros(0, np.float32)
+        with span("sampler.draw"):
+            if lib is not None:
+                from gnn_tpu_torch.native import ladies_layer_native
+                # direct-to-tiles: the cold slice emits packed coords
+                tile_spec, es_dims = _tile_spec(cfg, hot_node, r_cap, c_cap)
+                out = ladies_layer_native(
+                    lib, ngraph, prev, cfg.samp_num,
+                    int(rng.integers(2 ** 63 - 1)), skew, cfg.scale_factor,
+                    hot_node=hot_node, tile_spec=tile_spec)
+                if tile_spec is not None:
+                    after, normfact, coords, tile_cnt = out
+                    tiles_pre = (coords, tile_cnt, *es_dims)
+                    rows = cols = np.zeros(0, np.int32)
+                    vals = np.zeros(0, np.float32)
+                else:
+                    after, normfact, rows, cols, vals = out
             else:
-                after, normfact, rows, cols, vals = out
-        else:
-            U = lap_matrix[prev, :]
-            p = _layer_probability(U, skew, cfg.scale_factor)
-            s_num = min(int((p > 0).sum()), cfg.samp_num)
-            chosen = _gumbel_topk_without_replacement(rng, p, s_num)
-            after = np.unique(np.concatenate([chosen, prev]))
-            normfact = (1.0 / np.clip(s_num * p[after], 1e-10, 1.0)).astype(
-                np.float32)
-            rows, cols, vals = _slice_cols_to_coo(U, after, normfact)
-        adjs.append(_pack_adj(cfg, rows, cols, vals, len(prev), len(after),
-                              r_cap, c_cap, prev=prev, after=after,
-                              normfact=normfact,
-                              lap_indptr=lap_matrix.indptr,
-                              cold_precomputed=hot_node is not None,
-                              tiles_pre=tiles_pre))
+                U = lap_matrix[prev, :]
+                p = _layer_probability(U, skew, cfg.scale_factor)
+                s_num = min(int((p > 0).sum()), cfg.samp_num)
+                chosen = _gumbel_topk_without_replacement(rng, p, s_num)
+                after = np.unique(np.concatenate([chosen, prev]))
+                normfact = (1.0 / np.clip(s_num * p[after], 1e-10,
+                                          1.0)).astype(np.float32)
+                rows, cols, vals = _slice_cols_to_coo(U, after, normfact)
+        with span("sampler.pack"):
+            adjs.append(_pack_adj(cfg, rows, cols, vals, len(prev),
+                                  len(after), r_cap, c_cap, prev=prev,
+                                  after=after, normfact=normfact,
+                                  lap_indptr=lap_matrix.indptr,
+                                  cold_precomputed=hot_node is not None,
+                                  tiles_pre=tiles_pre))
         s = np.searchsorted(after, prev).astype(np.int32)
         s_pad = np.zeros(r_cap, np.int32)
         s_pad[: len(s)] = s
@@ -296,8 +299,9 @@ def ladies_sample(cfg: SamplerConfig, seed: int, batch_nodes: np.ndarray,
 
     adjs.reverse()
     sampled.reverse()
-    return _finalize_batch(cfg, caps, prev, batch_nodes, adjs, sampled,
-                           labels_full)
+    with span("sampler.pack"):
+        return _finalize_batch(cfg, caps, prev, batch_nodes, adjs, sampled,
+                               labels_full)
 
 
 def _finalize_batch(cfg, caps, input_nodes, batch_nodes, adjs, sampled,
@@ -343,24 +347,39 @@ def subgraph_sample(cfg: SamplerConfig, seed: int, batch_nodes: np.ndarray,
     lib, ngraph = _native_graph(lap_matrix)
     hot_node = _cold_only_mask(cfg, lib)
 
-    if lib is not None:
-        from gnn_tpu_torch.native import sample_columns_native
-        after, normfact, pos = sample_columns_native(
-            lib, ngraph, prev, cfg.samp_num,
-            int(rng.integers(2 ** 63 - 1)), skew, cfg.scale_factor)
-    else:
-        U = lap_matrix[prev, :]
-        p = _layer_probability(U, skew, cfg.scale_factor)
-        s_num = min(int((p > 0).sum()), cfg.samp_num)
-        chosen = _gumbel_topk_without_replacement(rng, p, s_num)
-        after = np.unique(np.concatenate([chosen, prev]))
-        normfact = (1.0 / np.clip(s_num * p[after], 1e-10, 1.0)).astype(
-            np.float32)
-        pos = None
+    with span("sampler.draw"):
+        if lib is not None:
+            from gnn_tpu_torch.native import sample_columns_native
+            after, normfact, pos = sample_columns_native(
+                lib, ngraph, prev, cfg.samp_num,
+                int(rng.integers(2 ** 63 - 1)), skew, cfg.scale_factor)
+        else:
+            U = lap_matrix[prev, :]
+            p = _layer_probability(U, skew, cfg.scale_factor)
+            s_num = min(int((p > 0).sum()), cfg.samp_num)
+            chosen = _gumbel_topk_without_replacement(rng, p, s_num)
+            after = np.unique(np.concatenate([chosen, prev]))
+            normfact = (1.0 / np.clip(s_num * p[after], 1e-10,
+                                      1.0)).astype(np.float32)
+            pos = None
     cap_bottom = caps[0]
 
     def _slice_and_pack(row_set, r_cap):
-        """Pack ``lap[row_set][:, after]``."""
+        """Pack ``lap[row_set][:, after]`` (the slice a ``sampler.draw``,
+        the packing a ``sampler.pack``)."""
+        with span("sampler.draw"):
+            rows, cols, vals, tiles_pre = _slice(row_set, r_cap)
+        with span("sampler.pack"):
+            return _pack_adj(cfg, rows, cols, vals, len(row_set),
+                             len(after), r_cap, cap_bottom, prev=row_set,
+                             after=after, normfact=normfact,
+                             lap_indptr=lap_matrix.indptr,
+                             cold_precomputed=hot_node is not None,
+                             tiles_pre=tiles_pre)
+
+    def _slice(row_set, r_cap):
+        """``(rows, cols, vals, tiles_pre)`` of ``lap[row_set][:,
+        after]``."""
         tiles_pre = None
         if lib is not None:
             from gnn_tpu_torch.native import slice_rows_native
@@ -376,11 +395,7 @@ def subgraph_sample(cfg: SamplerConfig, seed: int, batch_nodes: np.ndarray,
         else:
             rows, cols, vals = _slice_cols_to_coo(
                 lap_matrix[row_set, :], after, normfact)
-        return _pack_adj(cfg, rows, cols, vals, len(row_set), len(after),
-                         r_cap, cap_bottom, prev=row_set, after=after,
-                         normfact=normfact, lap_indptr=lap_matrix.indptr,
-                         cold_precomputed=hot_node is not None,
-                         tiles_pre=tiles_pre)
+        return rows, cols, vals, tiles_pre
 
     adjs: List[Optional[object]] = []
     sampled: List[np.ndarray] = []
@@ -415,8 +430,9 @@ def subgraph_sample(cfg: SamplerConfig, seed: int, batch_nodes: np.ndarray,
         sampled.append(s_pad)
     adjs.reverse()
     sampled.reverse()
-    return _finalize_batch(cfg, caps, after, batch_nodes, adjs, sampled,
-                           labels_full)
+    with span("sampler.pack"):
+        return _finalize_batch(cfg, caps, after, batch_nodes, adjs, sampled,
+                               labels_full)
 
 
 SAMPLERS = {"ladies": ladies_sample, "subgraph": subgraph_sample}

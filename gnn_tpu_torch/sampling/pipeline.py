@@ -41,6 +41,7 @@ from gnn_tpu_torch.ops.residentgraph import ResidentLayerRef
 from gnn_tpu_torch.ops.sparse import COOAdj
 from gnn_tpu_torch.sampling.ladies import (MiniBatch, SamplerConfig,
                                            SAMPLERS, bucket_size)
+from gnn_tpu_torch.utils.timing import count, span
 
 
 # steps sampled ahead of the trainer
@@ -200,10 +201,19 @@ def _unify_layer(layer: list, l: int, book: ShapeBook) -> list:
     return [dataclasses.replace(a, **caps) for a in layer]
 
 
+def _adj_bytes(mbs: List[MiniBatch]) -> int:
+    """Bytes of the arrays of a group's adjacencies (one shared by
+    several layers counts once)."""
+    seen = {id(a): a for mb in mbs for a in mb.adjs if a is not None}
+    return sum(v.nbytes for a in seen.values()
+               for v in vars(a).values() if isinstance(v, np.ndarray))
+
+
 def unify_group(mbs: List[MiniBatch], book: ShapeBook) -> List[MiniBatch]:
     """A group's batches with every layer re-padded to the group's common
     shapes (:func:`_unify_layer`); the node sets and labels already share
-    the sampler's static caps."""
+    the sampler's static caps. Counts the bytes the re-padding added
+    (``pipeline.repad_bytes``)."""
     out = [dataclasses.replace(mb, adjs=list(mb.adjs)) for mb in mbs]
     for l in range(len(mbs[0].adjs)):
         if mbs[0].adjs[l] is None:
@@ -211,6 +221,7 @@ def unify_group(mbs: List[MiniBatch], book: ShapeBook) -> List[MiniBatch]:
         for mb, a in zip(out, _unify_layer([mb.adjs[l] for mb in mbs], l,
                                            book)):
             mb.adjs[l] = a
+    count("pipeline.repad_bytes", _adj_bytes(out) - _adj_bytes(mbs))
     return out
 
 
@@ -299,10 +310,14 @@ class BatchPipeline:
 
     def _sample_one(self, seed, batch_nodes, cfg, rank=0):
         """One batch of ``batch_nodes`` under ``cfg``, skewed toward rank
-        ``rank``'s nodes."""
+        ``rank``'s nodes (a span ``sampler.batch``; the counter
+        ``sampler.batches``)."""
         skew = None if self.per_rank_skew is None else self._skew_of(rank)
-        return self._sampler(cfg, seed, batch_nodes, self.lap, self.labels,
-                             skew)
+        with span("sampler.batch"):
+            mb = self._sampler(cfg, seed, batch_nodes, self.lap,
+                               self.labels, skew)
+        count("sampler.batches")
+        return mb
 
     def _epoch_plan(self, target_nodes, rank_chunks, eid):
         """Every rank's shuffled chunk + the step count for internal epoch
@@ -437,7 +452,9 @@ class BatchPipeline:
             fut = futures.pop(0)
             if submitted < num_steps:
                 submit()
-            yield fut.result()
+            with span("pipeline.wait"):
+                mb = fut.result()
+            yield mb
 
     def train_epoch_grouped(self, target_nodes: np.ndarray,
                             rank_chunks: Optional[List[np.ndarray]] = None,
@@ -456,12 +473,16 @@ class BatchPipeline:
                                    depth=max(QUEUE_DEPTH, 2 * group + 1)):
             pending.append(mb)
             if len(pending) == group:
-                yield unify_group(pending, self.shape_book), group
+                with span("pipeline.repad"):
+                    mbs = unify_group(pending, self.shape_book)
+                yield mbs, group
                 pending = []
         if pending:
             n_valid = len(pending)
             pending += [pending[-1]] * (group - n_valid)
-            yield unify_group(pending, self.shape_book), n_valid
+            with span("pipeline.repad"):
+                mbs = unify_group(pending, self.shape_book)
+            yield mbs, n_valid
 
     def eval_batches(self, target_nodes: np.ndarray, batch_size: int,
                      mode: str = "val") -> Iterator[MiniBatch]:
@@ -505,7 +526,9 @@ class BatchPipeline:
         for g in range(0, n_batches, ws):
             j = g + r
             if j < n_batches:
-                yield futs[j].result()
+                with span("pipeline.wait"):
+                    mb = futs[j].result()
+                yield mb
                 continue
             last = n_batches - 1
             mb = self._sample_one(seeds[last], nodes(last), cfg, last % ws)

@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 import zlib
 from typing import List
 
@@ -62,6 +61,7 @@ import torch
 from gnn_tpu_torch.ops.cuda_build import launch_counts
 from gnn_tpu_torch.ops.sparse import COUNT_FIELDS
 from gnn_tpu_torch.train.stepfns import DeviceBatch, to_device_batch
+from gnn_tpu_torch.utils.timing import count, span
 
 # eager steps before a capture (the CUDA graph documentation's example
 # warms up three)
@@ -163,23 +163,25 @@ class _Bucket:
         # only after it)
         self.copied = None
 
-    def stage(self, mbs, lrs) -> float:
+    def stage(self, mbs, lrs) -> None:
         """Fill the slots from host batches ``mbs`` and their learning
-        rates, through the pinned buffers; returns the seconds spent
-        waiting for the card to finish reading them."""
-        t0 = time.perf_counter()
+        rates, through the pinned buffers, once the card has finished
+        reading them (a span ``dispatch.card_wait``); counts the bytes
+        copied into them (``dispatch.stage_bytes``)."""
         if self.copied is not None:
-            self.copied.synchronize()
-        waited = time.perf_counter() - t0
+            with span("dispatch.card_wait"):
+                self.copied.synchronize()
+        n_bytes = 0
         for mb, pins, devs in zip(mbs, self.pinned, self.dev):
             for x, p, d in zip(batch_leaves(mb, True), pins, devs):
                 np.copyto(p.numpy(), x)
                 d.copy_(p, non_blocking=True)
+                n_bytes += x.nbytes
+        count("dispatch.stage_bytes", n_bytes)
         self.lr_host.numpy()[: len(lrs)] = lrs
         self.lr.copy_(self.lr_host, non_blocking=True)
         self.copied = torch.cuda.Event()
         self.copied.record()
-        return waited
 
     def move_to_slot0(self, j: int):
         """Slot ``j``'s batch and learning rate into slot 0 (on the
@@ -234,15 +236,28 @@ class GroupedDispatch:
 
     def _capture(self, b: _Bucket, n_steps: int, key) -> None:
         """Warm up on a side stream, restore what it changed, and capture
-        ``n_steps`` steps over slots ``0 .. n_steps - 1`` into a graph."""
+        ``n_steps`` steps over slots ``0 .. n_steps - 1`` into a graph
+        (a span ``dispatch.capture``: ``dispatch.capture_warmup``, then
+        ``dispatch.capture_record``)."""
+        with span("dispatch.capture") as whole:
+            graph, rec = self._warm_and_record(b, n_steps, key)
+        rec["seconds"] = whole.seconds
+        b.graphs[n_steps] = graph, rec
+        rec["live_graphs"] = self.live_graphs()
+        self.captures.append(rec)
+        print(f"cuda graph capture: {n_steps} steps, shapes {rec['key']}, "
+              f"{rec['seconds']:.2f}s ({rec['live_graphs']} live graphs)",
+              flush=True)
+
+    def _warm_and_record(self, b: _Bucket, n_steps: int, key):
+        """The capture's two parts: ``(graph, its record)``."""
         tr = self.tr
-        t0 = time.perf_counter()
         had_state = len(tr.optimizer.state) > 0
         saved = [t.clone() for t in self._state()]
         gen_state = tr.generator.get_state()
         side = torch.cuda.Stream(tr.device)
         side.wait_stream(torch.cuda.current_stream(tr.device))
-        with torch.cuda.stream(side):
+        with span("dispatch.capture_warmup"), torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
                 tr._step(b.slots[0])
         torch.cuda.current_stream(tr.device).wait_stream(side)
@@ -264,7 +279,7 @@ class GroupedDispatch:
         graph.register_generator_state(tr.generator)
         lr_float = [g["lr"] for g in tr.optimizer.param_groups]
         try:
-            with torch.cuda.graph(graph):
+            with span("dispatch.capture_record"), torch.cuda.graph(graph):
                 for i in range(n_steps):
                     for g in tr.optimizer.param_groups:
                         g["lr"] = b.lr[i]
@@ -274,47 +289,46 @@ class GroupedDispatch:
                 g["lr"] = lr
         recorded = collections.Counter(launch_counts("captured"))
         recorded.subtract(before)
-        rec = {"steps": n_steps, "seconds": time.perf_counter() - t0,
-               "key": f"{zlib.crc32(repr(key).encode()):08x}",
-               "launches": {k: v for k, v in recorded.items() if v},
-               "replays": 0}
-        b.graphs[n_steps] = graph, rec
-        rec["live_graphs"] = self.live_graphs()
-        self.captures.append(rec)
-        print(f"cuda graph capture: {n_steps} steps, shapes {rec['key']}, "
-              f"{rec['seconds']:.2f}s ({rec['live_graphs']} live graphs)",
-              flush=True)
+        return graph, {"steps": n_steps, "seconds": 0.0,
+                       "key": f"{zlib.crc32(repr(key).encode()):08x}",
+                       "launches": {k: v for k, v in recorded.items() if v},
+                       "replays": 0}
 
-    def _replay(self, b: _Bucket, n_steps: int, key) -> None:
+    def _replay(self, b: _Bucket, n_steps: int, key, timed: list) -> None:
+        """Replay the ``n_steps``-step graph of ``b`` (captured first if
+        missing) between two CUDA events, which go to ``timed``."""
         if n_steps not in b.graphs:
             self._capture(b, n_steps, key)
         graph, rec = b.graphs[n_steps]
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
         graph.replay()
+        ev[1].record()
+        timed.append(ev)
         rec["replays"] += 1
 
-    def _run_group_on_card(self, mbs, n_valid, lrs, losses):
-        """Stage and replay one group; returns ``(staging seconds, of
-        them the wait for the card, capture seconds)``."""
+    def _run_group_on_card(self, mbs, n_valid, lrs, losses, timed):
+        """Stage and replay one group; returns its spans
+        ``(dispatch.stage, dispatch.replay)``."""
         key = group_key(mbs[0])
         if any(group_key(mb) != key for mb in mbs[1:]):
             raise ValueError("a group's batches differ in padded shapes: "
                              "re-pad them with unify_group")
-        t0 = time.perf_counter()
-        b = self._bucket(key, mbs)
-        waited = b.stage(mbs, lrs)
-        t_stage = time.perf_counter() - t0
-        n_caps = len(self.captures)
-        if n_valid == self.G:
-            self._replay(b, self.G, key)
-            losses.append(b.loss.clone())
-        else:
-            for j in range(n_valid):
-                if j:
-                    b.move_to_slot0(j)
-                self._replay(b, 1, key)
-                losses.append(b.loss[:1].clone())
-        return t_stage, waited, sum(c["seconds"]
-                                    for c in self.captures[n_caps:])
+        with span("dispatch.stage") as stage:
+            b = self._bucket(key, mbs)
+            b.stage(mbs, lrs)
+        with span("dispatch.replay") as replay:
+            if n_valid == self.G:
+                self._replay(b, self.G, key, timed)
+                losses.append(b.loss.clone())
+            else:
+                for j in range(n_valid):
+                    if j:
+                        b.move_to_slot0(j)
+                    self._replay(b, 1, key, timed)
+                    losses.append(b.loss[:1].clone())
+        return stage, replay
 
     def replayed_launches(self) -> collections.Counter:
         """The kernel launches inside the replays so far, by
@@ -347,53 +361,73 @@ class GroupedDispatch:
         between the ends of the group's replays and of the group before
         (CUDA events; the host runs a group or two ahead of the card),
         on the CPU the group's host time. The losses are read once, at
-        the end."""
+        the end. On the card the replays' device seconds (CUDA events
+        around each ``graph.replay()``) go to the counter
+        ``dispatch.replay_device_s``. The buckets sum the clock reads of
+        the spans: ``pipeline.next`` waits; on the card the self time of
+        ``dispatch.stage`` moves, and the self time of
+        ``dispatch.replay`` (its captures left out) and every
+        ``dispatch.card_wait`` execute; on the CPU ``train.to_device``
+        moves and ``train.step`` and the loss read execute."""
         from gnn_tpu_torch.train.metrics import EpochMetrics
         tr = self.tr
-        t_sample = t_move = t_exec = t_capture = 0.0
-        losses, times, shares, ends = [], [], [], []
+        # the buckets, in ns
+        n_sample = n_move = n_exec = n_capture = 0
+        losses, times, shares, ends, timed = [], [], [], [], []
         n_caps = len(self.captures)
         last = None
-        if self.on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-        t_start = t0 = time.perf_counter()
-        for mbs, n_valid in tr.pipeline.train_epoch_grouped(
-                train_nodes, rank_chunks, epoch=epoch, group=self.G):
-            t1 = time.perf_counter()
-            t_sample += t1 - t0
-            shares += [tr.pipeline.skew_share(mb) for mb in mbs[:n_valid]]
-            waited = 0.0
+        with span("train.epoch") as whole:
             if self.on_card:
-                lrs = [tr._lr_at(tr.n_updates + j) for j in range(n_valid)]
-                stage, waited, cap = self._run_group_on_card(
-                    mbs, n_valid, lrs, losses)
-                tr.n_updates += n_valid
-                ends.append((torch.cuda.Event(enable_timing=True), n_valid,
-                             cap))
-                ends[-1][0].record()
-            else:
-                stage = cap = 0.0
-                for mb in mbs[:n_valid]:
-                    ts = time.perf_counter()
-                    batch = to_device_batch(mb, tr.device)
-                    stage += time.perf_counter() - ts
-                    losses.append(tr.train_step(batch).reshape(1))
-                times += [(time.perf_counter() - t1) / n_valid] * n_valid
-            t0 = time.perf_counter()
-            t_move += stage - waited
-            t_exec += t0 - t1 - stage + waited - cap
-            t_capture += cap
-            last = mbs[n_valid - 1]
-        # one read of every loss (it waits for the last replay)
-        t1 = time.perf_counter()
-        step_losses = torch.cat(losses).cpu().tolist() if losses else []
-        t_exec += time.perf_counter() - t1
-        prev = start if self.on_card else None
-        for ev, n, cap in ends:
-            dt = prev.elapsed_time(ev) / 1e3 - cap
-            times += [max(dt, 0.0) / n] * n
-            prev = ev
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            groups = iter(tr.pipeline.train_epoch_grouped(
+                train_nodes, rank_chunks, epoch=epoch, group=self.G))
+            while True:
+                with span("pipeline.next") as nxt:
+                    got = next(groups, None)
+                n_sample += nxt.ns
+                if got is None:
+                    break
+                mbs, n_valid = got
+                shares += [tr.pipeline.skew_share(mb)
+                           for mb in mbs[:n_valid]]
+                if self.on_card:
+                    lrs = [tr._lr_at(tr.n_updates + j)
+                           for j in range(n_valid)]
+                    stage, replay = self._run_group_on_card(
+                        mbs, n_valid, lrs, losses, timed)
+                    tr.n_updates += n_valid
+                    ends.append((torch.cuda.Event(enable_timing=True),
+                                 n_valid, replay.child_ns / 1e9))
+                    ends[-1][0].record()
+                    # the stage's one child is its wait for the card, the
+                    # replay's its captures
+                    n_move += stage.ns - stage.child_ns
+                    n_exec += replay.ns - replay.child_ns + stage.child_ns
+                    n_capture += replay.child_ns
+                else:
+                    for mb in mbs[:n_valid]:
+                        with span("train.to_device") as move:
+                            batch = to_device_batch(mb, tr.device)
+                        n_move += move.ns
+                        with span("train.step") as step:
+                            losses.append(tr.train_step(batch).reshape(1))
+                        n_exec += step.ns
+                    times += [(step.t1 - nxt.t1) / 1e9 / n_valid] * n_valid
+                last = mbs[n_valid - 1]
+            # one read of every loss (it waits for the last replay)
+            with span("dispatch.card_wait") as wait:
+                step_losses = (torch.cat(losses).cpu().tolist() if losses
+                               else [])
+            n_exec += wait.ns
+            prev = start if self.on_card else None
+            for ev, n, cap in ends:
+                dt = prev.elapsed_time(ev) / 1e3 - cap
+                times += [max(dt, 0.0) / n] * n
+                prev = ev
+            if timed:
+                count("dispatch.replay_device_s",
+                      sum(a.elapsed_time(b) for a, b in timed) / 1e3)
         tr.last_batch = (to_device_batch(last, tr.device)
                          if keep_last_batch and last is not None else None)
         caps = self.captures[n_caps:]
@@ -402,9 +436,8 @@ class GroupedDispatch:
             train_loss=(float(np.mean(step_losses)) if step_losses
                         else float("nan")),
             valid_loss=float("nan"), valid_f1=float("nan"),
-            data_movement_time=t_move, execution_time=t_exec,
-            sample_wait_time=t_sample,
-            total_time=time.perf_counter() - t_start,
+            data_movement_time=n_move / 1e9, execution_time=n_exec / 1e9,
+            sample_wait_time=n_sample / 1e9, total_time=whole.seconds,
             skew_share=float(np.mean(shares)) if shares else float("nan"),
             step_losses=step_losses, step_times=times,
-            captures=len(caps), capture_time=t_capture)
+            captures=len(caps), capture_time=n_capture / 1e9)

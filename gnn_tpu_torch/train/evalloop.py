@@ -21,6 +21,7 @@ import torch
 from gnn_tpu_torch.parallel.dist import sum_across_ranks
 from gnn_tpu_torch.train.loss import calc_f1, masked_loss, predict_proba
 from gnn_tpu_torch.train.stepfns import prepare_adjs, to_device_batch
+from gnn_tpu_torch.utils.timing import span
 
 
 class EvalMixin:
@@ -32,7 +33,10 @@ class EvalMixin:
         """(micro-F1 weighted by valid rows, mean loss) over the eval
         batches: ``val`` on every rank alike, ``test`` sharded over the
         ranks. Sets ``test_batches``, the batches this rank evaluated in
-        the last test sweep."""
+        the last test sweep. A span ``eval.val`` (``eval.test``):
+        ``eval.sample`` draws or waits for each batch, ``eval.forward``
+        gathers, runs the model and reads the probabilities back,
+        ``eval.f1`` scores them."""
         was_training = self.net.training
         self.net.eval()
         total_f1 = 0.0
@@ -41,34 +45,46 @@ class EvalMixin:
         n_batches = 0
         src = self.feature_source
         try:
-            for mb in self.pipeline.eval_batches(target_nodes, batch_size,
-                                                 mode):
-                if mode == "val" and self.dist.parts == 1:
-                    batch = to_device_batch(mb, self.device)
-                    x = src.host_gather(mb.input_nodes, mb.input_mask)
-                else:
-                    # every rank gathers, fillers too: the cache's
-                    # exchange needs all of them
-                    batch = to_device_batch(mb, self.device, src)
-                    x = src.gather(batch.input_nodes, batch.input_mask,
-                                   batch.feat_plan)
-                mask = mb.label_mask.astype(bool)
-                if not mask.any():
-                    continue
-                adjs = prepare_adjs(batch, self.agg_state)
-                out = self.net(x, adjs, batch.sampled_nodes)
-                loss = masked_loss(out, batch.labels, batch.label_mask,
-                                   self.sigmoid_loss)
-                proba = predict_proba(out, self.sigmoid_loss).cpu().numpy()
-                labels = mb.labels
-                f1_mic, _ = calc_f1(labels[mask],
-                                    proba[: labels.shape[0]][mask],
-                                    self.sigmoid_loss)
-                n = int(mask.sum())
-                total_f1 += f1_mic * n
-                total_n += n
-                total_loss += float(loss)
-                n_batches += 1
+            with span(f"eval.{'val' if mode == 'val' else 'test'}"):
+                batches = iter(self.pipeline.eval_batches(
+                    target_nodes, batch_size, mode))
+                while True:
+                    with span("eval.sample"):
+                        mb = next(batches, None)
+                    if mb is None:
+                        break
+                    mask = mb.label_mask.astype(bool)
+                    with span("eval.forward"):
+                        if mode == "val" and self.dist.parts == 1:
+                            batch = to_device_batch(mb, self.device)
+                            x = src.host_gather(mb.input_nodes,
+                                                mb.input_mask)
+                        else:
+                            # every rank gathers, fillers too: the
+                            # cache's exchange needs all of them
+                            batch = to_device_batch(mb, self.device, src)
+                            x = src.gather(batch.input_nodes,
+                                           batch.input_mask,
+                                           batch.feat_plan)
+                        if not mask.any():
+                            continue
+                        adjs = prepare_adjs(batch, self.agg_state)
+                        out = self.net(x, adjs, batch.sampled_nodes)
+                        loss = float(masked_loss(out, batch.labels,
+                                                 batch.label_mask,
+                                                 self.sigmoid_loss))
+                        proba = predict_proba(
+                            out, self.sigmoid_loss).cpu().numpy()
+                    with span("eval.f1"):
+                        labels = mb.labels
+                        f1_mic, _ = calc_f1(labels[mask],
+                                            proba[: labels.shape[0]][mask],
+                                            self.sigmoid_loss)
+                    n = int(mask.sum())
+                    total_f1 += f1_mic * n
+                    total_n += n
+                    total_loss += loss
+                    n_batches += 1
         finally:
             self.net.train(was_training)
         if mode != "val":

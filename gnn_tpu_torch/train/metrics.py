@@ -93,7 +93,14 @@ class EpochMetrics:
     nodes in the locality skew set (NaN without locality sampling).
     ``step_losses``/``step_times`` hold each training step's loss and
     host-clock seconds (the step ends with the loss read back; under
-    grouped dispatch, a group's seconds divided over its steps)."""
+    grouped dispatch, a group's seconds divided over its steps). The
+    three buckets sum the clock reads of the epoch's spans
+    (`gnn_tpu_torch.utils.timing`): ``sample_wait_time`` the
+    ``pipeline.next`` spans; eagerly, ``data_movement_time`` the
+    ``train.to_device`` and ``execution_time`` the ``train.step`` spans;
+    grouped on the card, the self time of ``dispatch.stage`` and
+    ``dispatch.replay`` less ``dispatch.capture`` plus
+    ``dispatch.card_wait``."""
 
     epoch: int
     train_loss: float
@@ -120,6 +127,11 @@ class EpochMetrics:
     # dispatch on the card), kept out of the step times
     captures: int = 0
     capture_time: float = 0.0
+    # the epoch's span and counter totals
+    # (`gnn_tpu_torch.utils.timing.Recorder.totals`), filled by
+    # ``Trainer.fit`` at the epoch's end
+    spans: Dict[str, dict] = dataclasses.field(default_factory=dict)
+    counts: Dict[str, float] = dataclasses.field(default_factory=dict)
     step_losses: List[float] = dataclasses.field(default_factory=list)
     step_times: List[float] = dataclasses.field(default_factory=list)
 

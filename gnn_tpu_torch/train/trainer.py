@@ -35,7 +35,6 @@ import contextlib
 import dataclasses
 import hashlib
 import os
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -51,6 +50,7 @@ from gnn_tpu_torch.train.metrics import EpochMetrics
 from gnn_tpu_torch.train.optiming import OpTimingMixin
 from gnn_tpu_torch.train.stepfns import (clip_by_global_norm, prepare_adjs,
                                          sum_gradients_, to_device_batch)
+from gnn_tpu_torch.utils.timing import RECORDER, span, spanned
 
 
 class Trainer(EvalMixin, OpTimingMixin):
@@ -63,6 +63,7 @@ class Trainer(EvalMixin, OpTimingMixin):
     dict whose blocks are whole or this part's column shards) is sharded
     over the part group, and the pipeline is the data rank's."""
 
+    @spanned("setup.trainer")
     def __init__(self, net, pipeline, feats: np.ndarray, lr: float = 0.01,
                  sigmoid_loss: bool = True, seed: int = 0,
                  feature_source=None, resident_graph=None,
@@ -221,37 +222,43 @@ class Trainer(EvalMixin, OpTimingMixin):
         as ``self.last_batch`` (the op-timing probe's operands); otherwise
         ``last_batch`` is None."""
         # epoch-deterministic randomness (sampling seeds, dropout)
+        RECORDER.epoch = epoch
         self.generator.manual_seed(self._seed * 1_000_003 + epoch
                                    + (self.dist.data_rank << 32))
         self.net.train()
         if self._dispatch is not None:
             return self._dispatch.train_epoch(train_nodes, epoch,
                                               rank_chunks, keep_last_batch)
-        t_sample = t_move = t_exec = 0.0
+        # the buckets sum the spans' clock reads (ns)
+        n_sample = n_move = n_exec = 0
         losses, times, shares = [], [], []
         bytes_before = sum(part_bytes.values())
-        t_start = t0 = time.perf_counter()
-        for mb in self.pipeline.train_epoch(train_nodes, rank_chunks,
-                                            epoch=epoch):
-            t1 = time.perf_counter()
-            t_sample += t1 - t0
-            shares.append(self.pipeline.skew_share(mb))
-            batch = to_device_batch(mb, self.device, self.feature_source)
-            t2 = time.perf_counter()
-            t_move += t2 - t1
-            loss = float(self.train_step(batch))   # waits for the device
-            t0 = time.perf_counter()
-            t_exec += t0 - t2
-            losses.append(loss)
-            times.append(t0 - t1)
+        with span("train.epoch") as whole:
+            batches = iter(self.pipeline.train_epoch(
+                train_nodes, rank_chunks, epoch=epoch))
+            while True:
+                with span("pipeline.next") as nxt:
+                    mb = next(batches, None)
+                n_sample += nxt.ns
+                if mb is None:
+                    break
+                shares.append(self.pipeline.skew_share(mb))
+                with span("train.to_device") as move:
+                    batch = to_device_batch(mb, self.device,
+                                            self.feature_source)
+                n_move += move.ns
+                with span("train.step") as step:
+                    # waits for the device
+                    losses.append(float(self.train_step(batch)))
+                n_exec += step.ns
+                times.append((step.t1 - nxt.t1) / 1e9)
         self.last_batch = batch if keep_last_batch and losses else None
         return EpochMetrics(
             epoch=epoch,
             train_loss=float(np.mean(losses)) if losses else float("nan"),
             valid_loss=float("nan"), valid_f1=float("nan"),
-            data_movement_time=t_move, execution_time=t_exec,
-            sample_wait_time=t_sample,
-            total_time=time.perf_counter() - t_start,
+            data_movement_time=n_move / 1e9, execution_time=n_exec / 1e9,
+            sample_wait_time=n_sample / 1e9, total_time=whole.seconds,
             skew_share=float(np.mean(shares)) if shares else float("nan"),
             part_bytes=sum(part_bytes.values()) - bytes_before,
             step_losses=losses, step_times=times)
@@ -309,7 +316,9 @@ class Trainer(EvalMixin, OpTimingMixin):
                 m = self.train_epoch(train_nodes, epoch, rank_chunks,
                                      keep_last_batch=op_timing)
             if op_timing:
-                fwd, bwd, comm = self.measure_op_buckets(self.last_batch)
+                with span("fit.op_timing"):
+                    fwd, bwd, comm = self.measure_op_buckets(
+                        self.last_batch)
                 self.last_batch = None
                 steps = len(m.step_losses)
                 m.spmm_fwd_time = fwd * steps
@@ -320,7 +329,7 @@ class Trainer(EvalMixin, OpTimingMixin):
             # the first trained epoch pays one-time set-up in its
             # execution bucket, which would read as a tiny ratio and stop
             # the controller, so it is skipped
-            new_sf = self.pipeline.cfg.scale_factor
+            scale_factor = new_sf = self.pipeline.cfg.scale_factor
             if tuner is not None and epoch > start_epoch:
                 new_sf = tuner.update(m.data_movement_time,
                                       m.execution_time)
@@ -330,45 +339,54 @@ class Trainer(EvalMixin, OpTimingMixin):
             if self.dist.world_size > 1:
                 m.param_digest = self.param_digest()
             self.history.append(m)
-            if log:
-                print(m.format(self.pipeline.cfg.scale_factor), flush=True)
-            if metrics is not None:
-                metrics.log(epoch=epoch, train_loss=m.train_loss,
-                            valid_loss=m.valid_loss, valid_f1=m.valid_f1,
-                            sample_wait_s=m.sample_wait_time,
-                            data_movement_s=m.data_movement_time,
-                            execution_s=m.execution_time,
-                            spmm_fwd_s=m.spmm_fwd_time,
-                            spmm_bwd_s=m.spmm_bwd_time,
-                            communication_s=m.communication_time,
-                            scale_factor=self.pipeline.cfg.scale_factor,
-                            skew_share=m.skew_share,
-                            total_s=m.total_time,
-                            step_losses=m.step_losses,
-                            step_times=m.step_times,
-                            captures=m.captures, capture_s=m.capture_time,
-                            device_memory=device_memory_stats())
             if new_sf != self.pipeline.cfg.scale_factor:
                 self.pipeline.cfg = dataclasses.replace(
                     self.pipeline.cfg, scale_factor=new_sf)
             # best-model selection at +1e-2 improvement (main.py:197-199)
             if f1 > self.best_val + 1e-2:
-                self.best_val = f1
-                self.best_params = {k: v.detach().clone() for k, v in
-                                    self.net.state_dict().items()}
-                if checkpoint_dir is not None:
-                    if main:
-                        save_checkpoint(
-                            checkpoint_dir, self.best_params, step=epoch,
-                            opt_state=self._opt_state(),
-                            n_updates=self.n_updates,
-                            best_val=self.best_val)
-                    self.dist.barrier()
+                with span("fit.best_copy"):
+                    self.best_val = f1
+                    self.best_params = {k: v.detach().clone() for k, v in
+                                        self.net.state_dict().items()}
+                    if checkpoint_dir is not None:
+                        if main:
+                            save_checkpoint(
+                                checkpoint_dir, self.best_params,
+                                step=epoch, opt_state=self._opt_state(),
+                                n_updates=self.n_updates,
+                                best_val=self.best_val)
+                        self.dist.barrier()
             if checkpoint_dir is not None:
                 # rolling crash-recovery checkpoint (next epoch)
                 self.save(checkpoint_dir, step=epoch + 1)
+            # the epoch's spans and counters, its checkpoint's included
+            totals = RECORDER.totals(epoch)
+            m.spans, m.counts = totals["spans"], totals["counts"]
+            with span("fit.log"):
+                if log:
+                    print(m.format(scale_factor), flush=True)
+                if metrics is not None:
+                    metrics.log(epoch=epoch, train_loss=m.train_loss,
+                                valid_loss=m.valid_loss,
+                                valid_f1=m.valid_f1,
+                                sample_wait_s=m.sample_wait_time,
+                                data_movement_s=m.data_movement_time,
+                                execution_s=m.execution_time,
+                                spmm_fwd_s=m.spmm_fwd_time,
+                                spmm_bwd_s=m.spmm_bwd_time,
+                                communication_s=m.communication_time,
+                                scale_factor=scale_factor,
+                                skew_share=m.skew_share,
+                                total_s=m.total_time,
+                                step_losses=m.step_losses,
+                                step_times=m.step_times,
+                                captures=m.captures,
+                                capture_s=m.capture_time,
+                                device_memory=device_memory_stats(),
+                                spans=m.spans, counts=m.counts)
         return self.history
 
+    @spanned("checkpoint.save")
     def save(self, ckpt_dir: str, step: int = 0):
         """The latest checkpoint, the full training state: params,
         optimizer state, update count, ``step`` and the best-val

@@ -21,7 +21,13 @@ steps, then ``--steps`` steps under ``torch.profiler``, and prints:
   epoch 1 under the profiler, per step its epoch's mean), which is how
   ``--steps_per_dispatch G`` runs (a CUDA graph replay a group; its
   captures fall in epoch 0);
-* the device busy share over the window (kernel time / wall time);
+* the device busy share over the window: the union of its kernel,
+  memcpy and memset intervals over the window's length
+  (`portbench.trace.reduce_slice`, as the benchmark's
+  ``device.idle_share`` reads it);
+* the longest idle gaps of the card, labelled by the innermost host
+  span or op covering each: the port's spans
+  (`gnn_tpu_torch.utils.timing`) name the host's intervals;
 * device time per step by kind of kernel (dense matmuls, the port's
   hand-written kernels, everything else);
 * the kernels by total device time per step, with their shares.
@@ -39,6 +45,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+# the profiler span around the window
+WINDOW = "torch_profile_step.window"
 # kernel-name patterns of each kind, first match wins (the hand-written
 # kernels' names come from gnn_tpu_torch/csrc)
 KINDS = [
@@ -70,6 +78,7 @@ def main() -> int:
     from gnn_tpu_torch import cli
     from gnn_tpu_torch.sampling.pipeline import BatchPipeline
     from gnn_tpu_torch.train.stepfns import to_device_batch
+    from portbench import trace
 
     if not torch.cuda.is_available():
         print("torch.cuda is not available", file=sys.stderr)
@@ -103,29 +112,27 @@ def main() -> int:
         split = [0.0, 0.0, 0.0]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            if own.epoch:
-                m = trainer.train_epoch(graph.train_nodes, 1)
-                own.steps = len(m.step_losses)
-                split = [m.sample_wait_time, m.data_movement_time,
-                         m.execution_time]
-            else:
-                for _ in range(own.steps):
-                    for i, v in enumerate(step()):
-                        split[i] += v
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            with torch.profiler.record_function(WINDOW):
+                if own.epoch:
+                    m = trainer.train_epoch(graph.train_nodes, 1)
+                    own.steps = len(m.step_losses)
+                    split = [m.sample_wait_time, m.data_movement_time,
+                             m.execution_time]
+                else:
+                    for _ in range(own.steps):
+                        for i, v in enumerate(step()):
+                            split[i] += v
+                torch.cuda.synchronize()
         pipe.close()
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
 
-    by_name = collections.Counter()
-    calls = collections.Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us()
-            calls[e.name] += 1
-    busy = sum(by_name.values()) / 1e6
+    dev_ev, host_ev, (w0, w1) = trace.profile_events(prof, WINDOW)
+    sl = trace.reduce_slice(dev_ev, host_ev, w0, w1)
+    by_name = collections.Counter({k: v * 1e6
+                                   for k, v in sl["kernel_s"].items()})
+    calls = sl["kernel_calls"]
+    busy, wall = sl["busy_s"], sl["window_s"]
     n = own.steps
     print(f"gpu: {torch.cuda.get_device_name(0)}")
     print(f"window: {n} steps after "
@@ -136,7 +143,12 @@ def main() -> int:
           f"to device {split[1] / n * 1e3:.3f} ms, step "
           f"{split[2] / n * 1e3:.3f} ms")
     print(f"device busy {busy / n * 1e3:.3f} ms/step = "
-          f"{busy / wall:.3f} of wall (idle {1 - busy / wall:.3f})")
+          f"{busy / wall:.3f} of wall (idle {1 - busy / wall:.3f}; the "
+          f"union of kernel, memcpy and memset intervals)")
+    print("longest idle gaps of the card, by the host span or op over "
+          "each:")
+    for label, secs in sl["idle_gaps"]:
+        print(f"  {secs * 1e3:9.3f} ms  {label}")
     kinds = collections.Counter()
     for name, us in by_name.items():
         kind = next((k for k, pats in KINDS
