@@ -25,8 +25,10 @@ Phases (any failure exits non-zero without the final result line):
    four edge-stream attention kernels (K3 row max, K4 terms, bwd_q,
    bwd_kv) at each GAT layer's width (512, one head), plus one 4-head
    case and one case at 50x magnitudes, each with its thread blocks and
-   cluster size. The stream SpMM (K2) runs at the
-   three layers of one blocked batch (50k nodes / degree 30, batch 512,
+   cluster size; the four additive attention kernels of gatv1 (add_rowmax,
+   add_terms, add_bwd_q, add_bwd_kv) at its widths (4 x 256, 4 x 256,
+   6 x 41), each timed beside its plain version and bound.
+   The stream SpMM (K2) runs at the three layers of one blocked batch (50k nodes / degree 30, batch 512,
    samp_num 2048; widths 602 / 1024 / 1024) over ``block_*`` and over
    the transposed ``block_*_t``, and K2 in both orientations and the
    stream SDDMM (K5) at GAT's tile layer of one default pattern batch
@@ -158,8 +160,13 @@ Phases (any failure exits non-zero without the final result line):
    are each graph's recorded launches times its replays, since a
    wrapper's counter sees a capture once and a replay never. It logs
    each run's median step of epoch 1, its captures and their seconds and
-   its peak memory (flagged above 4 GB), beside the card;
-11. a ``kernels`` JSON line, then the result line
+   its peak memory (flagged above 4 GB), beside the card. Then
+   ``--model gatv1 --nhid 1024`` at G = 8 alone (its own checks are
+   against the CPU and G = 1 in the card tests): finite step losses,
+   every graph recording exactly 3 launches of each additive kernel for
+   each of its steps and no other, the replays covering every step;
+11. a ``kernels`` JSON line (every kernel of the port, the additive
+   ones with no TPU kernel they replace), then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -215,8 +222,21 @@ KERNELS = [
     ("edge_stream_spmm_seg", ("edgestream", "seg"),
      "gnn_tpu_torch/csrc/edge_stream.cu",
      "gnn_tpu/ops/pallas_edgestream.py:373"),
+    # gatv1's additive score source: no TPU kernel computes this score
+    ("cold_attention_additive_rowmax", ("esattn", "add_rowmax"),
+     "gnn_tpu_torch/csrc/edge_attention.cu", None),
+    ("cold_attention_additive_terms", ("esattn", "add_terms"),
+     "gnn_tpu_torch/csrc/edge_attention.cu", None),
+    ("cold_attention_additive_terms.bwd_q", ("esattn", "add_bwd_q"),
+     "gnn_tpu_torch/csrc/edge_attention.cu", None),
+    ("cold_attention_additive_terms.bwd_kv", ("esattn", "add_bwd_kv"),
+     "gnn_tpu_torch/csrc/edge_attention.cu", None),
 ]
 ATTN_KEYS = ["rowmax", "terms", "bwd_q", "bwd_kv"]
+# the additive score source's kernels (gatv1), timed at gatv1's widths:
+# per layer (heads, features a head) at nhid 1024 and 41 classes
+ADD_KEYS = ["add_rowmax", "add_terms", "add_bwd_q", "add_bwd_kv"]
+GATV1_LAYERS = [(4, 256), (4, 256), (6, 41)]
 # the blocked main path: the JAX package's records' smaller configuration
 # for this format (50k nodes, samp_num 2048)
 BLOCKED_ARGS = ["--adj_format", "blocked", "--dataset",
@@ -2108,6 +2128,11 @@ GROUP_PAIRS = [
     ("hot", ["--adj_format", "hot"], {}),
     ("coo", ["--adj_format", "coo"], {}),
 ]
+# gatv1 at its published widths, run at G = GROUP alone, and the launches
+# each of its graphs records a step: each additive kernel once a layer
+GATV1_ARGS = ["--model", "gatv1", "--nhid", "1024"]
+GATV1_PER_STEP = {name: 3 for name, (_, key), _, _ in KERNELS
+                  if key in ADD_KEYS}
 # a grouped run's peak memory above this is flagged in the log (GAT's
 # eager peak is 3.15 GB, PERF.md section 5)
 GROUP_PEAK_FLAG = 4e9
@@ -2141,43 +2166,11 @@ def _grouped_run(save_dir, label, argv, g):
     return dict(eps=eps, counts=counts, rank=rank, peak=peak)
 
 
-def check_grouped_pair(save_dir, label, argv, per_step):
-    """Phase 10, one pair: ``argv`` eagerly and at ``--steps_per_dispatch
-    GROUP``. Fails unless the runs take the same steps, every step loss
-    of the grouped run agrees with the eager run's to GROUP_RTOL and the
-    val F1s to GROUP_F1_TOL, every graph recorded exactly ``per_step``
-    launches of each kernel for each of its steps and no other, the
-    replays ran every step, the second epoch captured at most one graph,
-    and every capture is in the rank record and was logged. Returns the
-    launch counts of both runs by JSON name: the counters' (the warm-up
-    steps before each capture, the val passes) plus each graph's
-    captured launches times its replays."""
-    import math
-
-    total = {}
-    runs = {}
-    for g in (1, GROUP):
-        runs[g] = r = _grouped_run(save_dir, label, argv, g)
-        replayed = r["rank"].get("replayed_launches", {})
-        for name, (mod, key), _, _ in KERNELS:
-            total[name] = (total.get(name, 0) + r["counts"][name]
-                           + replayed.get(f"{mod}.{key}", 0))
-    one, grp = runs[1], runs[GROUP]
-    if [len(r["step_losses"]) for r in one["eps"]] != [
-            len(r["step_losses"]) for r in grp["eps"]] or \
-            len(one["eps"]) != GROUP_EPOCHS:
-        fail(f"grouped {label}: the runs took different steps")
-    rel = max(abs(a - b) / abs(b)
-              for ra, rb in zip(grp["eps"], one["eps"])
-              for a, b in zip(ra["step_losses"], rb["step_losses"]))
-    df1 = max(abs(ra["valid_f1"] - rb["valid_f1"])
-              for ra, rb in zip(grp["eps"], one["eps"]))
-    log(f"grouped {label}: G={GROUP} against G=1, max rel step-loss diff "
-        f"{rel:.3e}, max val F1 diff {df1:.3e}")
-    if not (math.isfinite(rel) and rel <= GROUP_RTOL):
-        fail(f"grouped {label}: step losses differ by {rel:.3e}")
-    if not df1 <= GROUP_F1_TOL:
-        fail(f"grouped {label}: val F1s differ by {df1:.3e}")
+def _check_captures(label, grp, per_step):
+    """A grouped run's captures: every graph recorded exactly
+    ``per_step`` launches of each kernel for each of its steps and no
+    other, the replays ran every step, the second epoch captured at most
+    one graph, and every capture is in the rank record and was logged."""
     caps = grp["rank"]["captures"]
     steps = sum(len(r["step_losses"]) for r in grp["eps"])
     keys = {name: f"{mod}.{key}" for name, (mod, key), _, _ in KERNELS}
@@ -2196,7 +2189,7 @@ def check_grouped_pair(save_dir, label, argv, per_step):
     per_epoch = [r["captures"] for r in grp["eps"]]
     log(f"grouped {label}: captures by epoch {per_epoch}, "
         f"{sum(c['seconds'] for c in caps):.2f}s in all; peak memory "
-        f"G=1 {one['peak']} / G={GROUP} {grp['peak']} bytes")
+        f"G={GROUP} {grp['peak']} bytes")
     if grp["peak"] > GROUP_PEAK_FLAG:
         log(f"grouped {label}: FLAG: G={GROUP} peak memory {grp['peak']} "
             f"bytes is above {GROUP_PEAK_FLAG:.0f}")
@@ -2206,6 +2199,51 @@ def check_grouped_pair(save_dir, label, argv, per_step):
             r["capture_s"] <= 0 for r in grp["eps"] if r["captures"]):
         fail(f"grouped {label}: captures {per_epoch} by epoch, {len(caps)} "
              f"logged")
+
+
+def _run_launches(run):
+    """A grouped run's launches by JSON name: its counters' plus each
+    graph's captured launches times its replays."""
+    replayed = run["rank"].get("replayed_launches", {})
+    return {name: run["counts"][name] + replayed.get(f"{mod}.{key}", 0)
+            for name, (mod, key), _, _ in KERNELS}
+
+
+def check_grouped_pair(save_dir, label, argv, per_step):
+    """Phase 10, one pair: ``argv`` eagerly and at ``--steps_per_dispatch
+    GROUP``. Fails unless the runs take the same steps, every step loss
+    of the grouped run agrees with the eager run's to GROUP_RTOL and the
+    val F1s to GROUP_F1_TOL, and the grouped run's captures pass
+    :func:`_check_captures`. Returns the launch counts of both runs by
+    JSON name: the counters' (the warm-up steps before each capture, the
+    val passes) plus each graph's captured launches times its
+    replays."""
+    import math
+
+    total = {}
+    runs = {}
+    for g in (1, GROUP):
+        runs[g] = r = _grouped_run(save_dir, label, argv, g)
+        for name, n in _run_launches(r).items():
+            total[name] = total.get(name, 0) + n
+    one, grp = runs[1], runs[GROUP]
+    if [len(r["step_losses"]) for r in one["eps"]] != [
+            len(r["step_losses"]) for r in grp["eps"]] or \
+            len(one["eps"]) != GROUP_EPOCHS:
+        fail(f"grouped {label}: the runs took different steps")
+    rel = max(abs(a - b) / abs(b)
+              for ra, rb in zip(grp["eps"], one["eps"])
+              for a, b in zip(ra["step_losses"], rb["step_losses"]))
+    df1 = max(abs(ra["valid_f1"] - rb["valid_f1"])
+              for ra, rb in zip(grp["eps"], one["eps"]))
+    log(f"grouped {label}: G={GROUP} against G=1, max rel step-loss diff "
+        f"{rel:.3e}, max val F1 diff {df1:.3e}")
+    if not (math.isfinite(rel) and rel <= GROUP_RTOL):
+        fail(f"grouped {label}: step losses differ by {rel:.3e}")
+    if not df1 <= GROUP_F1_TOL:
+        fail(f"grouped {label}: val F1s differ by {df1:.3e}")
+    log(f"grouped {label}: peak memory G=1 {one['peak']} bytes")
+    _check_captures(label, grp, per_step)
     return total
 
 
@@ -2221,6 +2259,122 @@ def run_grouped(save_dir):
             total[name] = total.get(name, 0) + n
         log(f"phase 10 pair {label}: {time.perf_counter() - t0:.1f}s")
     return total
+
+
+def check_additive_attention(adjs, device):
+    """The four additive attention kernels (gatv1's score source)
+    against their plain versions on the default batch's cold tiles at
+    gatv1's widths (:data:`GATV1_LAYERS`): el [R, H], er [C, H], v [C,
+    H d], a self column a row (a random column: an edge to it is
+    dropped); each timed by CUDA events beside its plain version and its
+    bound (each input read once, each output written once, coords 2 B an
+    edge, entries 16 B). Returns totals by key as
+    :func:`check_attention`'s."""
+    import torch
+
+    from gnn_tpu_torch.ops import esattn as ea
+    gen = torch.Generator(device=device).manual_seed(2)
+    totals = {key: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+                        max_rel_err=0.0, bytes=0.0, flops=0.0)
+              for key in ADD_KEYS}
+    for l, (adj, (H, d)) in enumerate(zip(adjs, GATV1_LAYERS)):
+        t = (adj.es_coords, adj.es_rc, adj.es_off, adj.es_ord)
+        kw = dict(slope=0.2, bm=adj.es_bm, bk=adj.es_bk)
+        R, C, n = adj.nrows, adj.ncols, H * d
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=device)
+        el, er, v = rnd(R, H), rnd(C, H), rnd(C, n)
+        gd, gn = rnd(R, H), rnd(R, n)
+        sp = torch.randint(0, C, (R,), generator=gen, device=device,
+                           dtype=torch.int32)
+        rows, _ = ea.live_additive_edges(*t[:3], sp, adj.es_bm, adj.es_bk)
+        e, nb = int(rows.shape[0]), int(t[1].shape[0])
+        m_ref = ea.cold_additive_rowmax_ref(*t[:3], el, er, sp, **kw)
+        has = m_ref > ea.NEG_SENTINEL / 2
+        rm = torch.where(has, m_ref, torch.zeros_like(m_ref))
+        a = (el, er, sp)
+        fns = {
+            "add_rowmax": (
+                lambda: ea.cold_additive_rowmax(*t[:3], *a, **kw),
+                lambda: ea.cold_additive_rowmax_ref(*t[:3], *a, **kw)),
+            "add_terms": (
+                lambda: ea.cold_additive_terms(*t, *a, v, rm, **kw),
+                lambda: ea.cold_additive_terms_ref(*t, *a, v, rm, **kw)),
+            "add_bwd_q": (
+                lambda: ea.cold_additive_bwd_q(*t, *a, v, rm, gd, gn, **kw),
+                lambda: ea.cold_additive_bwd_q_ref(*t, *a, v, rm, gd, gn,
+                                                   **kw)),
+            "add_bwd_kv": (
+                lambda: ea.cold_additive_bwd_kv(*t, *a, v, rm, gd, gn,
+                                                **kw),
+                lambda: ea.cold_additive_bwd_kv_ref(*t, *a, v, rm, gd, gn,
+                                                    **kw)),
+        }
+        # bytes besides the coords and entry tables, and float32 flops
+        base = 4 * (R * H + C * H) + 4 * R
+        io = {"add_rowmax": (base + 4 * R * H, 3 * e * H),
+              "add_terms": (base + 4 * C * n + 4 * R * H
+                            + 4 * (R * H + R * n), 2 * e * n + 5 * e * H),
+              "add_bwd_q": (base + 4 * C * n + 4 * (2 * R * H + R * n)
+                            + 4 * R * H, 2 * e * n + 8 * e * H),
+              "add_bwd_kv": (base + 4 * C * n + 4 * (2 * R * H + R * n)
+                             + 4 * nb + 4 * (C * H + C * n),
+                             4 * e * n + 8 * e * H)}
+        for key in ADD_KEYS:
+            kern, plain = fns[key]
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = []
+            for y, ref in zip(got, want):
+                if key == "add_rowmax":
+                    if not (y[~has] == ea.NEG_SENTINEL).all():
+                        fail(f"{key} layer{l}: rows without a cold edge do "
+                             f"not read NEG_SENTINEL")
+                    y, ref = y[has], ref[has]
+                errs.append(_max_err(y, ref, f"layer{l}", key))
+            err = max(x for x, _ in errs)
+            rel = max(x for _, x in errs)
+            t_bytes = (2 * e + 16 * nb + io[key][0]) / MEM_BYTES_PER_S * 1e3
+            t_flops = io[key][1] / F32_FLOPS_PER_S * 1e3
+            ms = time_ms(kern)
+            plain_ms = time_ms(plain, reps=2, rounds=3)
+            tot = totals[key]
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["max_rel_err"] = max(tot["max_rel_err"], rel)
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bound_ms"] += max(t_bytes, t_flops)
+            tot["bytes"] += t_bytes
+            tot["flops"] += t_flops
+            log(f"{key:10s} layer{l} R={R} C={C} n_out={n} H={H} "
+                f"cold_edges={e} entries={nb} max_abs_err={err:.3e} "
+                f"max_rel_err={rel:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={max(t_bytes, t_flops):.4f} "
+                f"({'bytes' if t_bytes >= t_flops else 'operations'})")
+            del got, want
+        torch.cuda.empty_cache()
+    return totals
+
+
+def run_gatv1(save_dir):
+    """Phase 10's last run: ``--model gatv1 --nhid 1024`` on the default
+    dataset at G = GROUP for GROUP_EPOCHS epochs. Fails unless every step
+    loss is finite and the captures pass :func:`_check_captures` with
+    GATV1_PER_STEP; returns the run's launches by JSON name."""
+    import math
+
+    r = _grouped_run(save_dir, "gatv1", GATV1_ARGS, GROUP)
+    losses = [x for e in r["eps"] for x in e["step_losses"]]
+    log(f"grouped gatv1 G={GROUP}: {len(losses)} steps, first / last "
+        f"losses {losses[0]:.4f} / {losses[-1]:.4f}, val F1 "
+        f"{r['eps'][-1]['valid_f1']:.4f}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"grouped gatv1: a step loss is not finite: {losses}")
+    _check_captures("gatv1", r, GATV1_PER_STEP)
+    return _run_launches(r)
 
 
 def _kernel_entry(name, source, replaces, launches, t):
@@ -2272,6 +2426,7 @@ def main() -> int:
         del sub_adjs
         seg = check_seg(adjs, widths, device)
         attn = check_attention(adjs, device, nhid)
+        additive = check_additive_attention(adjs, device)
         del adjs
         blocked, bwidths = blocked_batch(device)
         tiles = check_tile_kernels(blocked, bwidths, pattern, device, nhid)
@@ -2322,7 +2477,9 @@ def main() -> int:
         t0 = time.perf_counter()
         for name, n in run_grouped(save_dir).items():
             counts[name] += n
-        log(f"phase 10 (grouped dispatch): "
+        for name, n in run_gatv1(save_dir).items():
+            counts[name] += n
+        log(f"phase 10 (grouped dispatch, gatv1 at G = 8): "
             f"{time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
@@ -2332,6 +2489,9 @@ def main() -> int:
     measured.update({name: {**attn[key], "library_ms": None}
                      for name, (_, key), _, _ in KERNELS
                      if key in ATTN_KEYS})
+    measured.update({name: {**additive[key], "library_ms": None}
+                     for name, (_, key), _, _ in KERNELS
+                     if key in ADD_KEYS})
     measured.update(tiles)
     measured["edge_stream_spmm_seg"] = seg
     kernels = [_kernel_entry(name, source, replaces, counts[name],

@@ -64,6 +64,15 @@ reached. GAT on another format (``hot`` turns into ``pattern`` for GAT),
 the ``blocked`` and ``pattern`` formats, ``--feature_cache`` and more
 than one rank at G > 1 raise ``NotImplementedError`` before any rank
 starts.
+
+``--model gatv1`` is the published GAT (arXiv:1710.10903) at its
+inductive widths: ``--nhid`` split over 4 concatenated heads in the
+hidden layers, 6 averaged heads of the class count at the output,
+additive attention over each row's sampled edges and itself (lr 0.005,
+with gat's automatic warm-up). It runs on ``--adj_format resident``, one rank, at any
+``--steps_per_dispatch``; other formats, ``--n_devices`` above 1,
+``--resident_parts`` and ``--feature_cache`` raise
+``NotImplementedError`` before any rank starts (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -83,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dataset name, GraphSAINT dir, ogbn-*, or "
                         "synthetic:nodes=..,deg=..")
     p.add_argument("--model", type=str, default="graphsage",
-                   choices=["graphsage", "gcn", "gat", "gin"])
+                   choices=["graphsage", "gcn", "gat", "gin", "gatv1"])
     p.add_argument("--nhid", type=int, default=512)
     p.add_argument("--epoch_num", type=int, default=4)
     p.add_argument("--pool_num", type=int, default=4)
@@ -103,10 +112,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fraction of nodes buffered per device")
     p.add_argument("--scale_factor", type=float, default=1.0)
     p.add_argument("--lr", type=float, default=None,
-                   help="learning rate (default 0.01; 0.002 for gat)")
+                   help="learning rate (default 0.01; 0.002 for gat, "
+                        "0.005 for gatv1)")
     p.add_argument("--lr_warmup", type=int, default=-1,
                    help="linear lr warmup steps (lr/100 -> lr); -1 = "
-                        "auto: 300 for gat, 0 otherwise")
+                        "auto: 300 for gat and gatv1, 0 otherwise")
     p.add_argument("--test", action="store_true")
     p.add_argument("--alpha", type=float, default=0)
     p.add_argument("--sampler", type=str, default="ladies",
@@ -181,29 +191,60 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+# the models with attention
+ATTENTION = ("gat", "gatv1")
+
+
 def resolve_training_defaults(args, steps_per_epoch: int = 10**9) -> int:
     """Model-dependent lr / warmup defaults (mutates args.lr; returns the
-    warmup step count): GAT defaults to lr 0.002 + warmup, the others to
-    the reference's 0.01; an explicit --lr always wins."""
+    warmup step count): GAT defaults to lr 0.002 + warmup, GATv1 to the
+    published 0.005 + the same warmup (without one its steps diverge at
+    width 1024), the others to the reference's 0.01; an explicit --lr
+    always wins."""
     if args.lr is None:
-        args.lr = 0.002 if args.model == "gat" else 0.01
+        args.lr = {"gat": 0.002, "gatv1": 0.005}.get(args.model, 0.01)
     if args.lr_warmup >= 0:
         return args.lr_warmup
-    if args.model != "gat":
+    if args.model not in ATTENTION:
         return 0
     return max(1, min(300, steps_per_epoch))
 
 
+def _check_gatv1(args, ranks: int) -> None:
+    """Raise NotImplementedError where ``--model gatv1`` has no path:
+    it runs on the resident format, one rank, the replicated feature
+    table (ROADMAP.md's ``gatv1-formats``, ``gatv1-ranks`` and
+    ``gatv1-parts`` queue the rest)."""
+    if args.model != "gatv1":
+        return
+    why = []
+    if args.adj_format != "resident":
+        why.append(f"--adj_format {args.adj_format} (ROADMAP.md: "
+                   "gatv1-formats)")
+    if args.resident_parts > 1:
+        why.append("--resident_parts (ROADMAP.md: gatv1-parts)")
+    elif ranks > 1:
+        why.append(f"{ranks} ranks (ROADMAP.md: gatv1-ranks)")
+    if args.feature_cache:
+        why.append("--feature_cache (ROADMAP.md: gatv1-ranks)")
+    if why:
+        raise NotImplementedError("--model gatv1 is not ported for "
+                                  + ", ".join(why))
+
+
 def _check_ported(args) -> None:
     """Raise NotImplementedError for flag combinations whose paths are
-    not ported: ``--steps_per_dispatch > 1`` runs what
+    not ported: ``--model gatv1`` off its path (:func:`_check_gatv1`),
+    and ``--steps_per_dispatch > 1`` beyond what
     `gnn_tpu_torch.train.dispatch.unported` allows (the Trainer asks the
     same function). Called after :func:`resolve_adj_format`."""
+    _check_gatv1(args, max(args.n_devices, 1)
+                 * max(args.resident_parts, 1))
     if args.steps_per_dispatch <= 1:
         return
     from gnn_tpu_torch.train.dispatch import unported
     why = unported(adj_format=args.adj_format,
-                   attention=args.model == "gat",
+                   attention=args.model in ATTENTION,
                    ranks=max(args.n_devices, 1) * max(args.resident_parts, 1),
                    replicated=not args.feature_cache)
     if why:
@@ -230,8 +271,9 @@ def grid_parts(args) -> int:
 def resolve_adj_format(args) -> None:
     """The JAX package's format rules: ``pattern`` is attention-only, and
     GAT turns ``hot`` (whose shipped values it never reads) into
-    ``pattern``."""
-    if args.adj_format == "pattern" and args.model != "gat":
+    ``pattern``; GATv1 keeps its format (:func:`_check_gatv1` refuses
+    all but ``resident``)."""
+    if args.adj_format == "pattern" and args.model not in ATTENTION:
         raise SystemExit("--adj_format pattern is attention-only (the "
                          "aggregation weights are computed on device); "
                          "use coo/hot/resident for graphsage/gcn/gin")
@@ -553,6 +595,8 @@ def main(argv=None) -> int:
             dist.close_dist(ctx)
         return 0
     n = world_size(args)
+    # the ranks --n_devices 0 resolves to
+    _check_gatv1(args, n)
     if n > 1 and args.steps_per_dispatch > 1:
         # --n_devices 0 on a machine of several cards
         raise NotImplementedError(

@@ -18,6 +18,18 @@
 // An edge whose weight is exactly 0 adds nothing (select), so a NaN or inf
 // operand of such an edge never leaks.
 //
+// The additive score source (GAT of arXiv:1710.10903; kernels named
+// edge_attention_additive_kernel, entry points esattn_add_*): per-row
+// el[R,H], per-column er[C,H], u = el[r,h] + er[c,h], s = lrelu(u) with
+// the given slope, and v the columns' features:
+//   rowmax: m[r,h] = max s          (gathers er only)
+//   terms:  den[r,h] += e, num[r,h,:] += e*v[c,h,:]
+//   bwd_q:  del[r,h] += du          du = ds * (u > 0 ? 1 : slope)
+//   bwd_kv: der[c,h] += du, dv[c] += e*gn[r] (0 where e == 0)
+// with t = gn[r,h,:]·v[c,h,:] and ds as above. A row's self edge
+// (r, self[r]) is the model's own term of the softmax, so these kernels
+// drop it where the tiles hold it.
+//
 // Layout (as the TPU kernel's): int16 coords (lr << log2 bk) | lc local
 // to the edge's (bm x bk) tile, decoded as uint16; entries blk_rc =
 // rt << 16 | ct sorted rt-major; off[2, nb + 1] = (edge offset, count);
@@ -95,16 +107,27 @@ constexpr int TARGET_EDGES = 2048;      // mean edges a block, at most (split)
 constexpr float NEG_SENTINEL = -FLT_MAX;
 
 enum Mode { ROWMAX = 0, TERMS = 1, BWD_Q = 2, BWD_KV = 3 };
+// the score source: DOT s = q·k (scale folded into q); ADD s = lrelu(el +
+// er)
+enum Score { DOT = 0, ADD = 1 };
 
 // NG gathered operand rows an edge, NO own operand rows an output row, NA
-// feature sums a row, HS a per-head scalar a row (the max or den); COLS:
-// output rows are columns (t_order).
-template <int MODE>
+// feature sums a row, HS a per-head scalar a row (the max, den, d el or
+// d er); COLS: output rows are columns (t_order). The additive source
+// gathers v (terms, bwd_q) or gn (bwd_kv) and holds gn (bwd_q) or v
+// (bwd_kv); its per-head scalars el, er, rm and gd ride beside the rows.
+template <int MODE, int SC = DOT>
 struct Traits {
-  static constexpr int NG = MODE == ROWMAX ? 1 : 2;
-  static constexpr int NO = MODE == ROWMAX || MODE == TERMS ? 1 : 2;
-  static constexpr int NA = MODE == ROWMAX ? 0 : (MODE == BWD_KV ? 2 : 1);
-  static constexpr int HS = MODE == ROWMAX || MODE == TERMS ? 1 : 0;
+  static constexpr bool A = SC == ADD;
+  static constexpr int NG = A ? (MODE == ROWMAX ? 0 : 1)
+                              : (MODE == ROWMAX ? 1 : 2);
+  static constexpr int NO = A ? (MODE == BWD_Q || MODE == BWD_KV ? 1 : 0)
+                              : (MODE == ROWMAX || MODE == TERMS ? 1 : 2);
+  static constexpr int NA = A ? (MODE == TERMS || MODE == BWD_KV ? 1 : 0)
+                              : (MODE == ROWMAX ? 0
+                                                : (MODE == BWD_KV ? 2 : 1));
+  static constexpr int HS = A ? 1 : (MODE == ROWMAX || MODE == TERMS ? 1
+                                                                     : 0);
   static constexpr bool COLS = MODE == BWD_KV;
 };
 
@@ -230,13 +253,21 @@ struct Args {
   float* y1;
   float* yh;
   int n_out, H, bm, bk, shift, split;
+  // the additive source: el [nrows, H], er [ncols, H], each row's self
+  // column, the LeakyReLU slope
+  const float* el;
+  const float* er;
+  const int32_t* self;
+  float slope;
 };
 
-template <int MODE, int LF, int V>
+template <int MODE, int LF, int V, int SC = DOT>
 struct Kernel {
-  using T = Traits<MODE>;
+  using T = Traits<MODE, SC>;
   static constexpr int NG = T::NG, NO = T::NO, NA = T::NA, HS = T::HS;
-  static constexpr bool COLS = T::COLS;
+  static constexpr bool COLS = T::COLS, A = T::A;
+  // array extents (a mode without gathered or own rows keeps one unused)
+  static constexpr int NGA = NG > 0 ? NG : 1, NOA = NO > 0 ? NO : 1;
   static constexpr int NS = NA * LF + HS;
   static constexpr int NJ = LF / V;
   // gathered edges in flight a warp
@@ -360,7 +391,7 @@ struct Kernel {
   // per head: one warp reduction at H = 1, sums of V-groups through the
   // warp's buffer red otherwise.
   static __device__ __forceinline__ void edge(
-      float (&st)[NS], const float (&own)[NO][LF], const float (&g)[NG][LF],
+      float (&st)[NS], const float (&own)[NOA][LF], const float (&g)[NGA][LF],
       float rmv, float gdv, float* red, int n_groups, int gph, int H) {
     constexpr bool BWD = MODE == BWD_Q || MODE == BWD_KV;
     // s = q·k; t = gn·v (backward)
@@ -412,10 +443,93 @@ struct Kernel {
     }
   }
 
+  // One edge of the additive source into the row state: u = el + er for
+  // the lane's head (every lane's at H = 1; 0 on lanes past H), s =
+  // lrelu(u); rmv / gdv: the row max and gden of the edge's row. The
+  // backward's t = gn·v is per head, as in edge().
+  static __device__ __forceinline__ void edge_add(
+      float (&st)[NS], const float (&own)[NOA][LF], const float (&g)[NGA][LF],
+      float u, float rmv, float gdv, float slope, float* red, int n_groups,
+      int gph, int H) {
+    const float s = u > 0.f ? u : u * slope;
+    if constexpr (MODE == ROWMAX) {
+      st[NS - 1] = fmaxf(st[NS - 1], s);
+    } else {
+      const float e = expf(s - rmv);
+      // the weight of the feature sum: e * v (terms), e * gn (bwd_kv)
+      float w = e;
+      if constexpr (MODE == TERMS) {
+        st[NS - 1] += e;
+      } else {
+        const float(&ga)[LF] = COLS ? g[0] : own[0];
+        const float(&va)[LF] = COLS ? own[0] : g[0];
+        float t;
+        if (H == 1) {
+          t = 0.f;
+#pragma unroll
+          for (int i = 0; i < LF; ++i) t = fmaf(ga[i], va[i], t);
+          t = __shfl_sync(0xffffffffu, warp_sum(t), 0);
+        } else {
+          float pg[NJ];
+          group_dots(ga, va, pg);
+          t = head_sum(pg, red, n_groups, gph, H);
+        }
+        const float ds = e > 0.f ? e * (gdv + t) : 0.f;
+        st[NS - 1] += u > 0.f ? ds : ds * slope;
+        w = e > 0.f ? e : 0.f;
+      }
+      if constexpr (NA > 0) {
+        if (H == 1) {
+          axpy<0>(st, w, g[0]);
+        } else {
+          float wg[NJ];
+          head_spread(w, wg, red, n_groups, gph, H);
+          axpy<0>(st, wg, g[0]);
+        }
+      }
+    }
+  }
+
+  // The additive source's own row (gn for bwd_q, v for bwd_kv) and the
+  // lane's head of its scalars: el (er for bwd_kv) into ow, and in the
+  // row-tile modes its row max and gden.
+  static __device__ __forceinline__ void load_own_add(
+      const Args& a, int r, float (&own)[NOA][LF], float& ow, float& rmv,
+      float& gdv) {
+    const int lane = threadIdx.x & 31;
+    const int hl = a.H == 1 ? 0 : lane;
+    const bool hk = hl < a.H;
+    const size_t hi = (size_t)r * a.H + hl;
+    if (COLS) {
+      load_row<LF, V>(a.v, r, a.n_out, true, own[0]);
+      ow = hk ? __ldg(a.er + hi) : 0.f;
+    } else {
+      if (MODE == BWD_Q) load_row<LF, V>(a.gn, r, a.n_out, true, own[0]);
+      ow = hk ? __ldg(a.el + hi) : 0.f;
+      if (MODE != ROWMAX && hk) rmv = __ldg(a.rm + hi);
+      if (MODE == BWD_Q && hk) gdv = __ldg(a.gd + hi);
+    }
+  }
+
+  // Whether a decoded edge is its row's self edge (the additive source's
+  // own term): output row r and gathered column, or output column and
+  // gathered row r (bwd_kv).
+  static __device__ __forceinline__ bool self_edge(const Args& a,
+                                                   int row_base, int in0,
+                                                   int lr, int lc) {
+    if constexpr (!A) {
+      return false;
+    } else {
+      const int r = COLS ? in0 + lr : row_base + lr;
+      const int c = COLS ? row_base + lc : in0 + lc;
+      return __ldg(a.self + r) == c;
+    }
+  }
+
   // The row's own operands and, in the row-tile modes, its row max and
   // gden for the lane's head.
   static __device__ __forceinline__ void load_own(const Args& a, int r,
-                                                  float (&own)[NO][LF],
+                                                  float (&own)[NOA][LF],
                                                   float& rmv, float& gdv) {
     const int lane = threadIdx.x & 31;
     const int hl = a.H == 1 ? 0 : lane;
@@ -558,7 +672,7 @@ struct Kernel {
             // a row past the tile is dropped, as the TPU kernel's one-hot
             // does; of a coordinate's copies in one entry, the first to
             // enter the hash set counts
-            if (lr < bm) {
+            if (lr < bm && !self_edge(a, row_base, my_in[i], lr, lc)) {
               const uint32_t key =
                   ((static_cast<uint32_t>(my_ent[i]) << 16) | my_key[i]) + 1u;
               uint32_t h = (key * 2654435761u) >> (32 - HBITS);
@@ -627,19 +741,34 @@ struct Kernel {
         const int m = s.bstart[part + 1] - s.bstart[part];
         const int eb = m * warp / WARPS, ee = m * (warp + 1) / WARPS;
         float stt[NS];
-        float own[NO][LF];
-        float rmv = 0.f, gdv = 0.f;
+        float own[NOA][LF];
+        float rmv = 0.f, gdv = 0.f, ow = 0.f;
         int cur = -1, first = -1;
         for (int e = eb; e < ee; e += U) {
-          float g[U][NG][LF];
-          float erm[U], egd[U];
+          float g[U][NGA][LF];
+          float erm[U], egd[U], ew[U];
           int rr[U];
 #pragma unroll
           for (int u = 0; u < U; ++u) {
             const bool ok = e + u < ee;
             const int in = ok ? s.in_row[e + u] : 0;
             rr[u] = ok ? s.row[e + u] : -1;
-            if (COLS) {
+            if constexpr (A) {
+              // the edge's head scalars: er (el, rm, gd for bwd_kv) and
+              // its gathered row, v (gn for bwd_kv)
+              const int hl = H == 1 ? 0 : lane;
+              const bool hk = ok && hl < H;
+              const size_t hi = (size_t)in * H + hl;
+              if (COLS) {
+                load_row<LF, V>(a.gn, in, n_out, ok, g[u][0]);
+                ew[u] = hk ? __ldg(a.el + hi) : 0.f;
+                erm[u] = hk ? __ldg(a.rm + hi) : 0.f;
+                egd[u] = hk ? __ldg(a.gd + hi) : 0.f;
+              } else {
+                if (NG > 0) load_row<LF, V>(a.v, in, n_out, ok, g[u][0]);
+                ew[u] = hk ? __ldg(a.er + hi) : 0.f;
+              }
+            } else if (COLS) {
               load_row<LF, V>(a.q, in, n_out, ok, g[u][0]);
               load_row<LF, V>(a.gn, in, n_out, ok, g[u][1]);
               const int hl = H == 1 ? 0 : lane;
@@ -665,10 +794,17 @@ struct Kernel {
               }
               cur = rr[u];
               reset(stt);
-              load_own(a, row_base + cur, own, rmv, gdv);
+              if constexpr (A)
+                load_own_add(a, row_base + cur, own, ow, rmv, gdv);
+              else
+                load_own(a, row_base + cur, own, rmv, gdv);
             }
-            edge(stt, own, g[u], COLS ? erm[u] : rmv, COLS ? egd[u] : gdv,
-                 red, n_groups, gph, H);
+            if constexpr (A)
+              edge_add(stt, own, g[u], ow + ew[u], COLS ? erm[u] : rmv,
+                       COLS ? egd[u] : gdv, a.slope, red, n_groups, gph, H);
+            else
+              edge(stt, own, g[u], COLS ? erm[u] : rmv, COLS ? egd[u] : gdv,
+                   red, n_groups, gph, H);
           }
         }
         // 4. rows that continue past a warp: partial states through shared
@@ -778,6 +914,14 @@ edge_attention_kernel(const Args a) {
   Kernel<MODE, LF, V>::run(a);
 }
 
+// The additive score source's walk: a kernel of its own name, so that a
+// trace tells it from the dot product's.
+template <int MODE, int LF, int V>
+__global__ void __launch_bounds__(THREADS, LF > 16 ? 1 : 2)
+edge_attention_additive_kernel(const Args a) {
+  Kernel<MODE, LF, V, ADD>::run(a);
+}
+
 // Floats a lane holds across the width: 16 up to n_out 512, 32 up to 1024.
 int lane_floats(int n_out) { return n_out <= 512 ? 16 : 32; }
 
@@ -808,10 +952,12 @@ int vec_width(int d, const Args& a) {
 // One launch of a kernel variant, with a cluster of `split` blocks per
 // output tile; its shared memory is over the 48 KB default, so the first
 // launch raises the variant's limit.
-template <int MODE, int LF, int V>
+template <int MODE, int LF, int V, int SC>
 int run(const Args& a, int grid, cudaStream_t stream) {
   auto kernel = edge_attention_kernel<MODE, LF, V>;
-  constexpr size_t smem = sizeof(typename Kernel<MODE, LF, V>::S);
+  if constexpr (SC == ADD)
+    kernel = edge_attention_additive_kernel<MODE, LF, V>;
+  constexpr size_t smem = sizeof(typename Kernel<MODE, LF, V, SC>::S);
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -832,15 +978,15 @@ int run(const Args& a, int grid, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MODE, int LF>
+template <int MODE, int LF, int SC>
 int launch_lf(const Args& a, int grid, cudaStream_t s) {
-  return vec_width(a.n_out / a.H, a) == 4 ? run<MODE, LF, 4>(a, grid, s)
-                                          : run<MODE, LF, 1>(a, grid, s);
+  return vec_width(a.n_out / a.H, a) == 4 ? run<MODE, LF, 4, SC>(a, grid, s)
+                                          : run<MODE, LF, 1, SC>(a, grid, s);
 }
 
 // One call: n_out_tiles output tiles of nrows / bm rows (ncols / bk
 // columns for bwd_kv).
-template <int MODE>
+template <int MODE, int SC = DOT>
 int launch(Args a, int nrows, int ncols, long e_slots, void* stream) {
   if (a.n_out <= 0 || a.H <= 0 || a.H > 32 || a.n_out % a.H != 0 ||
       a.n_out > 1024)
@@ -851,8 +997,8 @@ int launch(Args a, int nrows, int ncols, long e_slots, void* stream) {
   a.split = tile_split(n_out_tiles, a.n_out, e_slots);
   const int grid = n_out_tiles * a.split;
   auto s = static_cast<cudaStream_t>(stream);
-  return lane_floats(a.n_out) > 16 ? launch_lf<MODE, 32>(a, grid, s)
-                                   : launch_lf<MODE, 16>(a, grid, s);
+  return lane_floats(a.n_out) > 16 ? launch_lf<MODE, 32, SC>(a, grid, s)
+                                   : launch_lf<MODE, 16, SC>(a, grid, s);
 }
 
 Args make_args(const void* coords, const void* blk_rc, const void* off,
@@ -948,6 +1094,98 @@ extern "C" int esattn_bwd_kv_f32(const void* coords, const void* blk_rc,
   a.y0 = static_cast<float*>(dk);
   a.y1 = static_cast<float*>(dv);
   return launch<BWD_KV>(a, nrows, ncols, e_slots, stream);
+}
+
+// The additive source's entry points take (tiles, nb, inputs...,
+// outputs..., nrows, ncols, n_out, H, bm, bk, e_slots, slope, stream):
+// el [nrows, H], er [ncols, H], self [nrows] (each row's self column, an
+// edge to it dropped), v [ncols, n_out]; the rowmax has no v and takes
+// n_out = H.
+
+static Args make_add_args(const void* coords, const void* blk_rc, const void* off,
+                   const void* t_order, int nb, const void* el,
+                   const void* er, const void* self, int n_out, int H,
+                   int bm, int bk, float slope) {
+  Args a = make_args(coords, blk_rc, off, t_order, nb, n_out, H, bm, bk);
+  a.el = static_cast<const float*>(el);
+  a.er = static_cast<const float*>(er);
+  a.self = static_cast<const int32_t*>(self);
+  a.slope = slope;
+  return a;
+}
+
+// K3, additive: m[nrows, H]
+extern "C" int esattn_add_rowmax_f32(const void* coords, const void* blk_rc,
+                                     const void* off, const void* t_order,
+                                     int nb, const void* el, const void* er,
+                                     const void* self, void* m, int nrows,
+                                     int ncols, int n_out, int H, int bm,
+                                     int bk, long e_slots, float slope,
+                                     void* stream) {
+  Args a = make_add_args(coords, blk_rc, off, t_order, nb, el, er, self,
+                         n_out, H, bm, bk, slope);
+  a.yh = static_cast<float*>(m);
+  return launch<ROWMAX, ADD>(a, nrows, ncols, e_slots, stream);
+}
+
+// K4 forward, additive: den[nrows, H], num[nrows, n_out]
+extern "C" int esattn_add_terms_f32(const void* coords, const void* blk_rc,
+                                    const void* off, const void* t_order,
+                                    int nb, const void* el, const void* er,
+                                    const void* self, const void* v,
+                                    const void* rm, void* den, void* num,
+                                    int nrows, int ncols, int n_out, int H,
+                                    int bm, int bk, long e_slots, float slope,
+                                    void* stream) {
+  Args a = make_add_args(coords, blk_rc, off, t_order, nb, el, er, self,
+                         n_out, H, bm, bk, slope);
+  a.v = static_cast<const float*>(v);
+  a.rm = static_cast<const float*>(rm);
+  a.yh = static_cast<float*>(den);
+  a.y0 = static_cast<float*>(num);
+  return launch<TERMS, ADD>(a, nrows, ncols, e_slots, stream);
+}
+
+// K4 backward, additive, row tiles: d el[nrows, H]
+extern "C" int esattn_add_bwd_q_f32(const void* coords, const void* blk_rc,
+                                    const void* off, const void* t_order,
+                                    int nb, const void* el, const void* er,
+                                    const void* self, const void* v,
+                                    const void* rm, const void* gd,
+                                    const void* gn, void* del, int nrows,
+                                    int ncols, int n_out, int H, int bm,
+                                    int bk, long e_slots, float slope,
+                                    void* stream) {
+  Args a = make_add_args(coords, blk_rc, off, t_order, nb, el, er, self,
+                         n_out, H, bm, bk, slope);
+  a.v = static_cast<const float*>(v);
+  a.rm = static_cast<const float*>(rm);
+  a.gd = static_cast<const float*>(gd);
+  a.gn = static_cast<const float*>(gn);
+  a.yh = static_cast<float*>(del);
+  return launch<BWD_Q, ADD>(a, nrows, ncols, e_slots, stream);
+}
+
+// K4 backward, additive, column tiles (t_order): d er[ncols, H],
+// dv[ncols, n_out]
+extern "C" int esattn_add_bwd_kv_f32(const void* coords, const void* blk_rc,
+                                     const void* off, const void* t_order,
+                                     int nb, const void* el, const void* er,
+                                     const void* self, const void* v,
+                                     const void* rm, const void* gd,
+                                     const void* gn, void* der, void* dv,
+                                     int nrows, int ncols, int n_out, int H,
+                                     int bm, int bk, long e_slots,
+                                     float slope, void* stream) {
+  Args a = make_add_args(coords, blk_rc, off, t_order, nb, el, er, self,
+                         n_out, H, bm, bk, slope);
+  a.v = static_cast<const float*>(v);
+  a.rm = static_cast<const float*>(rm);
+  a.gd = static_cast<const float*>(gd);
+  a.gn = static_cast<const float*>(gn);
+  a.yh = static_cast<float*>(der);
+  a.y0 = static_cast<float*>(dv);
+  return launch<BWD_KV, ADD>(a, nrows, ncols, e_slots, stream);
 }
 
 // Thread blocks of one launch over n_out_tiles output tiles at width n_out

@@ -53,6 +53,7 @@ combine over the part group, as the JAX package's ``_psum_terms`` and
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import numpy as np
@@ -60,13 +61,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gnn_tpu_torch.models.gnn import Dense, _dropout
+from gnn_tpu_torch.models.gnn import _TRUNC_STD, Dense, _dropout
 from gnn_tpu_torch.ops import esattn
 from gnn_tpu_torch.ops.hotdense import HotDenseAdj, _take_rows_fill
 from gnn_tpu_torch.ops.sddmm import stream_sddmm
 from gnn_tpu_torch.ops.sparse import BlockedAdj, PatternAdj
 from gnn_tpu_torch.ops.spmm import StreamBlocks, stream_spmm
 from gnn_tpu_torch.parallel.dist import part_max_, part_sum_
+from gnn_tpu_torch.utils.timing import span
 
 # Per-edge chunk width of the per-edge routes: bounds the [chunk, n_out]
 # gather temporaries (the JAX package's lax.scan chunk)
@@ -310,20 +312,117 @@ class _PartSumTerms(torch.autograd.Function):
         return (None, None, *out)
 
 
+class DotScores:
+    """The dot-product score source of :func:`hot_attention`: per head
+    ``s = q_r·k_c / sqrt(d)`` (``gat``). Its hot operands are the rows'
+    ``q`` and the columns' ``k`` split by head; the cold residual runs
+    K3/K4 with the scale folded into ``q`` once."""
+
+    self_pos = None
+
+    def __init__(self, q_pad, k, n_heads: int):
+        self.q_pad, self.k, self.H = q_pad, k, n_heads
+        self.scale = _scale(k.shape[1] // n_heads)
+
+    def _split(self, a):   # [n, n_out] -> [H, n, d]
+        return a.reshape(a.shape[0], self.H, -1).transpose(0, 1)
+
+    def hot_operands(self, r_loc, c_loc):
+        return (self._split(_take_rows_fill(self.q_pad, r_loc)),
+                self._split(_take_rows_fill(self.k, c_loc)))
+
+    def hot(self, qh, kh):
+        """``[H, rh, ch]`` scores of the hot operands."""
+        return torch.matmul(qh, kh.transpose(1, 2)) * self.scale
+
+    def edge_operands(self):
+        return self.q_pad, self.k
+
+    def edge(self, rows, cols, live, q, k):
+        return _edge_scores(q, k, rows, cols, live, self.H, self.scale)
+
+    def cold_rowmax(self, adj):
+        self.qs = self.q_pad * self.scale   # the scale folds into q once
+        return esattn.cold_attention_rowmax(
+            adj.es_coords, adj.es_rc, adj.es_off, self.qs.detach(),
+            self.k.detach(), n_heads=self.H, bm=adj.es_bm, bk=adj.es_bk)
+
+    def cold_terms(self, adj, row_max, v):
+        return esattn.cold_attention_terms(
+            adj.es_coords, adj.es_rc, adj.es_off, adj.es_ord, self.qs,
+            self.k, v, row_max, n_heads=self.H, bm=adj.es_bm, bk=adj.es_bk)
+
+
+class AdditiveScores:
+    """The additive score source of :func:`hot_attention` (``gatv1``,
+    arXiv:1710.10903): per head ``s = lrelu(el[r, h] + er[c, h])`` with
+    ``el`` of the rows ``[nrows, H]`` and ``er`` of the columns ``[ncols,
+    H]``. Every row also attends to itself, column ``self_pos[r]``: that
+    edge is a term of its own (:meth:`self_scores`), and the hot mask,
+    the cold kernels and the cold COO leave it out where the layer holds
+    it, so it counts once."""
+
+    def __init__(self, el_pad, er, self_pos, slope: float = 0.2):
+        self.el, self.er, self.self_pos = el_pad, er, self_pos
+        self.H = er.shape[1]
+        self.slope = slope
+
+    def hot_operands(self, r_loc, c_loc):
+        return (_take_rows_fill(self.el, r_loc).t(),
+                _take_rows_fill(self.er, c_loc).t())    # [H, rh], [H, ch]
+
+    def hot(self, elh, erh):
+        """``[H, rh, ch]`` scores: the outer sum of the hot operands."""
+        return F.leaky_relu(elh[:, :, None] + erh[:, None, :], self.slope)
+
+    def edge_operands(self):
+        return self.el, self.er
+
+    def edge(self, rows, cols, live, el, er):
+        s = F.leaky_relu(el.index_select(0, rows) + er.index_select(0, cols),
+                         self.slope)
+        return torch.where(live[:, None], s,
+                           torch.full((), _NEG_INF, device=s.device))
+
+    def cold_rowmax(self, adj):
+        return esattn.cold_additive_rowmax(
+            adj.es_coords, adj.es_rc, adj.es_off, self.el.detach(),
+            self.er.detach(), self.self_pos, slope=self.slope,
+            bm=adj.es_bm, bk=adj.es_bk)
+
+    def cold_terms(self, adj, row_max, v):
+        return esattn.cold_additive_terms(
+            adj.es_coords, adj.es_rc, adj.es_off, adj.es_ord, self.el,
+            self.er, self.self_pos, v, row_max, slope=self.slope,
+            bm=adj.es_bm, bk=adj.es_bk)
+
+    def self_scores(self):
+        """``[nrows, H]`` scores of each row's self edge."""
+        return F.leaky_relu(
+            self.el + self.er.index_select(0, self.self_pos.long()),
+            self.slope)
+
+
 def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
+    """:func:`hot_attention` with the dot-product scores of ``gat``."""
+    return hot_attention(adj, DotScores(q_pad, k, n_heads), v)
+
+
+def hot_attention(adj: HotDenseAdj, score, v):
     """Hot-block attention on a resident layer: the batch's hot-hot edges
     as dense ``[H, rh, ch]`` scores over the batch-present compacted
     slots, the cold residual through K3/K4 (stream tiles, ``adj.es_rc``
-    set), the per-edge route (cold COO) or nothing (no cold edge); one
-    row-wise softmax spans both parts. On a part's shard of the block
-    (``adj.part_axis``) the terms combine over the part group (module
-    docstring)."""
+    set), the per-edge route (cold COO) or nothing (no cold edge), and,
+    for a source with ``self_pos``, each row's self edge; one row-wise
+    softmax spans them all. ``score`` is the score source
+    (:class:`DotScores`, :class:`AdditiveScores`). On a part's shard of
+    the block (``adj.part_axis``) the terms combine over the part group
+    (module docstring)."""
     part = adj.part_axis
-    H = n_heads
-    n_out = k.shape[1]
+    H = score.H
+    n_out = v.shape[1]
     d = n_out // H
-    scale = _scale(d)
-    dev = k.device
+    dev = v.device
     use_es = adj.es_rc is not None
     cold_empty = (not use_es) and adj.rows.shape[0] == 0
     if use_es and adj.cold_partial:
@@ -352,17 +451,19 @@ def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
     else:
         d_sub = d_rows.index_select(1, adj.present_col_slots.long())
     mask_hot = (d_sub != 0) & row_ok[:, None] & col_ok[None, :]
+    if score.self_pos is not None:
+        # a hot row's self edge is its own term: off the hot mask
+        own = _take_rows_fill(score.self_pos[:, None], r_loc, fill=-1)[:, 0]
+        own_cmp = _take_rows_fill(adj.col_cmp_idx[:, None], own,
+                                  fill=-1)[:, 0]
+        mask_hot = mask_hot & (torch.arange(ch, device=dev)[None, :]
+                               != own_cmp[:, None])
 
-    def split(a):   # [n, n_out] -> [H, n, d]
-        return a.reshape(a.shape[0], H, d).transpose(0, 1)
+    hot_ops = score.hot_operands(r_loc, c_loc)
+    vh = _take_rows_fill(v, c_loc).reshape(ch, H, d).transpose(0, 1)
 
-    qh = split(_take_rows_fill(q_pad, r_loc))
-    kh = split(_take_rows_fill(k, c_loc))
-    vh = split(_take_rows_fill(v, c_loc))
-
-    def hot_scores(qh_, kh_):
-        s = torch.matmul(qh_, kh_.transpose(1, 2)) * scale    # [H, rh, ch]
-        return torch.where(mask_hot[None], s,
+    def hot_scores(*ops):
+        return torch.where(mask_hot[None], score.hot(*ops),
                            torch.full((), _NEG_INF, device=dev))
 
     if part is not None:
@@ -370,20 +471,17 @@ def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
         # its max taken over the part group; the differentiable scores
         # are recomputed inside the terms below
         with torch.no_grad():
-            m_hot = hot_scores(qh, kh).amax(dim=2).contiguous()
+            m_hot = hot_scores(*hot_ops).amax(dim=2).contiguous()
         part_max_(m_hot, part)
     else:
-        # ONE differentiable score matmul serves the row max (detached:
+        # ONE differentiable score pass serves the row max (detached:
         # the max is a softmax shift whose gradient cancels) and the terms
-        s_hot = hot_scores(qh, kh)
+        s_hot = hot_scores(*hot_ops)
         m_hot = s_hot.detach().amax(dim=2)                    # [H, rh]
 
     # --- cold residual, pass 1: per-row score max ---
     if use_es:
-        qs = q_pad * scale            # the scale folds into q once
-        m_cold = esattn.cold_attention_rowmax(
-            adj.es_coords, adj.es_rc, adj.es_off, qs.detach(), k.detach(),
-            n_heads=H, bm=adj.es_bm, bk=adj.es_bk)
+        m_cold = score.cold_rowmax(adj)
         # the kernel writes float32 min for rows without a cold edge;
         # restore the -inf the combine below expects
         m_cold = torch.where(m_cold > esattn.NEG_SENTINEL / 2, m_cold,
@@ -393,19 +491,26 @@ def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
     else:
         rows_c, cols_c = adj.rows.long(), adj.cols.long()
         live = adj.vals.float() != 0   # pads ship exactly 0
+        if score.self_pos is not None:
+            live = live & (score.self_pos.long().index_select(0, rows_c)
+                           != cols_c)
         # a partial COO's terms recompute their scores inside the Function
         # below, so its score pass here serves the max alone
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not adj.cold_partial):
-            s_cold = _edge_scores(q_pad, k, rows_c, cols_c, live, H, scale)
+            s_cold = score.edge(rows_c, cols_c, live,
+                                *score.edge_operands())
         m_cold = _segment_max(s_cold.detach(), rows_c, adj.nrows)
         if adj.cold_partial:
             part_max_(m_cold, part)
 
-    # --- one softmax across both parts ---
+    # --- one softmax across both parts (and the self edges) ---
     m_hot_rows = _take_rows_fill(m_hot.t(), adj.row_cmp_idx,
                                  fill=_NEG_INF)               # [nrows, H]
     row_max = torch.maximum(m_cold, m_hot_rows)
+    if score.self_pos is not None:
+        s_self = score.self_scores()                          # [nrows, H]
+        row_max = torch.maximum(row_max, s_self.detach())
     row_max = torch.where(torch.isfinite(row_max), row_max,
                           torch.zeros((), device=dev)).detach()
     rm_cmp = _take_rows_fill(row_max, r_loc)                  # [rh, H]
@@ -418,16 +523,14 @@ def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
 
     if part is not None:
         den_hot, num_hot = _PartSumTerms.apply(
-            part, lambda q_, k_, v_: hot_terms(hot_scores(q_, k_), v_),
-            qh, kh, vh)
+            part, lambda *a: hot_terms(hot_scores(*a[:-1]), a[-1]),
+            *hot_ops, vh)
     else:
         den_hot, num_hot = hot_terms(s_hot, vh)
 
     # --- cold pass 2: softmax denominators + aggregation ---
     if use_es:
-        den_cold, num_cold = esattn.cold_attention_terms(
-            adj.es_coords, adj.es_rc, adj.es_off, adj.es_ord, qs, k, v,
-            row_max, n_heads=H, bm=adj.es_bm, bk=adj.es_bk)
+        den_cold, num_cold = score.cold_terms(adj, row_max, v)
     elif cold_empty:
         den_cold = torch.zeros((adj.nrows, H), device=dev)
         num_cold = torch.zeros((adj.nrows, n_out), device=dev)
@@ -440,9 +543,9 @@ def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
 
         if adj.cold_partial:
             den_cold, num_cold = _PartSumTerms.apply(
-                part, lambda q_, k_, v_: cold_terms(_edge_scores(
-                    q_, k_, rows_c, cols_c, live, H, scale), v_),
-                q_pad, k, v)
+                part, lambda *a: cold_terms(score.edge(
+                    rows_c, cols_c, live, *a[:-1]), a[-1]),
+                *score.edge_operands(), v)
         else:
             den_cold, num_cold = cold_terms(s_cold, v)
     num_cold = num_cold.to(v.dtype)
@@ -451,6 +554,12 @@ def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
     num = num_cold + _take_rows_fill(
         num_hot.transpose(0, 1).reshape(rh, n_out),
         adj.row_cmp_idx).to(v.dtype)                          # [nrows, n_out]
+    if score.self_pos is not None:
+        e_self = torch.exp(s_self - row_max)                  # [nrows, H]
+        v_self = v.index_select(0, score.self_pos.long())
+        den = den + e_self
+        num = num + (e_self[:, :, None] * v_self.reshape(
+            adj.nrows, H, d)).reshape(adj.nrows, n_out)
     # den == 0 exactly iff the row has no edge (pad rows): substitute 1,
     # not a tiny epsilon, whose squared reciprocal in the division's
     # gradient overflows to inf and makes 0 * inf = NaN cotangents
@@ -536,3 +645,140 @@ class GATEncoder(nn.Module):
             x = layer(x, adjs[i], sampled_nodes[i])
             x = _dropout(x, self.dropout, self.training, generator)
         return x
+
+
+# the published GAT's inductive heads (arXiv:1710.10903, section 3.3):
+# hidden layers of 4 concatenated heads, an output layer of 6 averaged
+GATV1_HIDDEN_HEADS = 4
+GATV1_OUTPUT_HEADS = 6
+GATV1_SLOPE = 0.2
+
+
+class GATv1Conv(nn.Module):
+    """One layer of the published GAT (arXiv:1710.10903): ``z = W x`` (no
+    bias), per head ``el = a_dst·z_r`` on the output rows and ``er =
+    a_src·z_c`` on the columns, the softmax of ``lrelu(el + er)`` over
+    each row's sampled edges and the row itself, ``sum alpha z_c`` plus a
+    per-head bias; then the residual projection where there is one
+    (``residual``, with bias, added before the activation) and either ELU
+    over the concatenated heads or, at the output (``mean``), the mean of
+    the heads. Edge values (LADIES' debias weights) do not enter: only
+    the pattern counts. Resident layers (``HotDenseAdj``) only."""
+
+    def __init__(self, n_in: int, d: int, n_heads: int, mean: bool = False,
+                 residual: bool = False, generator=None):
+        super().__init__()
+        self.d, self.n_heads, self.mean = d, n_heads, mean
+        n_out = d * n_heads
+        self.W = nn.Linear(n_in, n_out, bias=False)
+        std = (1.0 / n_in) ** 0.5 / _TRUNC_STD
+        a_std = (1.0 / d) ** 0.5 / _TRUNC_STD
+        self.a_src = nn.Parameter(torch.empty(n_heads, d))
+        self.a_dst = nn.Parameter(torch.empty(n_heads, d))
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.W.weight, std=std, a=-2 * std,
+                                  b=2 * std, generator=generator)
+            for a in (self.a_src, self.a_dst):
+                nn.init.trunc_normal_(a, std=a_std, a=-2 * a_std,
+                                      b=2 * a_std, generator=generator)
+        self.bias = nn.Parameter(torch.zeros(n_out))
+        self.res = Dense(n_in, n_out, generator) if residual else None
+
+    def forward(self, x, adj, sampled_nodes):
+        if not isinstance(adj, HotDenseAdj):
+            raise NotImplementedError(
+                "gatv1 runs on the resident format only (ROADMAP.md: "
+                "gatv1-formats)")
+        H, d = self.n_heads, self.d
+        # a span in eager steps only: a capture records it once and a
+        # replay never
+        with (contextlib.nullcontext()
+              if x.is_cuda and torch.cuda.is_current_stream_capturing()
+              else span("attn.additive")):
+            z = self.W(x)                                     # [ncols, H d]
+            self_pos = _self_pos(sampled_nodes, adj.nrows)
+            z_rows = z.index_select(0, self_pos.long())
+            el = (z_rows.reshape(-1, H, d) * self.a_dst).sum(-1)
+            er = (z.reshape(-1, H, d) * self.a_src).sum(-1)
+            agg = hot_attention(adj, AdditiveScores(el, er, self_pos,
+                                                    GATV1_SLOPE), z)
+        out = agg + self.bias
+        if self.res is not None:
+            x_rows = x.index_select(0, self_pos.long())
+            out = out + self.res(x_rows)
+        if self.mean:
+            return out.reshape(-1, H, d).mean(dim=1)
+        return F.elu(out)
+
+
+def _self_pos(sampled_nodes, nrows: int):
+    """Each output row's column (``sampled_nodes``, int32 ``[nrows]``):
+    LADIES puts every output row among its layer's columns. Rows past
+    the sampled array read column 0."""
+    s = sampled_nodes[:nrows].to(torch.int32)
+    if s.shape[0] < nrows:
+        s = torch.cat([s, s.new_zeros(nrows - s.shape[0])])
+    return s
+
+
+class GATv1(nn.Module):
+    """The published GAT at its inductive widths (arXiv:1710.10903, PPI):
+    ``len(orders)`` attention layers, the hidden ones of
+    ``GATV1_HIDDEN_HEADS`` heads of ``nhid / GATV1_HIDDEN_HEADS``
+    features concatenated (ELU), a residual projection on the second
+    hidden layer, and an output layer of ``GATV1_OUTPUT_HEADS`` heads of
+    ``num_classes`` features averaged into the logits; dropout after
+    every hidden layer. No L2 norm and no classifier follow. Every
+    order must be 1. The head counts are the model's (no flag sets
+    them); the tests pass smaller ones."""
+
+    def __init__(self, n_in: int, nhid: int, orders: Sequence[int],
+                 num_classes: int, dropout: float = 0.1, generator=None,
+                 hidden_heads: int = GATV1_HIDDEN_HEADS,
+                 output_heads: int = GATV1_OUTPUT_HEADS):
+        super().__init__()
+        orders = tuple(orders)
+        if any(o != 1 for o in orders):
+            raise NotImplementedError(
+                f"gatv1 takes orders of 1 (got {orders}): an order-0 layer "
+                "has no counterpart in the published model")
+        if nhid % hidden_heads:
+            raise ValueError(f"nhid {nhid} is not a multiple of "
+                             f"{hidden_heads} heads")
+        self.nhid, self.orders = nhid, orders
+        self.dropout = dropout
+        d = nhid // hidden_heads
+        layers, f_in = [], n_in
+        for i in range(len(orders)):
+            last = i == len(orders) - 1
+            layers.append(GATv1Conv(
+                f_in, num_classes if last else d,
+                output_heads if last else hidden_heads, mean=last,
+                residual=i == 1 and not last, generator=generator))
+            f_in = nhid
+        self.layers = nn.ModuleList(layers)
+
+    @property
+    def heads(self) -> list:
+        """Each layer's attention heads."""
+        return [layer.n_heads for layer in self.layers]
+
+    def forward(self, feat, adjs, sampled_nodes, generator=None):
+        x = feat
+        for i, layer in enumerate(self.layers):
+            x = layer(x, adjs[i], sampled_nodes[i])
+            if i < len(self.layers) - 1:
+                x = _dropout(x, self.dropout, self.training, generator)
+        return x
+
+
+def attention_heads(net) -> list:
+    """Per layer of ``net``, the heads of its attention (0 for a layer
+    without one); empty for a model without attention."""
+    if isinstance(net, GATv1):
+        return net.heads
+    enc = getattr(net, "encoder", None)
+    if isinstance(enc, GATEncoder):
+        return [layer.n_heads if isinstance(layer, GATConv) else 0
+                for layer in enc.layers]
+    return []

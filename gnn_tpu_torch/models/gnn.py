@@ -202,10 +202,14 @@ class GNN(nn.Module):
 
 def build_model(model: str, nhid: int, orders: Sequence[int],
                 num_classes: int, n_feats: int, dropout: float = 0.1,
-                seed: int = 0) -> GNN:
+                seed: int = 0) -> nn.Module:
     """Build the full model the way ``main.py:91-97`` does, initialised
-    from ``seed``."""
+    from ``seed``; ``gatv1`` is the published GAT (`gnn_tpu_torch.models.
+    gat.GATv1`), whose last layer gives the logits itself."""
     gen = torch.Generator().manual_seed(seed)
+    if model == "gatv1":
+        from gnn_tpu_torch.models.gat import GATv1
+        return GATv1(n_feats, nhid, orders, num_classes, dropout, gen)
     stacks = {"graphsage": GraphSage, "gcn": GCN, "gin": GIN}
     if model == "gat":
         from gnn_tpu_torch.models.gat import GATEncoder

@@ -24,6 +24,24 @@ local row past the tile is dropped. The entry points
 ``gnn_tpu_torch/csrc/edge_attention.cu`` on CUDA tensors (one launch a
 call, widths up to ``CUDA_MAX_WIDTH``), and on CPU tensors take the
 plain versions of the same names with ``_ref``.
+
+The additive score source (GAT of arXiv:1710.10903, ``gatv1``) walks the
+same tiles: per-row ``el [R, H]``, per-column ``er [C, H]`` and
+``s = lrelu(el[r, h] + er[c, h])`` at a slope, with ``v`` the columns'
+features and each row's self edge ``(r, self_pos[r])`` left out (the
+model adds it as a term of its own):
+
+    add_rowmax:  m[r, h] = max s = lrelu(el[r, h] + max er[c, h])
+                 (LeakyReLU is monotone; gathers er alone)
+    add_terms:   den and num as above, with this s
+    backward:    du = ds * (u > 0 ? 1 : slope) with ds as above;
+                 d el[r] += du (add_bwd_q, rt-major), d er[c] += du and
+                 dv[c] += e gnum[r] (add_bwd_kv, ``t_order``).
+
+Their entry points, :func:`cold_additive_rowmax`,
+:func:`cold_additive_terms`, :func:`cold_additive_bwd_q` and
+:func:`cold_additive_bwd_kv`, launch ``edge_attention_additive_kernel``
+(a name of its own in a trace) and count under keys of their own.
 """
 from __future__ import annotations
 
@@ -39,7 +57,9 @@ HP = 128
 # the CUDA kernels keep [bm, H] row terms in shared memory
 CUDA_MAX_HEADS = 32
 
-# kernel launches ("rowmax", "terms", "bwd_q", "bwd_kv"); incremented only
+# kernel launches ("rowmax", "terms", "bwd_q", "bwd_kv" and the additive
+# source's "add_rowmax", "add_terms", "add_bwd_q", "add_bwd_kv");
+# incremented only
 # where a CUDA kernel is launched. A launch recorded into a CUDA graph
 # under capture counts in ``captured`` instead: it runs at each replay of
 # the graph (`gnn_tpu_torch.train.dispatch` multiplies)
@@ -76,7 +96,7 @@ def live_edges(coords: torch.Tensor, blk_rc: torch.Tensor,
 
 
 def _heads(a: torch.Tensor, H: int) -> torch.Tensor:
-    return a.reshape(a.shape[0], H, -1)
+    return a.reshape(a.shape[0], H, a.shape[1] // H)
 
 
 def _scores(q, k, rows, cols, H):
@@ -166,6 +186,101 @@ def cold_attention_bwd_kv_ref(coords, blk_rc, off, t_order, q, k, v,
     return dk, dv
 
 
+def live_additive_edges(coords, blk_rc, off, self_pos, bm: int, bk: int):
+    """:func:`live_edges` without each row's self edge ``(r,
+    self_pos[r])``, which the additive source adds as a term of its
+    own."""
+    rows, cols = live_edges(coords, blk_rc, off, bm, bk)
+    keep = self_pos.long().index_select(0, rows) != cols
+    return rows[keep], cols[keep]
+
+
+def _additive_edge_terms(coords, blk_rc, off, el, er, self_pos, slope,
+                         bm, bk):
+    """Per-edge ``(rows, cols, u, s)``: ``u = el[r] + er[c]`` and ``s =
+    lrelu(u)`` ([E, H] float32)."""
+    rows, cols = live_additive_edges(coords, blk_rc, off, self_pos, bm, bk)
+    u = (el.float().index_select(0, rows)
+         + er.float().index_select(0, cols))
+    return rows, cols, u, torch.nn.functional.leaky_relu(u, slope)
+
+
+def cold_additive_rowmax_ref(coords, blk_rc, off, el, er, self_pos, *,
+                             slope: float, bm: int, bk: int
+                             ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`cold_additive_rowmax`."""
+    rows, _, _, s = _additive_edge_terms(coords, blk_rc, off, el, er,
+                                         self_pos, slope, bm, bk)
+    H = el.shape[1]
+    m = torch.full((el.shape[0], H), NEG_SENTINEL, dtype=torch.float32,
+                   device=el.device)
+    return m.scatter_reduce(0, rows[:, None].expand(-1, H), s, "amax")
+
+
+def cold_additive_terms_ref(coords, blk_rc, off, t_order, el, er, self_pos,
+                            v, row_max, *, slope: float, bm: int, bk: int):
+    """Plain PyTorch version of the forward of
+    :func:`cold_additive_terms`: ``(den [R, H], num [R, n_out])``."""
+    rows, cols, _, s = _additive_edge_terms(coords, blk_rc, off, el, er,
+                                            self_pos, slope, bm, bk)
+    H = el.shape[1]
+    e = torch.exp(s - row_max.float().index_select(0, rows))
+    nrows, n_out = el.shape[0], v.shape[1]
+    den = torch.zeros((nrows, H), dtype=torch.float32, device=el.device)
+    den.index_add_(0, rows, e)
+    num = torch.zeros((nrows, n_out), dtype=torch.float32, device=el.device)
+    num.index_add_(0, rows, (e[:, :, None] * _heads(
+        v.float().index_select(0, cols), H)).reshape(-1, n_out))
+    return den, num
+
+
+def _additive_bwd_terms(coords, blk_rc, off, el, er, self_pos, v, row_max,
+                        gden, gnum, slope, bm, bk):
+    """Per-edge ``(rows, cols, du, e, gnum rows)`` of the additive
+    backward; ``ds`` selects 0 where ``e == 0``, as in the dot
+    product's."""
+    rows, cols, u, s = _additive_edge_terms(coords, blk_rc, off, el, er,
+                                            self_pos, slope, bm, bk)
+    H = el.shape[1]
+    e = torch.exp(s - row_max.float().index_select(0, rows))
+    gn_e = _heads(gnum.float().index_select(0, rows), H)
+    t = gden.float().index_select(0, rows) + (
+        gn_e * _heads(v.float().index_select(0, cols), H)).sum(-1)
+    zero = torch.zeros((), device=e.device)
+    ds = torch.where(e > 0, e * t, zero)
+    du = torch.where(u > 0, ds, ds * slope)
+    return rows, cols, du, e, gn_e
+
+
+def cold_additive_bwd_q_ref(coords, blk_rc, off, t_order, el, er, self_pos,
+                            v, row_max, gden, gnum, *, slope: float,
+                            bm: int, bk: int) -> torch.Tensor:
+    """Plain version of the add_bwd_q kernel: ``d el [R, H]``."""
+    rows, _, du, _, _ = _additive_bwd_terms(coords, blk_rc, off, el, er,
+                                            self_pos, v, row_max, gden,
+                                            gnum, slope, bm, bk)
+    d_el = torch.zeros(el.shape, dtype=torch.float32, device=el.device)
+    return d_el.index_add_(0, rows, du)
+
+
+def cold_additive_bwd_kv_ref(coords, blk_rc, off, t_order, el, er,
+                             self_pos, v, row_max, gden, gnum, *,
+                             slope: float, bm: int, bk: int):
+    """Plain version of the add_bwd_kv kernel: ``(d er [C, H], dv [C,
+    n_out])``."""
+    _, cols, du, e, gn_e = _additive_bwd_terms(
+        coords, blk_rc, off, el, er, self_pos, v, row_max, gden, gnum,
+        slope, bm, bk)
+    n_out = v.shape[1]
+    zero = torch.zeros((), device=e.device)
+    d_er = torch.zeros(er.shape, dtype=torch.float32, device=er.device)
+    d_er.index_add_(0, cols, du)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    dv.index_add_(0, cols, torch.where(
+        e[:, :, None] > 0, e[:, :, None] * gn_e, zero).reshape(-1, n_out))
+    return d_er, dv
+
+
 # --- the CUDA kernels -------------------------------------------------------
 
 # per kernel (launch-counter key): its C function in edge_attention.cu,
@@ -180,6 +295,17 @@ _KERNELS = {
     "bwd_kv": ("esattn_bwd_kv_f32",
                ("q", "k", "v", "row_max", "gden", "gnum"),
                (("c", "n"), ("c", "n"))),
+    "add_rowmax": ("esattn_add_rowmax_f32", ("el", "er", "self_pos"),
+                   (("r", "H"),)),
+    "add_terms": ("esattn_add_terms_f32",
+                  ("el", "er", "self_pos", "v", "row_max"),
+                  (("r", "H"), ("r", "n"))),
+    "add_bwd_q": ("esattn_add_bwd_q_f32",
+                  ("el", "er", "self_pos", "v", "row_max", "gden", "gnum"),
+                  (("r", "H"),)),
+    "add_bwd_kv": ("esattn_add_bwd_kv_f32",
+                   ("el", "er", "self_pos", "v", "row_max", "gden",
+                    "gnum"), (("c", "H"), ("c", "n"))),
 }
 # the CUDA kernels hold a row across the width in registers: 32 floats a
 # lane at most
@@ -198,19 +324,26 @@ def _check(what, name, t, dtype, device, shape=None):
         raise ValueError(f"{what}: {name} is not contiguous")
 
 
-def _launch(key, coords, blk_rc, off, t_order, H, bm, bk, **arrays):
+def _launch(key, coords, blk_rc, off, t_order, H, bm, bk, slope=None,
+            **arrays):
     """Check the arguments of one CUDA kernel, allocate its outputs and
     launch it (one launch) on the current stream; returns the outputs.
     Every C function takes ``(coords, blk_rc, off, t_order, nb,
     inputs..., outputs..., nrows, ncols, n_out, H, bm, bk, e_slots,
-    stream)``."""
+    stream)``; the additive source's (``slope`` given) take the slope
+    before the stream."""
     from gnn_tpu_torch.ops import cuda_build
     name, inputs, out_dims = _KERNELS[key]
     what = f"edge-stream attention {key}"
     dev = coords.device
     nb = blk_rc.shape[0]
-    nrows, n_out = arrays["q"].shape
-    ncols = arrays["k"].shape[0]
+    if slope is None:
+        nrows, n_out = arrays["q"].shape
+        ncols = arrays["k"].shape[0]
+    else:
+        nrows, ncols = arrays["el"].shape[0], arrays["er"].shape[0]
+        # the rowmax reads no feature rows: its width is the head count
+        n_out = arrays["v"].shape[1] if "v" in arrays else H
     if bm not in (128, 256) or bk not in (128, 256):
         raise ValueError(f"{what}: tile dims {bm}x{bk} not in {{128, 256}}")
     if H > CUDA_MAX_HEADS:
@@ -227,25 +360,28 @@ def _launch(key, coords, blk_rc, off, t_order, H, bm, bk, **arrays):
         _check(what, "t_order", t_order, torch.int32, dev, (nb,))
     dims = {"r": nrows, "c": ncols, "n": n_out, "H": H}
     shapes = {"q": "rn", "k": "cn", "v": "cn", "row_max": "rH",
-              "gden": "rH", "gnum": "rn"}
+              "gden": "rH", "gnum": "rn", "el": "rH", "er": "cH",
+              "self_pos": "r"}
     ins = []
     for a in inputs:
-        t = arrays[a].float().contiguous()
-        _check(what, a, t, torch.float32, dev,
-               tuple(dims[d] for d in shapes[a]))
+        dtype = torch.int32 if a == "self_pos" else torch.float32
+        t = arrays[a].to(dtype).contiguous()
+        _check(what, a, t, dtype, dev, tuple(dims[d] for d in shapes[a]))
         ins.append(t)
     outs = [torch.empty((dims[r], dims[c]), dtype=torch.float32, device=dev)
             for r, c in out_dims]
     fn = getattr(cuda_build.load("edge_attention"), name)
+    extra = () if slope is None else (float(slope),)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([p] * 4 + [i] + [p] * (len(ins) + len(outs))
-                       + [i] * 6 + [ctypes.c_long, p])
+                       + [i] * 6 + [ctypes.c_long]
+                       + [ctypes.c_float] * len(extra) + [p])
         fn.restype = i
     err = fn(coords.data_ptr(), blk_rc.data_ptr(), off.data_ptr(),
              None if t_order is None else t_order.data_ptr(), nb,
              *(t.data_ptr() for t in ins + outs),
-             nrows, ncols, n_out, H, bm, bk, coords.numel(),
+             nrows, ncols, n_out, H, bm, bk, coords.numel(), *extra,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
@@ -370,3 +506,116 @@ def cold_attention_terms(coords, blk_rc, off, t_order, q, k, v, row_max, *,
                                                     q.shape, n_heads)
     return _Terms.apply(q, k, v, row_max.detach().float(),
                         (coords, blk_rc, off, t_order, n_heads, bm, bk))
+
+
+# --- the additive score source -----------------------------------------------
+
+def _check_additive(el, er, self_pos, v, bm, bk):
+    assert el.shape[1] == er.shape[1], (el.shape, er.shape)
+    assert self_pos.shape == (el.shape[0],), (self_pos.shape, el.shape)
+    if v is not None:
+        assert v.shape[0] == er.shape[0], (v.shape, er.shape)
+        assert v.shape[1] % el.shape[1] == 0, (v.shape, el.shape)
+    assert el.shape[1] <= HP, el.shape
+    assert (bm & (bm - 1)) == 0 and (bk & (bk - 1)) == 0, (bm, bk)
+
+
+def cold_additive_rowmax(coords, blk_rc, off, el, er, self_pos, *,
+                         slope: float, bm: int, bk: int) -> torch.Tensor:
+    """Per-row max of the cold additive scores ``m[r, h] = max_c
+    lrelu(el[r, h] + er[c, h])`` over each row's cold edges but its self
+    edge: ``[R, H]`` float32, NEG_SENTINEL for rows without one. Not
+    differentiable (callers detach the operands). CUDA tensors launch
+    the additive K3 kernel; CPU tensors take the plain version."""
+    _check_additive(el, er, self_pos, None, bm, bk)
+    if _on_cuda("cold_additive_rowmax", el):
+        return _launch("add_rowmax", coords, blk_rc, off, None, el.shape[1],
+                       bm, bk, slope=slope, el=el, er=er,
+                       self_pos=self_pos)[0]
+    return cold_additive_rowmax_ref(coords, blk_rc, off, el, er, self_pos,
+                                    slope=slope, bm=bm, bk=bk)
+
+
+def cold_additive_bwd_q(coords, blk_rc, off, t_order, el, er, self_pos, v,
+                        row_max, gden, gnum, *, slope: float, bm: int,
+                        bk: int) -> torch.Tensor:
+    """The rt-major backward pass of :func:`cold_additive_terms`: ``d el
+    [R, H]`` float32. CUDA tensors launch the add_bwd_q kernel; CPU
+    tensors take the plain version."""
+    if _on_cuda("cold_additive_bwd_q", el):
+        return _launch("add_bwd_q", coords, blk_rc, off, None, el.shape[1],
+                       bm, bk, slope=slope, el=el, er=er,
+                       self_pos=self_pos, v=v, row_max=row_max, gden=gden,
+                       gnum=gnum)[0]
+    return cold_additive_bwd_q_ref(coords, blk_rc, off, t_order, el, er,
+                                   self_pos, v, row_max, gden, gnum,
+                                   slope=slope, bm=bm, bk=bk)
+
+
+def cold_additive_bwd_kv(coords, blk_rc, off, t_order, el, er, self_pos, v,
+                         row_max, gden, gnum, *, slope: float, bm: int,
+                         bk: int):
+    """The ``t_order`` backward pass of :func:`cold_additive_terms`:
+    ``(d er [C, H], dv [C, n_out])`` float32. CUDA tensors launch the
+    add_bwd_kv kernel; CPU tensors take the plain version."""
+    if _on_cuda("cold_additive_bwd_kv", el):
+        return tuple(_launch("add_bwd_kv", coords, blk_rc, off, t_order,
+                             el.shape[1], bm, bk, slope=slope, el=el,
+                             er=er, self_pos=self_pos, v=v,
+                             row_max=row_max, gden=gden, gnum=gnum))
+    return cold_additive_bwd_kv_ref(coords, blk_rc, off, t_order, el, er,
+                                    self_pos, v, row_max, gden, gnum,
+                                    slope=slope, bm=bm, bk=bk)
+
+
+class _AdditiveTerms(torch.autograd.Function):
+    """Additive K4: the softmax terms forward, the add_bwd_q and
+    add_bwd_kv passes backward; no gradient to ``row_max``, the tiles or
+    ``self_pos``."""
+
+    @staticmethod
+    def forward(ctx, el, er, v, row_max, self_pos, tiles):
+        coords, blk_rc, off, t_order, slope, bm, bk = tiles
+        ctx.tiles = tiles
+        ctx.save_for_backward(el, er, v, row_max, self_pos)
+        if _on_cuda("cold_additive_terms", el):
+            return tuple(_launch("add_terms", coords, blk_rc, off, None,
+                                 el.shape[1], bm, bk, slope=slope, el=el,
+                                 er=er, self_pos=self_pos, v=v,
+                                 row_max=row_max))
+        return cold_additive_terms_ref(coords, blk_rc, off, t_order, el, er,
+                                       self_pos, v, row_max, slope=slope,
+                                       bm=bm, bk=bk)
+
+    @staticmethod
+    def backward(ctx, gden, gnum):
+        coords, blk_rc, off, t_order, slope, bm, bk = ctx.tiles
+        el, er, v, row_max, self_pos = ctx.saved_tensors
+        args = (coords, blk_rc, off, t_order, el, er, self_pos, v, row_max,
+                gden, gnum)
+        kw = dict(slope=slope, bm=bm, bk=bk)
+        d_el = d_er = dv = None
+        if ctx.needs_input_grad[0]:
+            d_el = cold_additive_bwd_q(*args, **kw).to(el.dtype)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            d_er, dv = cold_additive_bwd_kv(*args, **kw)
+            d_er, dv = d_er.to(er.dtype), dv.to(v.dtype)
+        return d_el, d_er, dv, None, None, None
+
+
+def cold_additive_terms(coords, blk_rc, off, t_order, el, er, self_pos, v,
+                        row_max, *, slope: float, bm: int, bk: int):
+    """Softmax terms of the cold residual under the additive source:
+    ``den[r, h] = sum_c exp(s_rc,h - row_max[r, h])`` and ``num[r, :] =
+    sum_c exp(...) * v_c`` over the packed cold edges but each row's self
+    edge, ``s = lrelu(el[r] + er[c])``. ``row_max`` ``[R, H]`` is the
+    global row max, finite everywhere, and gets no gradient.
+    Differentiable in el, er and v (backward: add_bwd_q rt-major,
+    add_bwd_kv in ``t_order``). Returns ``(den [R, H], num [R, n_out])``
+    float32. CUDA tensors launch the additive K4 kernels; CPU tensors
+    take the plain versions."""
+    _check_additive(el, er, self_pos, v, bm, bk)
+    assert row_max.shape == el.shape, (row_max.shape, el.shape)
+    return _AdditiveTerms.apply(el, er, v, row_max.detach().float(),
+                                self_pos, (coords, blk_rc, off, t_order,
+                                           slope, bm, bk))

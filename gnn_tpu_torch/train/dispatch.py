@@ -60,7 +60,8 @@ import torch
 
 from gnn_tpu_torch.ops.cuda_build import launch_counts
 from gnn_tpu_torch.ops.sparse import COUNT_FIELDS
-from gnn_tpu_torch.train.stepfns import DeviceBatch, to_device_batch
+from gnn_tpu_torch.train.stepfns import (DeviceBatch, count_attention,
+                                         to_device_batch)
 from gnn_tpu_torch.utils.timing import count, span
 
 # eager steps before a capture (the CUDA graph documentation's example
@@ -80,8 +81,9 @@ GROUPED_FORMATS = frozenset({("resident", False), ("resident", True),
 def unported(*, adj_format: str, attention: bool, ranks: int,
              replicated: bool) -> List[str]:
     """Why grouped dispatch cannot run a configuration (empty when it
-    can): the adjacency format and whether the model is GAT
-    (``attention``) must be one of :data:`GROUPED_FORMATS`, on one rank
+    can): the adjacency format and whether the model has attention
+    (``attention``: GAT or GATv1) must be one of :data:`GROUPED_FORMATS`,
+    on one rank
     with a replicated feature table. The CLI asks before any rank
     starts, `Trainer` when it is built; ROADMAP.md queues the rest."""
     why = []
@@ -391,6 +393,8 @@ class GroupedDispatch:
                 mbs, n_valid = got
                 shares += [tr.pipeline.skew_share(mb)
                            for mb in mbs[:n_valid]]
+                for mb in mbs[:n_valid]:
+                    count_attention(mb, tr.attn_heads)
                 if self.on_card:
                     lrs = [tr._lr_at(tr.n_updates + j)
                            for j in range(n_valid)]

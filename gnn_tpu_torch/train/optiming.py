@@ -26,7 +26,8 @@ class OpTimingMixin:
         """Per-layer input feature widths of the encoder stack (the
         widths of the spmm operands)."""
         from gnn_tpu_torch.models.gnn import GraphSage
-        enc = self.net.encoder
+        # GATv1 has no separate encoder: its layers read nhid wide too
+        enc = getattr(self.net, "encoder", self.net)
         # reference `models.py:36`: GraphSAGE layer i reads
         # (1 + orders[i-1]) * nhid
         mult = [(1 + o) if isinstance(enc, GraphSage) else 1

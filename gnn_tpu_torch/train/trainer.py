@@ -48,7 +48,8 @@ from gnn_tpu_torch.train.evalloop import EvalMixin
 from gnn_tpu_torch.train.loss import masked_loss
 from gnn_tpu_torch.train.metrics import EpochMetrics
 from gnn_tpu_torch.train.optiming import OpTimingMixin
-from gnn_tpu_torch.train.stepfns import (clip_by_global_norm, prepare_adjs,
+from gnn_tpu_torch.train.stepfns import (clip_by_global_norm,
+                                         count_attention, prepare_adjs,
                                          sum_gradients_, to_device_batch)
 from gnn_tpu_torch.utils.timing import RECORDER, span, spanned
 
@@ -97,14 +98,17 @@ class Trainer(EvalMixin, OpTimingMixin):
         self.lr_warmup = int(lr_warmup)
         self.grad_clip = grad_clip
         self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
+        from gnn_tpu_torch.models.gat import attention_heads
+        # each layer's attention heads (empty without attention): the
+        # host counts each training batch's attention work by them
+        self.attn_heads = attention_heads(self.net)
         if self.steps_per_dispatch > 1:
-            from gnn_tpu_torch.models.gat import GATEncoder
             from gnn_tpu_torch.train.dispatch import unported
             # the format is the sampler's: the coo format has neither a
             # resident graph nor hot blocks
             why = unported(
                 adj_format=pipeline.cfg.adj_format,
-                attention=isinstance(self.net.encoder, GATEncoder),
+                attention=bool(self.attn_heads),
                 ranks=dist.world_size,
                 replicated=isinstance(self.feature_source,
                                       ReplicatedFeatures))
@@ -243,6 +247,7 @@ class Trainer(EvalMixin, OpTimingMixin):
                 if mb is None:
                     break
                 shares.append(self.pipeline.skew_share(mb))
+                count_attention(mb, self.attn_heads)
                 with span("train.to_device") as move:
                     batch = to_device_batch(mb, self.device,
                                             self.feature_source)

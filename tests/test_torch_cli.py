@@ -23,7 +23,9 @@ TINY = ["--dataset", "synthetic:nodes=1200,deg=10,feats=16,classes=5",
 
 def test_parser_matches_jax_plus_device():
     """The JAX CLI's flags and defaults, plus ``--device`` and the
-    collectives' ``--dist_backend``."""
+    collectives' ``--dist_backend``, and the JAX CLI's choices, plus the
+    port's own model ``gatv1`` (the published GAT, which the JAX package
+    does not have)."""
     j = vars(jcli.build_parser().parse_args([]))
     t = vars(tcli.build_parser().parse_args([]))
     assert t.pop("device") == "cuda"
@@ -38,7 +40,8 @@ def test_parser_matches_jax_plus_device():
         if a.choices:
             (b,) = [x for x in tp._actions if x.dest == a.dest
                     and x.option_strings == a.option_strings]
-            assert list(b.choices) == list(a.choices), a.dest
+            extra = ["gatv1"] if a.dest == "model" else []
+            assert list(b.choices) == list(a.choices) + extra, a.dest
 
 
 @pytest.mark.parametrize("model,lr,warmup", [
@@ -52,6 +55,15 @@ def test_training_defaults_match_jax(model, lr, warmup):
     assert tcli.resolve_training_defaults(ta, 50) == \
         jcli.resolve_training_defaults(ja, 50)
     assert ta.lr == ja.lr
+
+
+@pytest.mark.parametrize("steps,warmup", [(50, 50), (1000, 300)])
+def test_gatv1_training_defaults(steps, warmup):
+    """gatv1 (not in the JAX CLI): the published lr 0.005 with gat's
+    automatic warm-up, which its benchmark configuration states too."""
+    a = tcli.build_parser().parse_args(["--model", "gatv1"])
+    assert tcli.resolve_training_defaults(a, steps) == warmup
+    assert a.lr == 0.005
 
 
 @pytest.mark.parametrize("extra", [
