@@ -27,7 +27,11 @@ Phases (any failure exits non-zero without the final result line):
    case and one case at 50x magnitudes, each with its thread blocks and
    cluster size; the four additive attention kernels of gatv1 (add_rowmax,
    add_terms, add_bwd_q, add_bwd_kv) at its widths (4 x 256, 4 x 256,
-   6 x 41), each timed beside its plain version and bound.
+   6 x 41), each timed beside its plain version and bound; the hot part's
+   kernels on its live entries (the mask pass, rowmax, terms, bwd_row,
+   bwd_col of ``hot_attention.cu``) on the same batch's resident layers
+   at those widths, the mask and row max exact, each timed beside its
+   plain version (the dense grid) and bound.
    The stream SpMM (K2) runs at the three layers of one blocked batch (50k nodes / degree 30, batch 512,
    samp_num 2048; widths 602 / 1024 / 1024) over ``block_*`` and over
    the transposed ``block_*_t``, and K2 in both orientations and the
@@ -163,8 +167,9 @@ Phases (any failure exits non-zero without the final result line):
    its peak memory (flagged above 4 GB), beside the card. Then
    ``--model gatv1 --nhid 1024`` at G = 8 alone (its own checks are
    against the CPU and G = 1 in the card tests): finite step losses,
-   every graph recording exactly 3 launches of each additive kernel for
-   each of its steps and no other, the replays covering every step;
+   every graph recording exactly 3 launches of each additive kernel and
+   of each hot kernel (mask, rowmax, terms, bwd_row, bwd_col) for each
+   of its steps and no other, the replays covering every step;
 11. a ``kernels`` JSON line (every kernel of the port, the additive
    ones with no TPU kernel they replace), then the result line
    ``{"ok": true, "device": {...}}``.
@@ -191,7 +196,8 @@ F32_FLOPS_PER_S = 67e12
 REL_TOL = 1e-4
 # step losses of the small-input run on the card vs on the CPU
 AGREE_RTOL = 1e-3
-KERNEL_SOURCES = ["edge_stream", "edge_attention", "stream_spmm"]
+KERNEL_SOURCES = ["edge_stream", "edge_attention", "hot_attention",
+                  "stream_spmm"]
 # every kernel of the port: JSON name, (module, launch-counter key), its
 # source, the TPU kernel it replaces
 KERNELS = [
@@ -231,12 +237,25 @@ KERNELS = [
      "gnn_tpu_torch/csrc/edge_attention.cu", None),
     ("cold_attention_additive_terms.bwd_kv", ("esattn", "add_bwd_kv"),
      "gnn_tpu_torch/csrc/edge_attention.cu", None),
+    # gatv1's hot part on its live entries: no TPU kernel either
+    ("hot_attention.mask", ("hotattn", "mask"),
+     "gnn_tpu_torch/csrc/hot_attention.cu", None),
+    ("hot_attention.rowmax", ("hotattn", "rowmax"),
+     "gnn_tpu_torch/csrc/hot_attention.cu", None),
+    ("hot_attention.terms", ("hotattn", "terms"),
+     "gnn_tpu_torch/csrc/hot_attention.cu", None),
+    ("hot_attention.terms.bwd_row", ("hotattn", "bwd_row"),
+     "gnn_tpu_torch/csrc/hot_attention.cu", None),
+    ("hot_attention.terms.bwd_col", ("hotattn", "bwd_col"),
+     "gnn_tpu_torch/csrc/hot_attention.cu", None),
 ]
 ATTN_KEYS = ["rowmax", "terms", "bwd_q", "bwd_kv"]
 # the additive score source's kernels (gatv1), timed at gatv1's widths:
 # per layer (heads, features a head) at nhid 1024 and 41 classes
 ADD_KEYS = ["add_rowmax", "add_terms", "add_bwd_q", "add_bwd_kv"]
 GATV1_LAYERS = [(4, 256), (4, 256), (6, 41)]
+# the hot part's kernels on its live entries (gatv1), at the same widths
+HOT_KEYS = ["mask", "rowmax", "terms", "bwd_row", "bwd_col"]
 # the blocked main path: the JAX package's records' smaller configuration
 # for this format (50k nodes, samp_num 2048)
 BLOCKED_ARGS = ["--adj_format", "blocked", "--dataset",
@@ -2129,10 +2148,11 @@ GROUP_PAIRS = [
     ("coo", ["--adj_format", "coo"], {}),
 ]
 # gatv1 at its published widths, run at G = GROUP alone, and the launches
-# each of its graphs records a step: each additive kernel once a layer
+# each of its graphs records a step: each additive and each hot kernel
+# once a layer
 GATV1_ARGS = ["--model", "gatv1", "--nhid", "1024"]
-GATV1_PER_STEP = {name: 3 for name, (_, key), _, _ in KERNELS
-                  if key in ADD_KEYS}
+GATV1_PER_STEP = {name: 3 for name, (mod, key), _, _ in KERNELS
+                  if key in ADD_KEYS or mod == "hotattn"}
 # a grouped run's peak memory above this is flagged in the log (GAT's
 # eager peak is 3.15 GB, PERF.md section 5)
 GROUP_PEAK_FLAG = 4e9
@@ -2359,6 +2379,119 @@ def check_additive_attention(adjs, device):
     return totals
 
 
+def check_hot_attention(adjs, device):
+    """The hot part's kernels on its live entries (gatv1's additive
+    source, `gnn_tpu_torch.ops.hotattn`: the mask pass, rowmax, terms,
+    bwd_row, bwd_col) against their plain versions on the default batch's
+    resident layers (bfloat16 block) at gatv1's widths
+    (:data:`GATV1_LAYERS`), random el, er, v and a random own column a
+    row; each timed by CUDA events beside its plain version and its bound
+    (each input read once, each output written once; float32 operations
+    per live entry over the float32 rate). The mask pass's words must be
+    the plain version's exactly, the row max too. Returns totals by key
+    as :func:`check_attention`'s."""
+    import torch
+
+    from gnn_tpu_torch.ops import hotattn as ha
+    gen = torch.Generator(device=device).manual_seed(4)
+    totals = {key: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+                        max_rel_err=0.0, bytes=0.0, flops=0.0)
+              for key in HOT_KEYS}
+    slope = 0.2
+    for l, (adj, (H, d)) in enumerate(zip(adjs, GATV1_LAYERS)):
+        R, C, n = adj.nrows, adj.ncols, H * d
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=device)
+        el, er, v = rnd(R, H), rnd(C, H), rnd(C, n)
+        sp = torch.randint(0, C, (R,), generator=gen, device=device,
+                           dtype=torch.int32)
+        r_loc = adj.rowpos.index_select(0, adj.present_row_slots.long())
+        c_loc = adj.colpos.index_select(0, adj.present_col_slots.long())
+        mask_ops = ha.mask_operands(adj, r_loc, sp)
+        grid = ha.live_grid(adj, r_loc, c_loc, el, er, v, sp, slope)
+        bits, bits_t, orders = grid.bits, grid.bits_t, grid.orders
+        elh, erh, vh = grid.elh, grid.erh, grid.vh
+        rh, ch = elh.shape[0], erh.shape[0]
+        m_ref = ha.rowmax_ref(bits, elh, erh, slope)
+        rm = torch.where(torch.isfinite(m_ref), m_ref,
+                         torch.zeros_like(m_ref))
+        gd, gn = rnd(rh, H), rnd(rh, n)
+        live = int(ha.unpack_bits(bits, ch).sum())
+        a = (elh, erh, vh, rm)
+        fns = {
+            "mask": (lambda: ha.live_masks(*mask_ops),
+                     lambda: ha.live_masks_ref(*mask_ops)),
+            "rowmax": (lambda: ha.rowmax(bits, elh, erh, slope,
+                                         order=orders[0]),
+                       lambda: ha.rowmax_ref(bits, elh, erh, slope)),
+            "terms": (lambda: ha.terms(bits, bits_t, *a, slope, orders),
+                      lambda: ha.terms_ref(bits, *a, slope)),
+            "bwd_row": (lambda: ha.bwd_row(bits, *a, gd, gn, slope,
+                                           orders[0]),
+                        lambda: ha.bwd_row_ref(bits, *a, gd, gn, slope)),
+            "bwd_col": (lambda: ha.bwd_col(bits_t, *a, gd, gn, slope,
+                                           orders[1]),
+                        lambda: ha.bwd_col_ref(bits_t, *a, gd, gn, slope)),
+        }
+        words = 4 * (rh * -(-ch // 32) + ch * -(-rh // 32))
+        k = adj.dense.shape[0]
+        # bytes each call must move, and its float32 operations
+        io = {"mask": (2 * rh * k + 4 * (rh + 2 * k) + words, 0),
+              "rowmax": (words / 2 + 4 * (rh * H + ch * H + rh * H),
+                         2 * live * H),
+              "terms": (words / 2 + 4 * (2 * rh * H + ch * H + ch * n
+                                         + rh * H + rh * n),
+                        2 * live * n + 6 * live * H),
+              "bwd_row": (words / 2 + 4 * (3 * rh * H + ch * H + ch * n
+                                           + rh * n + rh * H),
+                          2 * live * n + 10 * live * H),
+              "bwd_col": (words / 2 + 4 * (3 * rh * H + ch * H + ch * n
+                                           + rh * n + ch * H + ch * n),
+                          4 * live * n + 10 * live * H)}
+        for key in HOT_KEYS:
+            kern, plain = fns[key]
+            with torch.no_grad():
+                got, want = kern(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            if key in ("mask", "rowmax"):
+                for y, ref in zip(got, want):
+                    if not torch.equal(y, ref):
+                        fail(f"hot {key} layer{l}: not the plain version's "
+                             f"exactly")
+                err = rel = 0.0
+            else:
+                errs = [_max_err(y, ref, f"layer{l}", f"hot {key}")
+                        for y, ref in zip(got, want)]
+                err = max(x for x, _ in errs)
+                rel = max(x for _, x in errs)
+            t_bytes = io[key][0] / MEM_BYTES_PER_S * 1e3
+            t_flops = io[key][1] / F32_FLOPS_PER_S * 1e3
+            with torch.no_grad():
+                ms = time_ms(kern)
+                plain_ms = time_ms(plain, reps=2, rounds=3)
+            tot = totals[key]
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["max_rel_err"] = max(tot["max_rel_err"], rel)
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bound_ms"] += max(t_bytes, t_flops)
+            tot["bytes"] += t_bytes
+            tot["flops"] += t_flops
+            log(f"hot {key:8s} layer{l} rh={rh} ch={ch} n_out={n} H={H} "
+                f"live={live} ({live / max(rh * ch, 1):.4f} of the grid) "
+                f"max_abs_err={err:.3e} max_rel_err={rel:.3e} ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} "
+                f"bound_ms={max(t_bytes, t_flops):.4f} "
+                f"({'bytes' if t_bytes >= t_flops else 'operations'})")
+            del got, want
+        del grid, fns
+        torch.cuda.empty_cache()
+    return totals
+
+
 def run_gatv1(save_dir):
     """Phase 10's last run: ``--model gatv1 --nhid 1024`` on the default
     dataset at G = GROUP for GROUP_EPOCHS epochs. Fails unless every step
@@ -2427,6 +2560,7 @@ def main() -> int:
         seg = check_seg(adjs, widths, device)
         attn = check_attention(adjs, device, nhid)
         additive = check_additive_attention(adjs, device)
+        hot = check_hot_attention(adjs, device)
         del adjs
         blocked, bwidths = blocked_batch(device)
         tiles = check_tile_kernels(blocked, bwidths, pattern, device, nhid)
@@ -2487,11 +2621,14 @@ def main() -> int:
     measured = {f"edge_stream_spmm.{d}": k1[d]
                 for d in ("forward", "transpose")}
     measured.update({name: {**attn[key], "library_ms": None}
-                     for name, (_, key), _, _ in KERNELS
-                     if key in ATTN_KEYS})
+                     for name, (mod, key), _, _ in KERNELS
+                     if mod == "esattn" and key in ATTN_KEYS})
     measured.update({name: {**additive[key], "library_ms": None}
                      for name, (_, key), _, _ in KERNELS
                      if key in ADD_KEYS})
+    measured.update({name: {**hot[key], "library_ms": None}
+                     for name, (mod, key), _, _ in KERNELS
+                     if mod == "hotattn"})
     measured.update(tiles)
     measured["edge_stream_spmm_seg"] = seg
     kernels = [_kernel_entry(name, source, replaces, counts[name],

@@ -14,6 +14,9 @@ Three device strategies:
   attention kernels K3/K4 (`gnn_tpu_torch.ops.esattn`) when the batch
   ships stream tiles, or the per-edge route on a cold COO, or nothing
   when the layer has no cold edge. One row-wise softmax spans both parts.
+  Under the additive score of ``gatv1`` (:class:`AdditiveScores`) on one
+  part, the hot part runs on its live entries alone through the hot
+  attention kernels (`gnn_tpu_torch.ops.hotattn`), with no dense grid.
 * ``impl="tile"`` — :func:`tile_attention_aggregate`: every ``(bm, bk)``
   tile of the layer with a 0/1 edge mask, scores through the stream
   SDDMM (K5), a row-wise softmax over each row tile's tiles, aggregation
@@ -62,7 +65,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gnn_tpu_torch.models.gnn import _TRUNC_STD, Dense, _dropout
-from gnn_tpu_torch.ops import esattn
+from gnn_tpu_torch.ops import esattn, hotattn
 from gnn_tpu_torch.ops.hotdense import HotDenseAdj, _take_rows_fill
 from gnn_tpu_torch.ops.sddmm import stream_sddmm
 from gnn_tpu_torch.ops.sparse import BlockedAdj, PatternAdj
@@ -335,6 +338,13 @@ class DotScores:
         """``[H, rh, ch]`` scores of the hot operands."""
         return torch.matmul(qh, kh.transpose(1, 2)) * self.scale
 
+    @staticmethod
+    def runs_live(sharded: bool) -> bool:
+        """False: the dot product's hot part runs as the dense grid (its
+        live-entry form is a ``d``-deep product an entry, a kernel of its
+        own)."""
+        return False
+
     def edge_operands(self):
         return self.q_pad, self.k
 
@@ -375,6 +385,21 @@ class AdditiveScores:
         """``[H, rh, ch]`` scores: the outer sum of the hot operands."""
         return F.leaky_relu(elh[:, :, None] + erh[:, None, :], self.slope)
 
+    @staticmethod
+    def runs_live(sharded: bool) -> bool:
+        """Whether the hot part runs on its live entries alone: on one
+        part; a part's shard of the block (``sharded``) keeps the dense
+        grid (its terms recompute inside :class:`_PartSumTerms`)."""
+        return not sharded
+
+    def live_hot(self, adj, r_loc, c_loc, v):
+        """The hot part on its live entries alone
+        (:class:`~gnn_tpu_torch.ops.hotattn.LiveGrid`: a bit mask of the
+        present grid and the gathered operands; no ``[H, rh, ch]``
+        tensor)."""
+        return hotattn.live_grid(adj, r_loc, c_loc, self.el, self.er, v,
+                                 self.self_pos, self.slope)
+
     def edge_operands(self):
         return self.el, self.er
 
@@ -405,19 +430,21 @@ class AdditiveScores:
 
 def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
     """:func:`hot_attention` with the dot-product scores of ``gat``."""
-    return hot_attention(adj, DotScores(q_pad, k, n_heads), v)
+    return hot_attention(adj, GATConv.scores(q_pad, k, n_heads), v)
 
 
 def hot_attention(adj: HotDenseAdj, score, v):
     """Hot-block attention on a resident layer: the batch's hot-hot edges
-    as dense ``[H, rh, ch]`` scores over the batch-present compacted
-    slots, the cold residual through K3/K4 (stream tiles, ``adj.es_rc``
-    set), the per-edge route (cold COO) or nothing (no cold edge), and,
-    for a source with ``self_pos``, each row's self edge; one row-wise
-    softmax spans them all. ``score`` is the score source
-    (:class:`DotScores`, :class:`AdditiveScores`). On a part's shard of
-    the block (``adj.part_axis``) the terms combine over the part group
-    (module docstring)."""
+    over the batch-present compacted slots (dense ``[H, rh, ch]`` scores,
+    or the live entries alone where the score source ``runs_live``: the
+    additive source on one part), the cold
+    residual through K3/K4 (stream tiles, ``adj.es_rc`` set), the
+    per-edge route (cold COO) or nothing (no cold edge), and, for a
+    source with ``self_pos``, each row's self edge; one row-wise softmax
+    spans them all. ``score`` is the score source (:class:`DotScores`,
+    :class:`AdditiveScores`). On a part's shard of the block
+    (``adj.part_axis``) the terms combine over the part group (module
+    docstring)."""
     part = adj.part_axis
     H = score.H
     n_out = v.shape[1]
@@ -429,55 +456,64 @@ def hot_attention(adj: HotDenseAdj, score, v):
         raise ValueError("stream tiles are replicated across parts (lite "
                          "mode); a partial cold residual comes as a COO")
 
-    # --- hot part: compacted [rh, ch] dense scores ---
+    # --- hot part: over the batch-present compacted [rh, ch] slots ---
     sentinel = 1 << 30
     rh = adj.present_row_slots.shape[0]
     ch = adj.present_col_slots.shape[0]
     r_loc = adj.rowpos.index_select(0, adj.present_row_slots.long())
     c_loc = adj.colpos.index_select(0, adj.present_col_slots.long())
-    # the present arrays pad by repeating slot 0: mask the pad entries by
-    # the true present counts, or columns would aggregate twice
-    n_hot_r = (adj.row_cmp_idx != sentinel).sum()
-    n_hot_c = (adj.col_cmp_idx != sentinel).sum()
-    row_ok = torch.arange(rh, device=dev) < n_hot_r
-    col_ok = torch.arange(ch, device=dev) < n_hot_c
-    d_rows = adj.dense.index_select(0, adj.present_row_slots.long())
-    if part is not None:
-        # this part's slot columns only
-        ksh = adj.dense.shape[1]
-        pcs_loc = adj.present_col_slots.long() - part.rank * ksh
-        col_ok = col_ok & (pcs_loc >= 0) & (pcs_loc < ksh)
-        d_sub = d_rows.index_select(1, pcs_loc.clamp(0, ksh - 1))
+    grid = (score.live_hot(adj, r_loc, c_loc, v)
+            if score.runs_live(part is not None) else None)
+    if grid is not None:
+        # the live entries alone: the row max without gradient (a softmax
+        # shift), counted in a training forward
+        m_hot = grid.rowmax(count_live=torch.is_grad_enabled())
     else:
-        d_sub = d_rows.index_select(1, adj.present_col_slots.long())
-    mask_hot = (d_sub != 0) & row_ok[:, None] & col_ok[None, :]
-    if score.self_pos is not None:
-        # a hot row's self edge is its own term: off the hot mask
-        own = _take_rows_fill(score.self_pos[:, None], r_loc, fill=-1)[:, 0]
-        own_cmp = _take_rows_fill(adj.col_cmp_idx[:, None], own,
+        # the present arrays pad by repeating slot 0: mask the pad entries
+        # by the true present counts, or columns would aggregate twice
+        n_hot_r = (adj.row_cmp_idx != sentinel).sum()
+        n_hot_c = (adj.col_cmp_idx != sentinel).sum()
+        row_ok = torch.arange(rh, device=dev) < n_hot_r
+        col_ok = torch.arange(ch, device=dev) < n_hot_c
+        d_rows = adj.dense.index_select(0, adj.present_row_slots.long())
+        if part is not None:
+            # this part's slot columns only
+            ksh = adj.dense.shape[1]
+            pcs_loc = adj.present_col_slots.long() - part.rank * ksh
+            col_ok = col_ok & (pcs_loc >= 0) & (pcs_loc < ksh)
+            d_sub = d_rows.index_select(1, pcs_loc.clamp(0, ksh - 1))
+        else:
+            d_sub = d_rows.index_select(1, adj.present_col_slots.long())
+        mask_hot = (d_sub != 0) & row_ok[:, None] & col_ok[None, :]
+        if score.self_pos is not None:
+            # a hot row's self edge is its own term: off the hot mask
+            own = _take_rows_fill(score.self_pos[:, None], r_loc,
                                   fill=-1)[:, 0]
-        mask_hot = mask_hot & (torch.arange(ch, device=dev)[None, :]
-                               != own_cmp[:, None])
+            own_cmp = _take_rows_fill(adj.col_cmp_idx[:, None], own,
+                                      fill=-1)[:, 0]
+            mask_hot = mask_hot & (torch.arange(ch, device=dev)[None, :]
+                                   != own_cmp[:, None])
 
-    hot_ops = score.hot_operands(r_loc, c_loc)
-    vh = _take_rows_fill(v, c_loc).reshape(ch, H, d).transpose(0, 1)
+        hot_ops = score.hot_operands(r_loc, c_loc)
+        vh = _take_rows_fill(v, c_loc).reshape(ch, H, d).transpose(0, 1)
 
-    def hot_scores(*ops):
-        return torch.where(mask_hot[None], score.hot(*ops),
-                           torch.full((), _NEG_INF, device=dev))
+        def hot_scores(*ops):
+            return torch.where(mask_hot[None], score.hot(*ops),
+                               torch.full((), _NEG_INF, device=dev))
 
-    if part is not None:
-        # the row max crosses the parts: a score pass without gradient,
-        # its max taken over the part group; the differentiable scores
-        # are recomputed inside the terms below
-        with torch.no_grad():
-            m_hot = hot_scores(*hot_ops).amax(dim=2).contiguous()
-        part_max_(m_hot, part)
-    else:
-        # ONE differentiable score pass serves the row max (detached:
-        # the max is a softmax shift whose gradient cancels) and the terms
-        s_hot = hot_scores(*hot_ops)
-        m_hot = s_hot.detach().amax(dim=2)                    # [H, rh]
+        if part is not None:
+            # the row max crosses the parts: a score pass without
+            # gradient, its max taken over the part group; the
+            # differentiable scores are recomputed inside the terms below
+            with torch.no_grad():
+                m_hot = hot_scores(*hot_ops).amax(dim=2).contiguous()
+            part_max_(m_hot, part)
+        else:
+            # ONE differentiable score pass serves the row max (detached:
+            # the max is a softmax shift whose gradient cancels) and the
+            # terms
+            s_hot = hot_scores(*hot_ops)
+            m_hot = s_hot.detach().amax(dim=2)                # [H, rh]
 
     # --- cold residual, pass 1: per-row score max ---
     if use_es:
@@ -521,7 +557,9 @@ def hot_attention(adj: HotDenseAdj, score, v):
         e = torch.exp(s - rm_cmp.t()[:, :, None])
         return e.sum(dim=2), torch.matmul(e, vh_)   # [H, rh], [H, rh, d]
 
-    if part is not None:
+    if grid is not None:
+        den_hot, num_hot = grid.terms(rm_cmp)
+    elif part is not None:
         den_hot, num_hot = _PartSumTerms.apply(
             part, lambda *a: hot_terms(hot_scores(*a[:-1]), a[-1]),
             *hot_ops, vh)
@@ -571,6 +609,8 @@ def hot_attention(adj: HotDenseAdj, score, v):
 class GATConv(nn.Module):
     """Multi-head dot-product graph attention over a sampled adjacency
     (flax ``GATConv``: Dense ``q``, ``k``, ``v`` and ``self``)."""
+
+    scores = DotScores     # the score source of its resident hot part
 
     def __init__(self, n_in: int, n_out: int, n_heads: int = 1,
                  bm: int = 128, bk: int = 128, impl: str = "auto",
@@ -665,6 +705,8 @@ class GATv1Conv(nn.Module):
     the heads. Edge values (LADIES' debias weights) do not enter: only
     the pattern counts. Resident layers (``HotDenseAdj``) only."""
 
+    scores = AdditiveScores
+
     def __init__(self, n_in: int, d: int, n_heads: int, mean: bool = False,
                  residual: bool = False, generator=None):
         super().__init__()
@@ -700,8 +742,8 @@ class GATv1Conv(nn.Module):
             z_rows = z.index_select(0, self_pos.long())
             el = (z_rows.reshape(-1, H, d) * self.a_dst).sum(-1)
             er = (z.reshape(-1, H, d) * self.a_src).sum(-1)
-            agg = hot_attention(adj, AdditiveScores(el, er, self_pos,
-                                                    GATV1_SLOPE), z)
+            agg = hot_attention(adj, self.scores(el, er, self_pos,
+                                                 GATV1_SLOPE), z)
         out = agg + self.bias
         if self.res is not None:
             x_rows = x.index_select(0, self_pos.long())
@@ -758,11 +800,6 @@ class GATv1(nn.Module):
             f_in = nhid
         self.layers = nn.ModuleList(layers)
 
-    @property
-    def heads(self) -> list:
-        """Each layer's attention heads."""
-        return [layer.n_heads for layer in self.layers]
-
     def forward(self, feat, adjs, sampled_nodes, generator=None):
         x = feat
         for i, layer in enumerate(self.layers):
@@ -772,13 +809,24 @@ class GATv1(nn.Module):
         return x
 
 
-def attention_heads(net) -> list:
-    """Per layer of ``net``, the heads of its attention (0 for a layer
-    without one); empty for a model without attention."""
+def _attention_layers(net) -> list:
+    """The layers of ``net`` in order (None for a layer without
+    attention); empty for a model without attention."""
     if isinstance(net, GATv1):
-        return net.heads
+        return list(net.layers)
     enc = getattr(net, "encoder", None)
     if isinstance(enc, GATEncoder):
-        return [layer.n_heads if isinstance(layer, GATConv) else 0
+        return [layer if isinstance(layer, GATConv) else None
                 for layer in enc.layers]
     return []
+
+
+def attention_heads(net, grid: bool = False, sharded: bool = False) -> list:
+    """Per layer of ``net``, the heads of its attention (0 for a layer
+    without one); empty for a model without attention. With ``grid``,
+    only the heads whose hot part runs as the dense ``[H, rh, ch]`` grid
+    on blocks that are (``sharded``) or are not a part's shard: 0 where
+    the layer's score source ``runs_live``."""
+    return [0 if layer is None
+            or (grid and layer.scores.runs_live(sharded))
+            else layer.n_heads for layer in _attention_layers(net)]

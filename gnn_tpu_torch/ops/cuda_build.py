@@ -105,7 +105,7 @@ def load(name: str) -> ctypes.CDLL:
 # the modules of gnn_tpu_torch.ops whose wrappers count their kernels'
 # launches (each a ``launches`` Counter and a ``captured`` one, through
 # :func:`count_launch`)
-KERNEL_MODULES = ("edgestream", "esattn", "spmm", "sddmm")
+KERNEL_MODULES = ("edgestream", "esattn", "hotattn", "spmm", "sddmm")
 
 
 def count_launch(launches, captured, key: str) -> None:

@@ -58,6 +58,7 @@ from typing import List
 import numpy as np
 import torch
 
+from gnn_tpu_torch.ops import hotattn
 from gnn_tpu_torch.ops.cuda_build import launch_counts
 from gnn_tpu_torch.ops.sparse import COUNT_FIELDS
 from gnn_tpu_torch.train.stepfns import (DeviceBatch, count_attention,
@@ -394,7 +395,7 @@ class GroupedDispatch:
                 shares += [tr.pipeline.skew_share(mb)
                            for mb in mbs[:n_valid]]
                 for mb in mbs[:n_valid]:
-                    count_attention(mb, tr.attn_heads)
+                    count_attention(mb, tr.attn_heads, tr.grid_heads)
                 if self.on_card:
                     lrs = [tr._lr_at(tr.n_updates + j)
                            for j in range(n_valid)]
@@ -423,6 +424,8 @@ class GroupedDispatch:
             with span("dispatch.card_wait") as wait:
                 step_losses = (torch.cat(losses).cpu().tolist() if losses
                                else [])
+                # and of the live hot entries the replays counted
+                hotattn.record_live_entries()
             n_exec += wait.ns
             prev = start if self.on_card else None
             for ev, n, cap in ends:

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from gnn_tpu_torch.device import resolve_device
+from gnn_tpu_torch.ops import hotattn
 from gnn_tpu_torch.parallel.dist import (DistContext, broadcast_from_main,
                                          part_bytes)
 from gnn_tpu_torch.parallel.feature_cache import ReplicatedFeatures
@@ -99,9 +100,12 @@ class Trainer(EvalMixin, OpTimingMixin):
         self.grad_clip = grad_clip
         self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
         from gnn_tpu_torch.models.gat import attention_heads
-        # each layer's attention heads (empty without attention): the
-        # host counts each training batch's attention work by them
+        # each layer's attention heads (empty without attention), and
+        # those whose hot part runs as a dense grid: the host counts each
+        # training batch's attention work by them
         self.attn_heads = attention_heads(self.net)
+        self.grid_heads = attention_heads(self.net, grid=True,
+                                          sharded=parts > 1)
         if self.steps_per_dispatch > 1:
             from gnn_tpu_torch.train.dispatch import unported
             # the format is the sampler's: the coo format has neither a
@@ -247,7 +251,7 @@ class Trainer(EvalMixin, OpTimingMixin):
                 if mb is None:
                     break
                 shares.append(self.pipeline.skew_share(mb))
-                count_attention(mb, self.attn_heads)
+                count_attention(mb, self.attn_heads, self.grid_heads)
                 with span("train.to_device") as move:
                     batch = to_device_batch(mb, self.device,
                                             self.feature_source)
@@ -257,6 +261,9 @@ class Trainer(EvalMixin, OpTimingMixin):
                     losses.append(float(self.train_step(batch)))
                 n_exec += step.ns
                 times.append((step.t1 - nxt.t1) / 1e9)
+            # the live hot entries the epoch's forwards counted on the
+            # device (its steps waited for the device already)
+            hotattn.record_live_entries()
         self.last_batch = batch if keep_last_batch and losses else None
         return EpochMetrics(
             epoch=epoch,

@@ -619,7 +619,8 @@ def test_cuda_graph_replay_matches_eager_steps(cuda_device):
     """On the card, dropout on: an epoch of G = 8 (replays of an 8-step
     graph, the additive kernels launched inside them) against the same
     epoch of eager steps from the same state; every step loss within
-    1e-5 relative, the additive kernels recorded four a layer a step."""
+    1e-5 relative, the additive kernels recorded four a layer a step and
+    the hot part's five (the mask pass and its four modes)."""
     from gnn_tpu_torch.sampling.pipeline import BatchPipeline
     from gnn_tpu_torch.train.trainer import Trainer
     r = Resident(True)
@@ -644,8 +645,13 @@ def test_cuda_graph_replay_matches_eager_steps(cuda_device):
         steps = sum(c["steps"] * c["replays"]
                     for c in grouped._dispatch.captures)
         assert steps == 2 * 10
-        assert rep == {f"esattn.add_{k}": len(ORDERS) * steps
-                       for k in ("rowmax", "terms", "bwd_q", "bwd_kv")}
+        want = {f"esattn.add_{k}": len(ORDERS) * steps
+                for k in ("rowmax", "terms", "bwd_q", "bwd_kv")}
+        # the hot part on its live entries: the mask pass and four modes
+        want.update({f"hotattn.{k}": len(ORDERS) * steps
+                     for k in ("mask", "rowmax", "terms", "bwd_row",
+                               "bwd_col")})
+        assert rep == want
     finally:
         eager.pipeline.close()
         grouped.pipeline.close()
