@@ -566,18 +566,18 @@ def check_attention(adjs, device, nhid):
         has = rm_ref > ea.NEG_SENTINEL / 2
         rm = torch.where(has, rm_ref, torch.zeros_like(rm_ref))
         fns = {
-            "rowmax": (lambda: ea.cold_attention_rowmax(*t[:3], q, k, **kw),
+            "rowmax": (lambda: ea.cold_rowmax(*t[:3], (q, k), **kw),
                        lambda: ea.cold_attention_rowmax_ref(*t[:3], q, k,
                                                             **kw)),
-            "terms": (lambda: ea.cold_attention_terms(*t, q, k, v, rm, **kw),
+            "terms": (lambda: ea.cold_terms(*t, (q, k), v, rm, **kw),
                       lambda: ea.cold_attention_terms_ref(*t, q, k, v, rm,
                                                           **kw)),
-            "bwd_q": (lambda: ea.cold_attention_bwd_q(*t, q, k, v, rm, gd,
-                                                      gn, **kw),
+            "bwd_q": (lambda: ea.cold_backward("bwd_q", *t, (q, k), v, rm,
+                                               gd, gn, **kw),
                       lambda: ea.cold_attention_bwd_q_ref(*t, q, k, v, rm,
                                                           gd, gn, **kw)),
-            "bwd_kv": (lambda: ea.cold_attention_bwd_kv(*t, q, k, v, rm, gd,
-                                                        gn, **kw),
+            "bwd_kv": (lambda: ea.cold_backward("bwd_kv", *t, (q, k), v, rm,
+                                                gd, gn, **kw),
                        lambda: ea.cold_attention_bwd_kv_ref(*t, q, k, v, rm,
                                                             gd, gn, **kw)),
         }
@@ -2316,18 +2316,18 @@ def check_additive_attention(adjs, device):
         a = (el, er, sp)
         fns = {
             "add_rowmax": (
-                lambda: ea.cold_additive_rowmax(*t[:3], *a, **kw),
+                lambda: ea.cold_rowmax(*t[:3], a, **kw),
                 lambda: ea.cold_additive_rowmax_ref(*t[:3], *a, **kw)),
             "add_terms": (
-                lambda: ea.cold_additive_terms(*t, *a, v, rm, **kw),
+                lambda: ea.cold_terms(*t, a, v, rm, **kw),
                 lambda: ea.cold_additive_terms_ref(*t, *a, v, rm, **kw)),
             "add_bwd_q": (
-                lambda: ea.cold_additive_bwd_q(*t, *a, v, rm, gd, gn, **kw),
+                lambda: ea.cold_backward("bwd_q", *t, a, v, rm, gd, gn, **kw),
                 lambda: ea.cold_additive_bwd_q_ref(*t, *a, v, rm, gd, gn,
                                                    **kw)),
             "add_bwd_kv": (
-                lambda: ea.cold_additive_bwd_kv(*t, *a, v, rm, gd, gn,
-                                                **kw),
+                lambda: ea.cold_backward("bwd_kv", *t, a, v, rm, gd, gn,
+                                         **kw),
                 lambda: ea.cold_additive_bwd_kv_ref(*t, *a, v, rm, gd, gn,
                                                     **kw)),
         }

@@ -7,16 +7,20 @@ attention-weighted sum of ``v``; then ``elu(agg + self(x[sampled]))``.
 
 Three device strategies:
 
-* ``HotDenseAdj`` input (resident mode) — :func:`hot_attention_aggregate`:
-  dense scores, softmax terms and aggregation over the resident block's
-  batch-present slots (``torch.matmul``, as XLA computed them outside
-  any Pallas kernel), plus the cold residual through the edge-stream
-  attention kernels K3/K4 (`gnn_tpu_torch.ops.esattn`) when the batch
-  ships stream tiles, or the per-edge route on a cold COO, or nothing
-  when the layer has no cold edge. One row-wise softmax spans both parts.
-  Under the additive score of ``gatv1`` (:class:`AdditiveScores`) on one
-  part, the hot part runs on its live entries alone through the hot
-  attention kernels (`gnn_tpu_torch.ops.hotattn`), with no dense grid.
+* ``HotDenseAdj`` input (resident mode) — :func:`hot_attention` with a
+  score source (:class:`DotScores` for ``gat``, :class:`AdditiveScores`
+  for ``gatv1``). The source decides its hot part over the resident
+  block's batch-present slots and hands it over as one object with a row
+  max and softmax terms: the dot product's dense scores, terms and
+  aggregation (:class:`DenseGrid`: ``torch.matmul``, as XLA computed them
+  outside any Pallas kernel), or the additive source's live entries alone
+  through the hot attention kernels (`gnn_tpu_torch.ops.hotattn`, one
+  part). The cold residual runs through the edge-stream attention
+  kernels K3/K4 (`gnn_tpu_torch.ops.esattn`, keyed by the source's
+  operands) when the batch ships stream tiles, or the per-edge route on a
+  cold COO, or nothing when the layer has no cold edge. One row-wise
+  softmax spans both parts. :class:`AttentionCounts` counts attention's
+  work for the trainer, by the same sources.
 * ``impl="tile"`` — :func:`tile_attention_aggregate`: every ``(bm, bk)``
   tile of the layer with a 0/1 edge mask, scores through the stream
   SDDMM (K5), a row-wise softmax over each row tile's tiles, aggregation
@@ -32,10 +36,10 @@ Three device strategies:
 :class:`~gnn_tpu_torch.ops.sparse.BlockedAdj`.
 
 On the part-sharded resident graph (``adj.part_axis`` set,
-``--resident_parts P``) each part holds a slot-column shard of the block
-and masks its hot scores to the columns it owns. The softmax terms then
-combine over the part group, as the JAX package's ``_psum_terms`` and
-``pmax`` do:
+``--resident_parts P``; the dot-product source) each part holds a
+slot-column shard of the block and masks its hot scores to the columns
+it owns. The softmax terms then combine over the part group, as the JAX
+package's ``_psum_terms`` and ``pmax`` do:
 
 * the row max is a MAX over the part group of a score pass run without
   gradient (``part_max_``): it is only a shift, so no gradient flows
@@ -71,7 +75,7 @@ from gnn_tpu_torch.ops.sddmm import stream_sddmm
 from gnn_tpu_torch.ops.sparse import BlockedAdj, PatternAdj
 from gnn_tpu_torch.ops.spmm import StreamBlocks, stream_spmm
 from gnn_tpu_torch.parallel.dist import part_max_, part_sum_
-from gnn_tpu_torch.utils.timing import span
+from gnn_tpu_torch.utils.timing import count, span
 
 # Per-edge chunk width of the per-edge routes: bounds the [chunk, n_out]
 # gather temporaries (the JAX package's lax.scan chunk)
@@ -315,35 +319,96 @@ class _PartSumTerms(torch.autograd.Function):
         return (None, None, *out)
 
 
+class DenseGrid:
+    """The dot product's hot part: per head the dense ``[rh, ch]`` scores
+    of a layer's batch-present slots, masked to the block's edges between
+    true present slots. On one part, one differentiable score pass serves
+    the row max (detached: a softmax shift) and the terms; on a part's
+    shard of the block both combine over the part group (module
+    docstring)."""
+
+    def __init__(self, adj: HotDenseAdj, r_loc, c_loc, score, v):
+        dev = v.device
+        sentinel = 1 << 30
+        rh = adj.present_row_slots.shape[0]
+        ch = adj.present_col_slots.shape[0]
+        # the present arrays pad by repeating slot 0: mask the pad entries
+        # by the true present counts, or columns would aggregate twice
+        n_hot_r = (adj.row_cmp_idx != sentinel).sum()
+        n_hot_c = (adj.col_cmp_idx != sentinel).sum()
+        row_ok = torch.arange(rh, device=dev) < n_hot_r
+        col_ok = torch.arange(ch, device=dev) < n_hot_c
+        d_rows = adj.dense.index_select(0, adj.present_row_slots.long())
+        self.part = adj.part_axis
+        if self.part is not None:
+            # this part's slot columns only
+            ksh = adj.dense.shape[1]
+            pcs_loc = adj.present_col_slots.long() - self.part.rank * ksh
+            col_ok = col_ok & (pcs_loc >= 0) & (pcs_loc < ksh)
+            d_sub = d_rows.index_select(1, pcs_loc.clamp(0, ksh - 1))
+        else:
+            d_sub = d_rows.index_select(1, adj.present_col_slots.long())
+        self.mask = (d_sub != 0) & row_ok[:, None] & col_ok[None, :]
+
+        def split(a):   # [n, n_out] -> [H, n, d]
+            return a.reshape(a.shape[0], score.H, -1).transpose(0, 1)
+        self.qh = split(_take_rows_fill(score.q_pad, r_loc))
+        self.kh = split(_take_rows_fill(score.k, c_loc))
+        self.vh = split(_take_rows_fill(v, c_loc))
+        self.scale = score.scale
+
+    def _scores(self, qh, kh):
+        """``[H, rh, ch]`` scores, -inf off the mask."""
+        return torch.where(self.mask[None],
+                           torch.matmul(qh, kh.transpose(1, 2)) * self.scale,
+                           torch.full((), _NEG_INF, device=qh.device))
+
+    def rowmax(self, count_live: bool) -> torch.Tensor:
+        """``m_hot [H, rh]`` (-inf: no edge), no gradient; the host counts
+        the grid (:class:`AttentionCounts`), not ``count_live``."""
+        if self.part is not None:
+            with torch.no_grad():
+                m_hot = self._scores(self.qh, self.kh).amax(2).contiguous()
+            part_max_(m_hot, self.part)
+            return m_hot
+        self.s = self._scores(self.qh, self.kh)
+        return self.s.detach().amax(dim=2)
+
+    def terms(self, rm_cmp: torch.Tensor):
+        """``(den_hot [H, rh], num_hot [H, rh, d])`` for the combined row
+        max of the present rows ``rm_cmp [rh, H]``."""
+        def hot_terms(s, vh):
+            # s is -inf wherever masked BEFORE the exp: a masked entry's
+            # raw s - rm could overflow, and its exp gradient would be
+            # 0 * inf
+            e = torch.exp(s - rm_cmp.t()[:, :, None])
+            return e.sum(dim=2), torch.matmul(e, vh)
+
+        if self.part is not None:
+            return _PartSumTerms.apply(
+                self.part, lambda qh, kh, vh: hot_terms(self._scores(qh, kh),
+                                                        vh),
+                self.qh, self.kh, self.vh)
+        return hot_terms(self.s, self.vh)
+
+
 class DotScores:
     """The dot-product score source of :func:`hot_attention`: per head
-    ``s = q_r·k_c / sqrt(d)`` (``gat``). Its hot operands are the rows'
-    ``q`` and the columns' ``k`` split by head; the cold residual runs
-    K3/K4 with the scale folded into ``q`` once."""
+    ``s = q_r·k_c / sqrt(d)`` (``gat``). Its hot part is the dense grid
+    (:class:`DenseGrid`, whose entries the host counts); its cold residual
+    runs K3/K4 with the scale folded into ``q``."""
 
     self_pos = None
+    slope = None
+    # the hot part is the dense grid: attn.dense_entries counts it
+    dense_grid = True
 
     def __init__(self, q_pad, k, n_heads: int):
         self.q_pad, self.k, self.H = q_pad, k, n_heads
         self.scale = _scale(k.shape[1] // n_heads)
 
-    def _split(self, a):   # [n, n_out] -> [H, n, d]
-        return a.reshape(a.shape[0], self.H, -1).transpose(0, 1)
-
-    def hot_operands(self, r_loc, c_loc):
-        return (self._split(_take_rows_fill(self.q_pad, r_loc)),
-                self._split(_take_rows_fill(self.k, c_loc)))
-
-    def hot(self, qh, kh):
-        """``[H, rh, ch]`` scores of the hot operands."""
-        return torch.matmul(qh, kh.transpose(1, 2)) * self.scale
-
-    @staticmethod
-    def runs_live(sharded: bool) -> bool:
-        """False: the dot product's hot part runs as the dense grid (its
-        live-entry form is a ``d``-deep product an entry, a kernel of its
-        own)."""
-        return False
+    def hot_part(self, adj, r_loc, c_loc, v) -> DenseGrid:
+        return DenseGrid(adj, r_loc, c_loc, self, v)
 
     def edge_operands(self):
         return self.q_pad, self.k
@@ -351,16 +416,9 @@ class DotScores:
     def edge(self, rows, cols, live, q, k):
         return _edge_scores(q, k, rows, cols, live, self.H, self.scale)
 
-    def cold_rowmax(self, adj):
-        self.qs = self.q_pad * self.scale   # the scale folds into q once
-        return esattn.cold_attention_rowmax(
-            adj.es_coords, adj.es_rc, adj.es_off, self.qs.detach(),
-            self.k.detach(), n_heads=self.H, bm=adj.es_bm, bk=adj.es_bk)
-
-    def cold_terms(self, adj, row_max, v):
-        return esattn.cold_attention_terms(
-            adj.es_coords, adj.es_rc, adj.es_off, adj.es_ord, self.qs,
-            self.k, v, row_max, n_heads=self.H, bm=adj.es_bm, bk=adj.es_bk)
+    def cold_operands(self):
+        """K3/K4's operands: the scale folds into ``q`` once."""
+        return self.q_pad * self.scale, self.k
 
 
 class AdditiveScores:
@@ -370,31 +428,19 @@ class AdditiveScores:
     H]``. Every row also attends to itself, column ``self_pos[r]``: that
     edge is a term of its own (:meth:`self_scores`), and the hot mask,
     the cold kernels and the cold COO leave it out where the layer holds
-    it, so it counts once."""
+    it, so it counts once. Its hot part runs on its live entries alone
+    (`gnn_tpu_torch.ops.hotattn`, counted on the card), on one part."""
+
+    # the hot part is the live entries: the card counts them
+    dense_grid = False
 
     def __init__(self, el_pad, er, self_pos, slope: float = 0.2):
         self.el, self.er, self.self_pos = el_pad, er, self_pos
         self.H = er.shape[1]
         self.slope = slope
 
-    def hot_operands(self, r_loc, c_loc):
-        return (_take_rows_fill(self.el, r_loc).t(),
-                _take_rows_fill(self.er, c_loc).t())    # [H, rh], [H, ch]
-
-    def hot(self, elh, erh):
-        """``[H, rh, ch]`` scores: the outer sum of the hot operands."""
-        return F.leaky_relu(elh[:, :, None] + erh[:, None, :], self.slope)
-
-    @staticmethod
-    def runs_live(sharded: bool) -> bool:
-        """Whether the hot part runs on its live entries alone: on one
-        part; a part's shard of the block (``sharded``) keeps the dense
-        grid (its terms recompute inside :class:`_PartSumTerms`)."""
-        return not sharded
-
-    def live_hot(self, adj, r_loc, c_loc, v):
-        """The hot part on its live entries alone
-        (:class:`~gnn_tpu_torch.ops.hotattn.LiveGrid`: a bit mask of the
+    def hot_part(self, adj, r_loc, c_loc, v) -> hotattn.LiveGrid:
+        """The hot part on its live entries alone (a bit mask of the
         present grid and the gathered operands; no ``[H, rh, ch]``
         tensor)."""
         return hotattn.live_grid(adj, r_loc, c_loc, self.el, self.er, v,
@@ -409,17 +455,8 @@ class AdditiveScores:
         return torch.where(live[:, None], s,
                            torch.full((), _NEG_INF, device=s.device))
 
-    def cold_rowmax(self, adj):
-        return esattn.cold_additive_rowmax(
-            adj.es_coords, adj.es_rc, adj.es_off, self.el.detach(),
-            self.er.detach(), self.self_pos, slope=self.slope,
-            bm=adj.es_bm, bk=adj.es_bk)
-
-    def cold_terms(self, adj, row_max, v):
-        return esattn.cold_additive_terms(
-            adj.es_coords, adj.es_rc, adj.es_off, adj.es_ord, self.el,
-            self.er, self.self_pos, v, row_max, slope=self.slope,
-            bm=adj.es_bm, bk=adj.es_bk)
+    def cold_operands(self):
+        return self.el, self.er, self.self_pos
 
     def self_scores(self):
         """``[nrows, H]`` scores of each row's self edge."""
@@ -428,16 +465,10 @@ class AdditiveScores:
             self.slope)
 
 
-def hot_attention_aggregate(adj: HotDenseAdj, q_pad, k, v, n_heads: int):
-    """:func:`hot_attention` with the dot-product scores of ``gat``."""
-    return hot_attention(adj, GATConv.scores(q_pad, k, n_heads), v)
-
-
 def hot_attention(adj: HotDenseAdj, score, v):
     """Hot-block attention on a resident layer: the batch's hot-hot edges
-    over the batch-present compacted slots (dense ``[H, rh, ch]`` scores,
-    or the live entries alone where the score source ``runs_live``: the
-    additive source on one part), the cold
+    over the batch-present compacted slots (the score source's hot part:
+    :class:`DenseGrid` or `gnn_tpu_torch.ops.hotattn.LiveGrid`), the cold
     residual through K3/K4 (stream tiles, ``adj.es_rc`` set), the
     per-edge route (cold COO) or nothing (no cold edge), and, for a
     source with ``self_pos``, each row's self edge; one row-wise softmax
@@ -457,67 +488,22 @@ def hot_attention(adj: HotDenseAdj, score, v):
                          "mode); a partial cold residual comes as a COO")
 
     # --- hot part: over the batch-present compacted [rh, ch] slots ---
-    sentinel = 1 << 30
     rh = adj.present_row_slots.shape[0]
-    ch = adj.present_col_slots.shape[0]
     r_loc = adj.rowpos.index_select(0, adj.present_row_slots.long())
     c_loc = adj.colpos.index_select(0, adj.present_col_slots.long())
-    grid = (score.live_hot(adj, r_loc, c_loc, v)
-            if score.runs_live(part is not None) else None)
-    if grid is not None:
-        # the live entries alone: the row max without gradient (a softmax
-        # shift), counted in a training forward
-        m_hot = grid.rowmax(count_live=torch.is_grad_enabled())
-    else:
-        # the present arrays pad by repeating slot 0: mask the pad entries
-        # by the true present counts, or columns would aggregate twice
-        n_hot_r = (adj.row_cmp_idx != sentinel).sum()
-        n_hot_c = (adj.col_cmp_idx != sentinel).sum()
-        row_ok = torch.arange(rh, device=dev) < n_hot_r
-        col_ok = torch.arange(ch, device=dev) < n_hot_c
-        d_rows = adj.dense.index_select(0, adj.present_row_slots.long())
-        if part is not None:
-            # this part's slot columns only
-            ksh = adj.dense.shape[1]
-            pcs_loc = adj.present_col_slots.long() - part.rank * ksh
-            col_ok = col_ok & (pcs_loc >= 0) & (pcs_loc < ksh)
-            d_sub = d_rows.index_select(1, pcs_loc.clamp(0, ksh - 1))
-        else:
-            d_sub = d_rows.index_select(1, adj.present_col_slots.long())
-        mask_hot = (d_sub != 0) & row_ok[:, None] & col_ok[None, :]
-        if score.self_pos is not None:
-            # a hot row's self edge is its own term: off the hot mask
-            own = _take_rows_fill(score.self_pos[:, None], r_loc,
-                                  fill=-1)[:, 0]
-            own_cmp = _take_rows_fill(adj.col_cmp_idx[:, None], own,
-                                      fill=-1)[:, 0]
-            mask_hot = mask_hot & (torch.arange(ch, device=dev)[None, :]
-                                   != own_cmp[:, None])
-
-        hot_ops = score.hot_operands(r_loc, c_loc)
-        vh = _take_rows_fill(v, c_loc).reshape(ch, H, d).transpose(0, 1)
-
-        def hot_scores(*ops):
-            return torch.where(mask_hot[None], score.hot(*ops),
-                               torch.full((), _NEG_INF, device=dev))
-
-        if part is not None:
-            # the row max crosses the parts: a score pass without
-            # gradient, its max taken over the part group; the
-            # differentiable scores are recomputed inside the terms below
-            with torch.no_grad():
-                m_hot = hot_scores(*hot_ops).amax(dim=2).contiguous()
-            part_max_(m_hot, part)
-        else:
-            # ONE differentiable score pass serves the row max (detached:
-            # the max is a softmax shift whose gradient cancels) and the
-            # terms
-            s_hot = hot_scores(*hot_ops)
-            m_hot = s_hot.detach().amax(dim=2)                # [H, rh]
+    hot = score.hot_part(adj, r_loc, c_loc, v)
+    # the row max without gradient (a softmax shift); a training forward
+    # counts the live entries it walks
+    m_hot = hot.rowmax(count_live=torch.is_grad_enabled())
 
     # --- cold residual, pass 1: per-row score max ---
     if use_es:
-        m_cold = score.cold_rowmax(adj)
+        cold_ops = score.cold_operands()
+        cold_kw = dict(n_heads=H, bm=adj.es_bm, bk=adj.es_bk,
+                       slope=score.slope)
+        m_cold = esattn.cold_rowmax(adj.es_coords, adj.es_rc, adj.es_off,
+                                    tuple(o.detach() for o in cold_ops),
+                                    **cold_kw)
         # the kernel writes float32 min for rows without a cold edge;
         # restore the -inf the combine below expects
         m_cold = torch.where(m_cold > esattn.NEG_SENTINEL / 2, m_cold,
@@ -550,25 +536,13 @@ def hot_attention(adj: HotDenseAdj, score, v):
     row_max = torch.where(torch.isfinite(row_max), row_max,
                           torch.zeros((), device=dev)).detach()
     rm_cmp = _take_rows_fill(row_max, r_loc)                  # [rh, H]
-
-    def hot_terms(s, vh_):
-        # s is -inf wherever masked BEFORE the exp: a masked entry's raw
-        # s - rm could overflow, and its exp gradient would be 0 * inf
-        e = torch.exp(s - rm_cmp.t()[:, :, None])
-        return e.sum(dim=2), torch.matmul(e, vh_)   # [H, rh], [H, rh, d]
-
-    if grid is not None:
-        den_hot, num_hot = grid.terms(rm_cmp)
-    elif part is not None:
-        den_hot, num_hot = _PartSumTerms.apply(
-            part, lambda *a: hot_terms(hot_scores(*a[:-1]), a[-1]),
-            *hot_ops, vh)
-    else:
-        den_hot, num_hot = hot_terms(s_hot, vh)
+    den_hot, num_hot = hot.terms(rm_cmp)
 
     # --- cold pass 2: softmax denominators + aggregation ---
     if use_es:
-        den_cold, num_cold = score.cold_terms(adj, row_max, v)
+        den_cold, num_cold = esattn.cold_terms(
+            adj.es_coords, adj.es_rc, adj.es_off, adj.es_ord, cold_ops, v,
+            row_max, **cold_kw)
     elif cold_empty:
         den_cold = torch.zeros((adj.nrows, H), device=dev)
         num_cold = torch.zeros((adj.nrows, n_out), device=dev)
@@ -633,7 +607,7 @@ class GATConv(nn.Module):
         q_pad = torch.cat([q_rows, q.new_zeros(
             (adj.nrows - q_rows.shape[0], self.n_out))])
         if isinstance(adj, HotDenseAdj):
-            agg = hot_attention_aggregate(adj, q_pad, k, v, self.n_heads)
+            agg = hot_attention(adj, self.scores(q_pad, k, self.n_heads), v)
         else:
             impl = self.impl
             if impl == "auto":
@@ -703,7 +677,8 @@ class GATv1Conv(nn.Module):
     (``residual``, with bias, added before the activation) and either ELU
     over the concatenated heads or, at the output (``mean``), the mean of
     the heads. Edge values (LADIES' debias weights) do not enter: only
-    the pattern counts. Resident layers (``HotDenseAdj``) only."""
+    the pattern counts. Resident layers (``HotDenseAdj``) on one part
+    only."""
 
     scores = AdditiveScores
 
@@ -731,6 +706,10 @@ class GATv1Conv(nn.Module):
             raise NotImplementedError(
                 "gatv1 runs on the resident format only (ROADMAP.md: "
                 "gatv1-formats)")
+        if adj.part_axis is not None:
+            raise NotImplementedError(
+                "gatv1 runs on the whole resident block, not a part's shard "
+                "(ROADMAP.md: gatv1-parts)")
         H, d = self.n_heads, self.d
         # a span in eager steps only: a capture records it once and a
         # replay never
@@ -821,12 +800,48 @@ def _attention_layers(net) -> list:
     return []
 
 
-def attention_heads(net, grid: bool = False, sharded: bool = False) -> list:
+def attention_heads(net) -> list:
     """Per layer of ``net``, the heads of its attention (0 for a layer
-    without one); empty for a model without attention. With ``grid``,
-    only the heads whose hot part runs as the dense ``[H, rh, ch]`` grid
-    on blocks that are (``sharded``) or are not a part's shard: 0 where
-    the layer's score source ``runs_live``."""
-    return [0 if layer is None
-            or (grid and layer.scores.runs_live(sharded))
-            else layer.n_heads for layer in _attention_layers(net)]
+    without one); empty for a model without attention."""
+    return [0 if layer is None else layer.n_heads
+            for layer in _attention_layers(net)]
+
+
+class AttentionCounts:
+    """Attention's counters of one net, in the current epoch. Where a
+    training batch is staged (:meth:`staged`; a CUDA-graph replay runs no
+    forward on the host): ``attn.dense_entries``, ``H * rh * ch`` of each
+    resident layer whose score source's hot part is the dense grid (its
+    padded present rows and columns), and ``attn.cold_slots``, the packed
+    cold edge slots (stream tiles' coords, else the cold COO's). Where an
+    epoch already waits for the card (:meth:`epoch_end`):
+    ``attn.hot_live_entries``, the live hot entries the card counted."""
+
+    def __init__(self, layers: list):
+        self.layers = layers
+
+    @classmethod
+    def of(cls, net) -> "AttentionCounts | None":
+        """The counters of ``net``; None for a model without attention."""
+        layers = _attention_layers(net)
+        return cls(layers) if layers else None
+
+    def staged(self, mb) -> None:
+        """Count a host training batch (`MiniBatch`)."""
+        entries = slots = 0
+        for a, layer in zip(mb.adjs, self.layers):
+            rh = getattr(a, "rh_pad", 0)
+            if layer is None or not rh:
+                continue
+            if layer.scores.dense_grid:
+                entries += layer.n_heads * rh * a.ch_pad
+            cold = a.es_coords if a.es_coords is not None else a.cols
+            slots += 0 if cold is None else cold.size
+        count("attn.dense_entries", entries)
+        count("attn.cold_slots", slots)
+
+    @staticmethod
+    def epoch_end() -> None:
+        """Record what the card counted since the last call: one read of
+        the live-entry buffer, a wait on the card."""
+        hotattn.record_live_entries()

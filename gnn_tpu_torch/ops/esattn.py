@@ -17,13 +17,7 @@ entries, the ct-major ``t_order``), with heads as column slices of width
 
 An edge counts once per entry however often its coordinate repeats
 there (the TPU kernel masks its densified tile with ``A01 > 0``), and a
-local row past the tile is dropped. The entry points
-:func:`cold_attention_rowmax`, :func:`cold_attention_terms` (an
-``autograd.Function``), :func:`cold_attention_bwd_q` and
-:func:`cold_attention_bwd_kv` launch the hand-written kernels of
-``gnn_tpu_torch/csrc/edge_attention.cu`` on CUDA tensors (one launch a
-call, widths up to ``CUDA_MAX_WIDTH``), and on CPU tensors take the
-plain versions of the same names with ``_ref``.
+local row past the tile is dropped.
 
 The additive score source (GAT of arXiv:1710.10903, ``gatv1``) walks the
 same tiles: per-row ``el [R, H]``, per-column ``er [C, H]`` and
@@ -38,10 +32,17 @@ model adds it as a term of its own):
                  d el[r] += du (add_bwd_q, rt-major), d er[c] += du and
                  dv[c] += e gnum[r] (add_bwd_kv, ``t_order``).
 
-Their entry points, :func:`cold_additive_rowmax`,
-:func:`cold_additive_terms`, :func:`cold_additive_bwd_q` and
-:func:`cold_additive_bwd_kv`, launch ``edge_attention_additive_kernel``
-(a name of its own in a trace) and count under keys of their own.
+One family of entry points serves both sources, keyed by the source's
+operands as the CUDA walk is keyed by its score source: ``(q, k)`` with
+``n_heads``, or ``(el, er, self_pos)`` with a ``slope``.
+:func:`cold_rowmax` (K3), :func:`cold_terms` (K4, an
+``autograd.Function`` whose backward runs bwd_q and bwd_kv) and
+:func:`cold_backward` (one backward pass alone) launch the hand-written
+kernels of ``gnn_tpu_torch/csrc/edge_attention.cu`` on CUDA tensors (one
+launch a call, widths up to ``CUDA_MAX_WIDTH``; the additive source's
+kernel, ``edge_attention_additive_kernel``, has a name of its own in a
+trace and counts under the ``add_`` keys), and on CPU tensors take the
+plain versions (``cold_attention_*_ref``, ``cold_additive_*_ref``).
 """
 from __future__ import annotations
 
@@ -105,17 +106,9 @@ def _scores(q, k, rows, cols, H):
             * _heads(k.float().index_select(0, cols), H)).sum(-1)
 
 
-def _check_dims(q, k, n_heads, bm, bk):
-    n_out = q.shape[1]
-    assert n_out % n_heads == 0, (n_out, n_heads)
-    assert n_heads <= HP, n_heads
-    assert k.shape[1] == n_out, (q.shape, k.shape)
-    assert (bm & (bm - 1)) == 0 and (bk & (bk - 1)) == 0, (bm, bk)
-
-
 def cold_attention_rowmax_ref(coords, blk_rc, off, q, k, *, n_heads: int,
                               bm: int, bk: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`cold_attention_rowmax`."""
+    """Plain PyTorch version of :func:`cold_rowmax` (the dot product)."""
     rows, cols = live_edges(coords, blk_rc, off, bm, bk)
     s = _scores(q, k, rows, cols, n_heads)
     m = torch.full((q.shape[0], n_heads), NEG_SENTINEL, dtype=torch.float32,
@@ -125,8 +118,8 @@ def cold_attention_rowmax_ref(coords, blk_rc, off, q, k, *, n_heads: int,
 
 def cold_attention_terms_ref(coords, blk_rc, off, t_order, q, k, v,
                              row_max, *, n_heads: int, bm: int, bk: int):
-    """Plain PyTorch version of the forward of
-    :func:`cold_attention_terms`: ``(den [R, H], num [R, n_out])``."""
+    """Plain PyTorch version of the forward of :func:`cold_terms` (the
+    dot product): ``(den [R, H], num [R, n_out])``."""
     H = n_heads
     rows, cols = live_edges(coords, blk_rc, off, bm, bk)
     e = torch.exp(_scores(q, k, rows, cols, H)
@@ -208,7 +201,7 @@ def _additive_edge_terms(coords, blk_rc, off, el, er, self_pos, slope,
 def cold_additive_rowmax_ref(coords, blk_rc, off, el, er, self_pos, *,
                              slope: float, bm: int, bk: int
                              ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`cold_additive_rowmax`."""
+    """Plain PyTorch version of :func:`cold_rowmax` (additive)."""
     rows, _, _, s = _additive_edge_terms(coords, blk_rc, off, el, er,
                                          self_pos, slope, bm, bk)
     H = el.shape[1]
@@ -219,8 +212,8 @@ def cold_additive_rowmax_ref(coords, blk_rc, off, el, er, self_pos, *,
 
 def cold_additive_terms_ref(coords, blk_rc, off, t_order, el, er, self_pos,
                             v, row_max, *, slope: float, bm: int, bk: int):
-    """Plain PyTorch version of the forward of
-    :func:`cold_additive_terms`: ``(den [R, H], num [R, n_out])``."""
+    """Plain PyTorch version of the forward of :func:`cold_terms`
+    (additive): ``(den [R, H], num [R, n_out])``."""
     rows, cols, _, s = _additive_edge_terms(coords, blk_rc, off, el, er,
                                             self_pos, slope, bm, bk)
     H = el.shape[1]
@@ -413,209 +406,132 @@ def _on_cuda(what, t: torch.Tensor) -> bool:
 
 # --- public entry points ----------------------------------------------------
 
-def cold_attention_rowmax(coords, blk_rc, off, q, k, *, n_heads: int,
-                          bm: int, bk: int) -> torch.Tensor:
-    """Per-row max of the cold edge scores ``m[r, h] = max_c q_r·k_c``
-    (scale folded into ``q``): ``[R, H]`` float32, NEG_SENTINEL for rows
-    without a cold edge. Not differentiable (callers detach the
-    operands). CUDA tensors launch the K3 kernel; CPU tensors take the
+# per score source (the additive one has a slope): its operands' names, in
+# the order callers pass them, and the prefix of its launch keys
+_SOURCES = {False: (("q", "k"), ""), True: (("el", "er", "self_pos"), "add_")}
+# the plain version of each launch key
+_PLAIN = {"rowmax": cold_attention_rowmax_ref,
+          "terms": cold_attention_terms_ref,
+          "bwd_q": cold_attention_bwd_q_ref,
+          "bwd_kv": cold_attention_bwd_kv_ref,
+          "add_rowmax": cold_additive_rowmax_ref,
+          "add_terms": cold_additive_terms_ref,
+          "add_bwd_q": cold_additive_bwd_q_ref,
+          "add_bwd_kv": cold_additive_bwd_kv_ref}
+
+
+def _walk(coords, blk_rc, off, t_order, ops, n_heads, bm, bk, slope,
+          v=None, row_max=None):
+    """Check an entry point's arguments (``v`` and ``row_max``: where the
+    mode takes them) and pack its walk ``(coords, blk_rc, off, t_order,
+    H, bm, bk, slope)``. The additive source's operands are per head, so
+    its head count may be left out."""
+    assert slope is not None or n_heads is not None, "n_heads or slope"
+    row, col = ops[0], ops[1]
+    H = row.shape[1] if n_heads is None else n_heads
+    assert H <= HP, H
+    assert row.shape[1] == col.shape[1] and row.shape[1] % H == 0, (
+        row.shape, col.shape, H)
+    if slope is not None:
+        assert row.shape[1] == H, (row.shape, H)
+        assert ops[2].shape == (row.shape[0],), (ops[2].shape, row.shape)
+    if v is not None:
+        assert v.shape[0] == col.shape[0] and v.shape[1] % H == 0, (
+            v.shape, col.shape)
+        assert slope is not None or v.shape == col.shape, (v.shape,
+                                                           col.shape)
+        assert row_max.shape == (row.shape[0], H), (row_max.shape,
+                                                    row.shape, H)
+    assert (bm & (bm - 1)) == 0 and (bk & (bk - 1)) == 0, (bm, bk)
+    return coords, blk_rc, off, t_order, H, bm, bk, slope
+
+
+def _pass(mode, walk, ops, *rest):
+    """One mode of the walk (``rowmax``, ``terms``, ``bwd_q``, ``bwd_kv``)
+    over the score source's operands ``ops`` and the mode's ``rest``
+    (``v, row_max[, gden, gnum]``): the CUDA kernel of the source's launch
+    key on CUDA tensors (one launch), its plain version on CPU ones."""
+    coords, blk_rc, off, t_order, H, bm, bk, slope = walk
+    names, prefix = _SOURCES[slope is not None]
+    key = prefix + mode
+    if _on_cuda(f"edge-stream attention {key}", ops[0]):
+        outs = _launch(key, coords, blk_rc, off,
+                       t_order if mode == "bwd_kv" else None, H, bm, bk,
+                       slope=slope, **dict(zip(
+                           names + ("v", "row_max", "gden", "gnum"),
+                           (*ops, *rest))))
+        return outs[0] if len(outs) == 1 else tuple(outs)
+    tiles = (coords, blk_rc, off) + (() if mode == "rowmax" else (t_order,))
+    kw = dict(n_heads=H) if slope is None else dict(slope=slope)
+    return _PLAIN[key](*tiles, *ops, *rest, bm=bm, bk=bk, **kw)
+
+
+def cold_rowmax(coords, blk_rc, off, ops, *, bm: int, bk: int,
+                n_heads: int | None = None,
+                slope: float | None = None) -> torch.Tensor:
+    """Per-row max of the cold edge scores over each row's cold edges (but
+    its self edge, under the additive source): ``[R, H]`` float32,
+    NEG_SENTINEL for rows without one. ``ops`` are the score source's
+    operands: ``(q, k)`` with the softmax scale folded into ``q`` and
+    ``n_heads``, or ``(el, er, self_pos)`` with the additive source's
+    ``slope``. Not differentiable (callers detach the operands). CUDA
+    tensors launch K3 (``rowmax`` / ``add_rowmax``); CPU tensors take the
     plain version."""
-    _check_dims(q, k, n_heads, bm, bk)
-    if _on_cuda("cold_attention_rowmax", q):
-        return _launch("rowmax", coords, blk_rc, off, None, n_heads, bm, bk,
-                       q=q, k=k)[0]
-    return cold_attention_rowmax_ref(coords, blk_rc, off, q, k,
-                                     n_heads=n_heads, bm=bm, bk=bk)
-
-
-def cold_attention_bwd_q(coords, blk_rc, off, t_order, q, k, v, row_max,
-                         gden, gnum, *, n_heads: int, bm: int, bk: int
-                         ) -> torch.Tensor:
-    """The rt-major backward pass of :func:`cold_attention_terms`:
-    ``dq [R, n_out]`` float32 for the cotangents ``gden``, ``gnum``. CUDA
-    tensors launch the bwd_q kernel; CPU tensors take the plain
-    version."""
-    if _on_cuda("cold_attention_bwd_q", q):
-        return _launch("bwd_q", coords, blk_rc, off, None, n_heads, bm, bk,
-                       q=q, k=k, v=v, row_max=row_max, gden=gden,
-                       gnum=gnum)[0]
-    return cold_attention_bwd_q_ref(coords, blk_rc, off, t_order, q, k, v,
-                                    row_max, gden, gnum, n_heads=n_heads,
-                                    bm=bm, bk=bk)
-
-
-def cold_attention_bwd_kv(coords, blk_rc, off, t_order, q, k, v, row_max,
-                          gden, gnum, *, n_heads: int, bm: int, bk: int):
-    """The ``t_order`` (col-tile-major) backward pass of
-    :func:`cold_attention_terms`: ``(dk, dv) [C, n_out]`` float32. CUDA
-    tensors launch the bwd_kv kernel; CPU tensors take the plain
-    version."""
-    if _on_cuda("cold_attention_bwd_kv", q):
-        return tuple(_launch("bwd_kv", coords, blk_rc, off, t_order,
-                             n_heads, bm, bk, q=q, k=k, v=v,
-                             row_max=row_max, gden=gden, gnum=gnum))
-    return cold_attention_bwd_kv_ref(coords, blk_rc, off, t_order, q, k, v,
-                                     row_max, gden, gnum, n_heads=n_heads,
-                                     bm=bm, bk=bk)
+    return _pass("rowmax", _walk(coords, blk_rc, off, None, ops, n_heads,
+                                 bm, bk, slope), ops)
 
 
 class _Terms(torch.autograd.Function):
-    """K4: the softmax terms forward, the bwd_q and bwd_kv passes
-    backward; no gradient to ``row_max`` or the tiles."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, row_max, tiles):
-        coords, blk_rc, off, t_order, H, bm, bk = tiles
-        ctx.tiles = tiles
-        ctx.save_for_backward(q, k, v, row_max)
-        if _on_cuda("cold_attention_terms", q):
-            return tuple(_launch("terms", coords, blk_rc, off, None, H, bm,
-                                 bk, q=q, k=k, v=v, row_max=row_max))
-        return cold_attention_terms_ref(coords, blk_rc, off, t_order, q, k,
-                                        v, row_max, n_heads=H, bm=bm, bk=bk)
-
-    @staticmethod
-    def backward(ctx, gden, gnum):
-        coords, blk_rc, off, t_order, H, bm, bk = ctx.tiles
-        args = (coords, blk_rc, off, t_order, *ctx.saved_tensors, gden,
-                gnum)
-        kw = dict(n_heads=H, bm=bm, bk=bk)
-        q, k, v, _ = ctx.saved_tensors
-        dq = dk = dv = None
-        if ctx.needs_input_grad[0]:
-            dq = cold_attention_bwd_q(*args, **kw).to(q.dtype)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dk, dv = cold_attention_bwd_kv(*args, **kw)
-            dk, dv = dk.to(k.dtype), dv.to(v.dtype)
-        return dq, dk, dv, None, None
-
-
-def cold_attention_terms(coords, blk_rc, off, t_order, q, k, v, row_max, *,
-                         n_heads: int, bm: int, bk: int):
-    """Softmax terms of the cold residual: ``den[r, h] = sum_c exp(s_rc,h
-    - row_max[r, h])`` and ``num[r, :] = sum_c exp(...) * v_c`` over the
-    packed cold edges. ``row_max`` ``[R, H]`` is the global (hot + cold)
-    row max, finite everywhere, and gets no gradient. Differentiable in
-    q, k and v: the backward recomputes the scores in two passes (bwd_q
-    rt-major, bwd_kv in ``t_order``). Returns ``(den [R, H], num [R,
-    n_out])`` float32. CUDA tensors launch the K4 kernels; CPU tensors
-    take the plain versions."""
-    _check_dims(q, k, n_heads, bm, bk)
-    assert v.shape == k.shape, (v.shape, k.shape)
-    assert row_max.shape == (q.shape[0], n_heads), (row_max.shape,
-                                                    q.shape, n_heads)
-    return _Terms.apply(q, k, v, row_max.detach().float(),
-                        (coords, blk_rc, off, t_order, n_heads, bm, bk))
-
-
-# --- the additive score source -----------------------------------------------
-
-def _check_additive(el, er, self_pos, v, bm, bk):
-    assert el.shape[1] == er.shape[1], (el.shape, er.shape)
-    assert self_pos.shape == (el.shape[0],), (self_pos.shape, el.shape)
-    if v is not None:
-        assert v.shape[0] == er.shape[0], (v.shape, er.shape)
-        assert v.shape[1] % el.shape[1] == 0, (v.shape, el.shape)
-    assert el.shape[1] <= HP, el.shape
-    assert (bm & (bm - 1)) == 0 and (bk & (bk - 1)) == 0, (bm, bk)
-
-
-def cold_additive_rowmax(coords, blk_rc, off, el, er, self_pos, *,
-                         slope: float, bm: int, bk: int) -> torch.Tensor:
-    """Per-row max of the cold additive scores ``m[r, h] = max_c
-    lrelu(el[r, h] + er[c, h])`` over each row's cold edges but its self
-    edge: ``[R, H]`` float32, NEG_SENTINEL for rows without one. Not
-    differentiable (callers detach the operands). CUDA tensors launch
-    the additive K3 kernel; CPU tensors take the plain version."""
-    _check_additive(el, er, self_pos, None, bm, bk)
-    if _on_cuda("cold_additive_rowmax", el):
-        return _launch("add_rowmax", coords, blk_rc, off, None, el.shape[1],
-                       bm, bk, slope=slope, el=el, er=er,
-                       self_pos=self_pos)[0]
-    return cold_additive_rowmax_ref(coords, blk_rc, off, el, er, self_pos,
-                                    slope=slope, bm=bm, bk=bk)
-
-
-def cold_additive_bwd_q(coords, blk_rc, off, t_order, el, er, self_pos, v,
-                        row_max, gden, gnum, *, slope: float, bm: int,
-                        bk: int) -> torch.Tensor:
-    """The rt-major backward pass of :func:`cold_additive_terms`: ``d el
-    [R, H]`` float32. CUDA tensors launch the add_bwd_q kernel; CPU
-    tensors take the plain version."""
-    if _on_cuda("cold_additive_bwd_q", el):
-        return _launch("add_bwd_q", coords, blk_rc, off, None, el.shape[1],
-                       bm, bk, slope=slope, el=el, er=er,
-                       self_pos=self_pos, v=v, row_max=row_max, gden=gden,
-                       gnum=gnum)[0]
-    return cold_additive_bwd_q_ref(coords, blk_rc, off, t_order, el, er,
-                                   self_pos, v, row_max, gden, gnum,
-                                   slope=slope, bm=bm, bk=bk)
-
-
-def cold_additive_bwd_kv(coords, blk_rc, off, t_order, el, er, self_pos, v,
-                         row_max, gden, gnum, *, slope: float, bm: int,
-                         bk: int):
-    """The ``t_order`` backward pass of :func:`cold_additive_terms`:
-    ``(d er [C, H], dv [C, n_out])`` float32. CUDA tensors launch the
-    add_bwd_kv kernel; CPU tensors take the plain version."""
-    if _on_cuda("cold_additive_bwd_kv", el):
-        return tuple(_launch("add_bwd_kv", coords, blk_rc, off, t_order,
-                             el.shape[1], bm, bk, slope=slope, el=el,
-                             er=er, self_pos=self_pos, v=v,
-                             row_max=row_max, gden=gden, gnum=gnum))
-    return cold_additive_bwd_kv_ref(coords, blk_rc, off, t_order, el, er,
-                                    self_pos, v, row_max, gden, gnum,
-                                    slope=slope, bm=bm, bk=bk)
-
-
-class _AdditiveTerms(torch.autograd.Function):
-    """Additive K4: the softmax terms forward, the add_bwd_q and
-    add_bwd_kv passes backward; no gradient to ``row_max``, the tiles or
+    """K4 of either score source: the softmax terms forward, the bwd_q
+    and bwd_kv passes backward; no gradient to ``row_max``, the tiles or
     ``self_pos``."""
 
     @staticmethod
-    def forward(ctx, el, er, v, row_max, self_pos, tiles):
-        coords, blk_rc, off, t_order, slope, bm, bk = tiles
-        ctx.tiles = tiles
-        ctx.save_for_backward(el, er, v, row_max, self_pos)
-        if _on_cuda("cold_additive_terms", el):
-            return tuple(_launch("add_terms", coords, blk_rc, off, None,
-                                 el.shape[1], bm, bk, slope=slope, el=el,
-                                 er=er, self_pos=self_pos, v=v,
-                                 row_max=row_max))
-        return cold_additive_terms_ref(coords, blk_rc, off, t_order, el, er,
-                                       self_pos, v, row_max, slope=slope,
-                                       bm=bm, bk=bk)
+    def forward(ctx, walk, v, row_max, *ops):
+        ctx.walk = walk
+        ctx.save_for_backward(v, row_max, *ops)
+        return _pass("terms", walk, ops, v, row_max)
 
     @staticmethod
     def backward(ctx, gden, gnum):
-        coords, blk_rc, off, t_order, slope, bm, bk = ctx.tiles
-        el, er, v, row_max, self_pos = ctx.saved_tensors
-        args = (coords, blk_rc, off, t_order, el, er, self_pos, v, row_max,
-                gden, gnum)
-        kw = dict(slope=slope, bm=bm, bk=bk)
-        d_el = d_er = dv = None
-        if ctx.needs_input_grad[0]:
-            d_el = cold_additive_bwd_q(*args, **kw).to(el.dtype)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            d_er, dv = cold_additive_bwd_kv(*args, **kw)
-            d_er, dv = d_er.to(er.dtype), dv.to(v.dtype)
-        return d_el, d_er, dv, None, None, None
+        v, row_max, *ops = ctx.saved_tensors
+        rest = (v, row_max, gden, gnum)
+        d_row = d_col = dv = None
+        if ctx.needs_input_grad[3]:
+            d_row = _pass("bwd_q", ctx.walk, ops, *rest).to(ops[0].dtype)
+        if ctx.needs_input_grad[4] or ctx.needs_input_grad[1]:
+            d_col, dv = _pass("bwd_kv", ctx.walk, ops, *rest)
+            d_col, dv = d_col.to(ops[1].dtype), dv.to(v.dtype)
+        return (None, dv, None, d_row, d_col) + (None,) * (len(ops) - 2)
 
 
-def cold_additive_terms(coords, blk_rc, off, t_order, el, er, self_pos, v,
-                        row_max, *, slope: float, bm: int, bk: int):
-    """Softmax terms of the cold residual under the additive source:
-    ``den[r, h] = sum_c exp(s_rc,h - row_max[r, h])`` and ``num[r, :] =
-    sum_c exp(...) * v_c`` over the packed cold edges but each row's self
-    edge, ``s = lrelu(el[r] + er[c])``. ``row_max`` ``[R, H]`` is the
-    global row max, finite everywhere, and gets no gradient.
-    Differentiable in el, er and v (backward: add_bwd_q rt-major,
-    add_bwd_kv in ``t_order``). Returns ``(den [R, H], num [R, n_out])``
-    float32. CUDA tensors launch the additive K4 kernels; CPU tensors
-    take the plain versions."""
-    _check_additive(el, er, self_pos, v, bm, bk)
-    assert row_max.shape == el.shape, (row_max.shape, el.shape)
-    return _AdditiveTerms.apply(el, er, v, row_max.detach().float(),
-                                self_pos, (coords, blk_rc, off, t_order,
-                                           slope, bm, bk))
+def cold_terms(coords, blk_rc, off, t_order, ops, v, row_max, *, bm: int,
+               bk: int, n_heads: int | None = None,
+               slope: float | None = None):
+    """Softmax terms of the cold residual: ``den[r, h] = sum_c exp(s_rc,h
+    - row_max[r, h])`` and ``num[r, :] = sum_c exp(...) * v_c`` over the
+    packed cold edges (but each row's self edge, under the additive
+    source), for the score source's ``ops`` (:func:`cold_rowmax`).
+    ``row_max`` ``[R, H]`` is the global (hot + cold) row max, finite
+    everywhere, and gets no gradient. Differentiable in ``v`` and the
+    first two operands: the backward recomputes the scores in two passes
+    (:func:`cold_backward`). Returns ``(den [R, H], num [R, n_out])``
+    float32. CUDA tensors launch the K4 kernels; CPU tensors take the
+    plain versions."""
+    walk = _walk(coords, blk_rc, off, t_order, ops, n_heads, bm, bk, slope,
+                 v, row_max)
+    return _Terms.apply(walk, v, row_max.detach().float(), *ops)
+
+
+def cold_backward(mode, coords, blk_rc, off, t_order, ops, v, row_max,
+                  gden, gnum, *, bm: int, bk: int,
+                  n_heads: int | None = None, slope: float | None = None):
+    """One backward pass of :func:`cold_terms` for the cotangents
+    ``gden``, ``gnum``, as its backward runs it: ``"bwd_q"`` (rt-major)
+    gives the first operand's gradient (``dq [R, n_out]`` or ``d el [R,
+    H]``), ``"bwd_kv"`` (``t_order``) the second's and ``v``'s (``(dk,
+    dv)`` or ``(d er, dv)``), float32. CUDA tensors launch the kernel;
+    CPU tensors take the plain version."""
+    walk = _walk(coords, blk_rc, off, t_order, ops, n_heads, bm, bk, slope,
+                 v, row_max)
+    return _pass(mode, walk, ops, v, row_max, gden, gnum)

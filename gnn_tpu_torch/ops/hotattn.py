@@ -1,6 +1,7 @@
 """Hot-block additive attention on its live entries: the hot part of
-`gnn_tpu_torch.models.gat.hot_attention` under the additive score source
-(GAT of arXiv:1710.10903, ``gatv1``) on an unsharded resident layer.
+`gnn_tpu_torch.models.gat.hot_attention` that the additive score source
+(GAT of arXiv:1710.10903, ``gatv1``; `gat.AdditiveScores.hot_part`)
+hands over on a resident layer of one part, as a :class:`LiveGrid`.
 
 The hot part runs over a layer's batch-present compacted grid ``[rh,
 ch]`` (rows: present row slots, columns: present column slots). An
@@ -30,9 +31,10 @@ plain versions (``*_ref``: the masked dense formulas) on CPU tensors.
 
 Counter: a training forward's row max adds ``H x`` its live entries to
 a per-device int64 buffer (:func:`live_counter`), on the device and
-inside CUDA-graph replays alike; :func:`record_live_entries`, called at
-each epoch's end after its one read of the losses, moves what the
-buffer gained into the recorder's counter ``attn.hot_live_entries``.
+inside CUDA-graph replays alike; :func:`record_live_entries`, which
+`gat.AttentionCounts.epoch_end` calls at each epoch's end after its one
+read of the losses, moves what the buffer gained into the recorder's
+counter ``attn.hot_live_entries``.
 """
 from __future__ import annotations
 

@@ -58,11 +58,9 @@ from typing import List
 import numpy as np
 import torch
 
-from gnn_tpu_torch.ops import hotattn
 from gnn_tpu_torch.ops.cuda_build import launch_counts
 from gnn_tpu_torch.ops.sparse import COUNT_FIELDS
-from gnn_tpu_torch.train.stepfns import (DeviceBatch, count_attention,
-                                         to_device_batch)
+from gnn_tpu_torch.train.stepfns import DeviceBatch, to_device_batch
 from gnn_tpu_torch.utils.timing import count, span
 
 # eager steps before a capture (the CUDA graph documentation's example
@@ -394,8 +392,9 @@ class GroupedDispatch:
                 mbs, n_valid = got
                 shares += [tr.pipeline.skew_share(mb)
                            for mb in mbs[:n_valid]]
-                for mb in mbs[:n_valid]:
-                    count_attention(mb, tr.attn_heads, tr.grid_heads)
+                if tr.attn_counts is not None:
+                    for mb in mbs[:n_valid]:
+                        tr.attn_counts.staged(mb)
                 if self.on_card:
                     lrs = [tr._lr_at(tr.n_updates + j)
                            for j in range(n_valid)]
@@ -424,8 +423,9 @@ class GroupedDispatch:
             with span("dispatch.card_wait") as wait:
                 step_losses = (torch.cat(losses).cpu().tolist() if losses
                                else [])
-                # and of the live hot entries the replays counted
-                hotattn.record_live_entries()
+                # and of what the replays counted on the card
+                if tr.attn_counts is not None:
+                    tr.attn_counts.epoch_end()
             n_exec += wait.ns
             prev = start if self.on_card else None
             for ev, n, cap in ends:

@@ -11,13 +11,12 @@ grid_gradient_sum_`)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List, Optional
+from typing import Iterable, List
 
 import torch
 
 from gnn_tpu_torch.ops.sparse import to_device
 from gnn_tpu_torch.sampling.ladies import MiniBatch
-from gnn_tpu_torch.utils.timing import count
 
 
 @dataclasses.dataclass
@@ -61,34 +60,6 @@ def to_device_batch(mb: MiniBatch, device,
         labels=t(mb.labels), label_mask=t(mb.label_mask),
         feat_plan=(None if feature_source is None
                    else feature_source.plan(mb)))
-
-
-def count_attention(mb: MiniBatch, heads: List[int],
-                    grid_heads: Optional[List[int]] = None) -> None:
-    """Count a host training batch's attention work, where it is staged
-    (a CUDA-graph replay runs no forward on the host): counter
-    ``attn.dense_entries`` adds ``H * rh * ch`` of each resident layer's
-    hot part (its padded present rows and columns) that runs as a dense
-    grid (``grid_heads``, each layer's heads there: 0 where the hot part
-    runs on its live entries, which the device counts as
-    ``attn.hot_live_entries``, `gnn_tpu_torch.ops.hotattn`; None: all
-    of ``heads``), counter ``attn.cold_slots`` the packed cold edge slots
-    (stream tiles' coords, else the cold COO's). ``heads``: each layer's
-    heads (0 or empty: no attention, nothing counted)."""
-    if not heads:
-        return
-    if grid_heads is None:
-        grid_heads = heads
-    entries = slots = 0
-    for a, h, hg in zip(mb.adjs, heads, grid_heads):
-        rh = getattr(a, "rh_pad", 0)
-        if not h or not rh:
-            continue
-        entries += hg * rh * a.ch_pad
-        cold = a.es_coords if a.es_coords is not None else a.cols
-        slots += 0 if cold is None else cold.size
-    count("attn.dense_entries", entries)
-    count("attn.cold_slots", slots)
 
 
 def prepare_adjs(batch: DeviceBatch, agg_state) -> List[object]:

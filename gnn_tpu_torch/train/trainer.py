@@ -41,7 +41,6 @@ import numpy as np
 import torch
 
 from gnn_tpu_torch.device import resolve_device
-from gnn_tpu_torch.ops import hotattn
 from gnn_tpu_torch.parallel.dist import (DistContext, broadcast_from_main,
                                          part_bytes)
 from gnn_tpu_torch.parallel.feature_cache import ReplicatedFeatures
@@ -49,8 +48,7 @@ from gnn_tpu_torch.train.evalloop import EvalMixin
 from gnn_tpu_torch.train.loss import masked_loss
 from gnn_tpu_torch.train.metrics import EpochMetrics
 from gnn_tpu_torch.train.optiming import OpTimingMixin
-from gnn_tpu_torch.train.stepfns import (clip_by_global_norm,
-                                         count_attention, prepare_adjs,
+from gnn_tpu_torch.train.stepfns import (clip_by_global_norm, prepare_adjs,
                                          sum_gradients_, to_device_batch)
 from gnn_tpu_torch.utils.timing import RECORDER, span, spanned
 
@@ -99,20 +97,16 @@ class Trainer(EvalMixin, OpTimingMixin):
         self.lr_warmup = int(lr_warmup)
         self.grad_clip = grad_clip
         self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
-        from gnn_tpu_torch.models.gat import attention_heads
-        # each layer's attention heads (empty without attention), and
-        # those whose hot part runs as a dense grid: the host counts each
-        # training batch's attention work by them
-        self.attn_heads = attention_heads(self.net)
-        self.grid_heads = attention_heads(self.net, grid=True,
-                                          sharded=parts > 1)
+        from gnn_tpu_torch.models.gat import AttentionCounts
+        # attention's counters (None: the net has no attention)
+        self.attn_counts = AttentionCounts.of(self.net)
         if self.steps_per_dispatch > 1:
             from gnn_tpu_torch.train.dispatch import unported
             # the format is the sampler's: the coo format has neither a
             # resident graph nor hot blocks
             why = unported(
                 adj_format=pipeline.cfg.adj_format,
-                attention=bool(self.attn_heads),
+                attention=self.attn_counts is not None,
                 ranks=dist.world_size,
                 replicated=isinstance(self.feature_source,
                                       ReplicatedFeatures))
@@ -251,7 +245,8 @@ class Trainer(EvalMixin, OpTimingMixin):
                 if mb is None:
                     break
                 shares.append(self.pipeline.skew_share(mb))
-                count_attention(mb, self.attn_heads, self.grid_heads)
+                if self.attn_counts is not None:
+                    self.attn_counts.staged(mb)
                 with span("train.to_device") as move:
                     batch = to_device_batch(mb, self.device,
                                             self.feature_source)
@@ -261,9 +256,10 @@ class Trainer(EvalMixin, OpTimingMixin):
                     losses.append(float(self.train_step(batch)))
                 n_exec += step.ns
                 times.append((step.t1 - nxt.t1) / 1e9)
-            # the live hot entries the epoch's forwards counted on the
-            # device (its steps waited for the device already)
-            hotattn.record_live_entries()
+            # what the epoch's forwards counted on the device (its steps
+            # waited for the device already)
+            if self.attn_counts is not None:
+                self.attn_counts.epoch_end()
         self.last_batch = batch if keep_last_batch and losses else None
         return EpochMetrics(
             epoch=epoch,

@@ -104,8 +104,8 @@ def _pallas_terms_and_grads(tiles, q, k, v, rm, H, wd, wn):
 def _port_terms_and_grads(tiles, q, k, v, rm, H, wd, wn, device="cpu"):
     qt, kt, vt = (torch.from_numpy(a).to(device).requires_grad_()
                   for a in (q, k, v))
-    den, num = tea.cold_attention_terms(
-        *_t(tiles, device), qt, kt, vt, torch.from_numpy(rm).to(device),
+    den, num = tea.cold_terms(
+        *_t(tiles, device), (qt, kt), vt, torch.from_numpy(rm).to(device),
         n_heads=H, bm=tiles.bm, bk=tiles.bk)
     loss = ((den * torch.from_numpy(wd).to(device)).sum()
             + (num * torch.from_numpy(wn).to(device)).sum())
@@ -122,8 +122,8 @@ def _finite_rowmax(rm):
 
 def _check_against_pallas(tiles, q, k, v, H, seed):
     rm_p = _pallas_rowmax(tiles, q, k, H)
-    rm_t = tea.cold_attention_rowmax(
-        *_t(tiles)[:3], torch.from_numpy(q), torch.from_numpy(k),
+    rm_t = tea.cold_rowmax(
+        *_t(tiles)[:3], (torch.from_numpy(q), torch.from_numpy(k)),
         n_heads=H, bm=tiles.bm, bk=tiles.bk).numpy()
     np.testing.assert_allclose(rm_t, rm_p, **RM_TOL)
     rm = _finite_rowmax(rm_p)
@@ -281,7 +281,7 @@ def _cuda_vs_plain(tiles, q, k, v, H, dev, seed, compare_terms=True):
     qd, kd, vd = (torch.from_numpy(a).to(dev) for a in (q, k, v))
     kw = dict(n_heads=H, bm=tiles.bm, bk=tiles.bk)
     before = dict(tea.launches)
-    rm = tea.cold_attention_rowmax(*ct[:3], qd, kd, **kw)
+    rm = tea.cold_rowmax(*ct[:3], (qd, kd), **kw)
     torch.testing.assert_close(
         rm, tea.cold_attention_rowmax_ref(*ct[:3], qd, kd, **kw), **RM_TOL)
     rm = torch.where(rm > tea.NEG_SENTINEL / 2, rm, torch.zeros_like(rm))
@@ -289,7 +289,7 @@ def _cuda_vs_plain(tiles, q, k, v, H, dev, seed, compare_terms=True):
     gd = torch.randn(rm.shape, generator=g, device=dev)
     gn = torch.randn(qd.shape, generator=g, device=dev)
     qg, kg, vg = (a.clone().requires_grad_() for a in (qd, kd, vd))
-    den, num = tea.cold_attention_terms(*ct, qg, kg, vg, rm, **kw)
+    den, num = tea.cold_terms(*ct, (qg, kg), vg, rm, **kw)
     ((den * gd).sum() + (num * gn).sum()).backward()
     want = tea.cold_attention_terms_ref(*ct, qd, kd, vd, rm, **kw)
     dq = tea.cold_attention_bwd_q_ref(*ct, qd, kd, vd, rm, gd, gn, **kw)
@@ -450,7 +450,7 @@ def test_cuda_core_case_matches_plain_version(cuda_device, name):
     ct = _t(tiles, dev)
     qd, kd, vd = (torch.from_numpy(a).to(dev) for a in (q, k, v))
     kw = dict(n_heads=H, bm=tiles.bm, bk=tiles.bk)
-    rm = tea.cold_attention_rowmax(*ct[:3], qd, kd, **kw)
+    rm = tea.cold_rowmax(*ct[:3], (qd, kd), **kw)
     torch.testing.assert_close(
         rm, tea.cold_attention_rowmax_ref(*ct[:3], qd, kd, **kw), rtol=0,
         atol=0)
@@ -461,18 +461,17 @@ def test_cuda_core_case_matches_plain_version(cuda_device, name):
     gn = torch.from_numpy((g.randint(-4, 5, q.shape) / 8).astype(
         np.float32)).to(dev)
     calls = {
-        "rowmax": (lambda: (tea.cold_attention_rowmax(*ct[:3], qd, kd,
-                                                      **kw),),
+        "rowmax": (lambda: (tea.cold_rowmax(*ct[:3], (qd, kd), **kw),),
                    None),
-        "terms": (lambda: tea.cold_attention_terms(*ct, qd, kd, vd, rm, **kw),
+        "terms": (lambda: tea.cold_terms(*ct, (qd, kd), vd, rm, **kw),
                   lambda: tea.cold_attention_terms_ref(*ct, qd, kd, vd, rm,
                                                        **kw)),
-        "bwd_q": (lambda: (tea.cold_attention_bwd_q(*ct, qd, kd, vd, rm, gd,
-                                                    gn, **kw),),
+        "bwd_q": (lambda: (tea.cold_backward("bwd_q", *ct, (qd, kd), vd, rm,
+                                             gd, gn, **kw),),
                   lambda: (tea.cold_attention_bwd_q_ref(*ct, qd, kd, vd, rm,
                                                         gd, gn, **kw),)),
-        "bwd_kv": (lambda: tea.cold_attention_bwd_kv(*ct, qd, kd, vd, rm, gd,
-                                                     gn, **kw),
+        "bwd_kv": (lambda: tea.cold_backward("bwd_kv", *ct, (qd, kd), vd, rm,
+                                             gd, gn, **kw),
                    lambda: tea.cold_attention_bwd_kv_ref(*ct, qd, kd, vd, rm,
                                                          gd, gn, **kw)),
     }

@@ -193,7 +193,7 @@ def test_hot_score_matmul_runs_once(small_graph):
     q = torch.randn(ta.nrows, n_out)
     k = torch.randn(ta.ncols, n_out)
     with Count():
-        tgat.hot_attention_aggregate(ta, q, k, k.clone(), H)
+        tgat.hot_attention(ta, tgat.DotScores(q, k, H), k.clone())
     assert shapes.count((H, rh, ch)) == 1, shapes
 
 

@@ -2,7 +2,8 @@
 ``csrc/hot_attention.cu``): the plain version of each mode against a
 direct computation over the dense ``[H, rh, ch]`` grid and its autograd,
 the model's hot-block attention against the dense route it replaced,
-the routes that keep the dense grid, and the counters.
+the dot product's dense grid, the refusal of a part's shard, and the
+counters.
 
 * The mask: :func:`hotattn.live_masks_ref` is the dense route's mask
   (present pads that repeat slot 0 and each row's own column left out),
@@ -13,11 +14,12 @@ the routes that keep the dense grid, and the counters.
   score of exactly 0 (LeakyReLU's kink), at 4 and 6 heads, widths a
   multiple of 8 and 41.
 * `hot_attention` with the additive source against a frozen copy of the
-  function as it was (the dense grid): close on one part; bit-equal for
-  the dot-product source and on a part's shard, which keep the grid.
-* `count_attention` adds no dense entries where the hot part runs live,
-  the live-entry counter adds ``H x`` the walked entries in training
-  forwards only, and an epoch records it.
+  function as it was (the dense grid): close; bit-equal for the
+  dot-product source, which keeps the grid. gatv1 refuses a part's
+  shard of the block.
+* A net's `AttentionCounts` adds no dense entries where the hot part
+  runs live, the live-entry counter adds ``H x`` the walked entries in
+  training forwards only, and an epoch records it.
 * On a card (``-m cuda``; this module imports no JAX, so ``pytest
   --noconftest -m cuda tests/test_torch_hotattn.py`` runs it there): the
   mask pass and the four kernels against the plain versions at gatv1's
@@ -297,7 +299,7 @@ def test_additive_hot_attention_matches_the_dense_route(resident, H, d,
     a = adjs[layer]
     el, er, v, w, sp = _layer_operands(a, batch, layer, H, d, seed=layer)
     score = tgat.AdditiveScores(el, er, sp, SLOPE)
-    grid = score.live_hot(a, a.rowpos.index_select(
+    grid = score.hot_part(a, a.rowpos.index_select(
         0, a.present_row_slots.long()), a.colpos.index_select(
         0, a.present_col_slots.long()), v)
     assert isinstance(grid, hotattn.LiveGrid)
@@ -311,34 +313,40 @@ def test_additive_hot_attention_matches_the_dense_route(resident, H, d,
         torch.testing.assert_close(x, y, **MODE_TOL, msg=name)
 
 
-@pytest.mark.parametrize("source", ["dot", "additive_part"])
+@pytest.mark.parametrize("source", ["dot"])
 def test_dense_routes_bit_equal_to_before(resident, source):
-    """The dot-product source and the additive source on a part's shard
-    (here one part of one) keep the dense grid, bit-equal to before."""
+    """The dot-product source keeps the dense grid, bit-equal to
+    before."""
     _, batch, adjs = resident.batch(seed=9)
     a = adjs[1]
     H, d = 2, 8
-    el, er, v, w, sp = _layer_operands(a, batch, 1, H, d, seed=3)
-    r_loc = a.rowpos.index_select(0, a.present_row_slots.long())
-    c_loc = a.colpos.index_select(0, a.present_col_slots.long())
-    if source == "dot":
-        g = torch.Generator().manual_seed(4)
-        leaves = (torch.randn(a.nrows, H * d, generator=g),
-                  torch.randn(a.ncols, H * d, generator=g), v)
+    _, _, v, w, _ = _layer_operands(a, batch, 1, H, d, seed=3)
+    g = torch.Generator().manual_seed(4)
+    leaves = (torch.randn(a.nrows, H * d, generator=g),
+              torch.randn(a.ncols, H * d, generator=g), v)
 
-        def score_of(q, k):
-            return tgat.DotScores(q, k, H)
-    else:
-        a = dataclasses.replace(a, part_axis=PartGroup(0, 1))
-        leaves = (el, er, v)
-
-        def score_of(el_, er_):
-            return tgat.AdditiveScores(el_, er_, sp, SLOPE)
-    assert not score_of(*leaves[:2]).runs_live(a.part_axis is not None)
+    def score_of(q, k):
+        return tgat.DotScores(q, k, H)
+    assert isinstance(score_of(*leaves[:2]).hot_part(
+        a, a.rowpos.index_select(0, a.present_row_slots.long()),
+        a.colpos.index_select(0, a.present_col_slots.long()), v),
+        tgat.DenseGrid)
     want = _run(_hot_attention_parent, a, score_of, leaves, w)
     got = _run(tgat.hot_attention, a, score_of, leaves, w)
     for name, x, y in zip(("y", "d0", "d1", "dv"), got, want):
         assert torch.equal(x, y), name
+
+
+def test_gatv1_refuses_a_part_sharded_layer(resident):
+    """A gatv1 layer on a part's shard of the block (here one part of
+    one) raises, naming the queue item: its hot part runs on one part
+    only."""
+    _, batch, adjs = resident.batch(seed=9)
+    a = dataclasses.replace(adjs[0], part_axis=PartGroup(0, 1))
+    conv = tgat.GATv1Conv(12, 4, 2)
+    x = torch.zeros(a.ncols, 12)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md: gatv1-parts"):
+        conv(x, a, batch.sampled_nodes[0])
 
 
 # --- the counters ----------------------------------------------------------------
@@ -346,33 +354,32 @@ def test_dense_routes_bit_equal_to_before(resident, source):
 def test_count_attention_adds_no_dense_entries_where_the_hot_part_runs_live(
         resident):
     from gnn_tpu_torch.models.gnn import build_model
-    from gnn_tpu_torch.train.stepfns import count_attention
     mb, _, _ = resident.batch()
-    heads = [2, 2, 3]
     # the layers' score sources decide: gat's dot product keeps the grid,
-    # gatv1's additive source walks the live entries on one part alone
+    # gatv1's additive source walks the live entries
     gat = build_model("gat", 16, (1, 1, 1), 5, 12)
     gatv1 = build_model("gatv1", 16, (1, 1, 1), 5, 12)
-    assert tgat.attention_heads(gat, grid=True) == [1, 1, 1]
-    assert tgat.attention_heads(gatv1, grid=True) == [0, 0, 0]
-    assert tgat.attention_heads(gatv1, grid=True, sharded=True) == \
-        tgat.attention_heads(gatv1)
+    assert tgat.AttentionCounts.of(build_model("graphsage", 16, (1, 1, 1),
+                                               5, 12)) is None
     # epoch keys of this case alone
     live, dense = (f"hotattn-{w}-{id(resident)}" for w in ("live", "dense"))
     prev = RECORDER.epoch
     try:
-        for key, grid_heads in ((live, [0, 0, 0]), (dense, heads)):
+        for key, net in ((live, gatv1), (dense, gat)):
             RECORDER.epoch = key
-            count_attention(mb, heads, grid_heads)
+            tgat.AttentionCounts.of(net).staged(mb)
     finally:
         RECORDER.epoch = prev
+    heads = tgat.attention_heads(gat)
+    assert heads == [1, 1, 1]
     want = sum(h * a.rh_pad * a.ch_pad for h, a in zip(heads, mb.adjs))
     assert want > 0
     # the counter is there, at 0, so the metric reads 0.0, not nothing
     assert RECORDER.total("attn.dense_entries", [live], "count") == 0
     assert RECORDER.total("attn.dense_entries", [dense], "count") == want
-    for key in (live, dense):
-        assert RECORDER.total("attn.cold_slots", [key], "count") > 0
+    slots = [RECORDER.total("attn.cold_slots", [key], "count")
+             for key in (live, dense)]
+    assert slots[0] == slots[1] > 0
 
 
 def test_live_entries_count_in_training_forwards_only(resident):
@@ -381,7 +388,7 @@ def test_live_entries_count_in_training_forwards_only(resident):
     H, d = 3, 4
     el, er, v, _, sp = _layer_operands(a, batch, 0, H, d, seed=6)
     score = tgat.AdditiveScores(el, er, sp, SLOPE)
-    grid = score.live_hot(a, a.rowpos.index_select(
+    grid = score.hot_part(a, a.rowpos.index_select(
         0, a.present_row_slots.long()), a.colpos.index_select(
         0, a.present_col_slots.long()), v)
     n_live = int(hotattn.unpack_bits(grid.bits, grid.erh.shape[0]).sum())
@@ -598,6 +605,25 @@ def test_cuda_hot_kernels_have_names_of_their_own(cuda_device):
 
 # --- the dense route as it was ---------------------------------------------
 
+def _dense_operands(score, r_loc, c_loc):
+    """The dense route's hot operands of a score source and their ``[H,
+    rh, ch]`` scores: the dot product of the rows' ``q`` and the columns'
+    ``k`` split by head, or the outer sum of the rows' ``el`` and the
+    columns' ``er`` through LeakyReLU."""
+    if isinstance(score, tgat.AdditiveScores):
+        return ((tgat._take_rows_fill(score.el, r_loc).t(),
+                 tgat._take_rows_fill(score.er, c_loc).t()),
+                lambda elh, erh: F.leaky_relu(
+                    elh[:, :, None] + erh[:, None, :], score.slope))
+
+    def split(a):
+        return a.reshape(a.shape[0], score.H, -1).transpose(0, 1)
+    return ((split(tgat._take_rows_fill(score.q_pad, r_loc)),
+             split(tgat._take_rows_fill(score.k, c_loc))),
+            lambda qh, kh: torch.matmul(qh, kh.transpose(1, 2))
+            * score.scale)
+
+
 def _hot_attention_parent(adj, score, v):
     """`gnn_tpu_torch.models.gat.hot_attention` as it was before the
     additive score's hot part took its live entries alone (every source
@@ -644,11 +670,11 @@ def _hot_attention_parent(adj, score, v):
         mask_hot = mask_hot & (torch.arange(ch, device=dev)[None, :]
                                != own_cmp[:, None])
 
-    hot_ops = score.hot_operands(r_loc, c_loc)
+    hot_ops, hot = _dense_operands(score, r_loc, c_loc)
     vh = tgat._take_rows_fill(v, c_loc).reshape(ch, H, d).transpose(0, 1)
 
     def hot_scores(*ops):
-        return torch.where(mask_hot[None], score.hot(*ops),
+        return torch.where(mask_hot[None], hot(*ops),
                            torch.full((), tgat._NEG_INF, device=dev))
 
     if part is not None:
@@ -666,7 +692,11 @@ def _hot_attention_parent(adj, score, v):
 
     # --- cold residual, pass 1: per-row score max ---
     if use_es:
-        m_cold = score.cold_rowmax(adj)
+        cold_ops = score.cold_operands()
+        walk = dict(n_heads=H, bm=adj.es_bm, bk=adj.es_bk, slope=score.slope)
+        m_cold = tgat.esattn.cold_rowmax(
+            adj.es_coords, adj.es_rc, adj.es_off,
+            tuple(o.detach() for o in cold_ops), **walk)
         # the kernel writes float32 min for rows without a cold edge;
         # restore the -inf the combine below expects
         m_cold = torch.where(m_cold > tgat.esattn.NEG_SENTINEL / 2, m_cold,
@@ -715,7 +745,9 @@ def _hot_attention_parent(adj, score, v):
 
     # --- cold pass 2: softmax denominators + aggregation ---
     if use_es:
-        den_cold, num_cold = score.cold_terms(adj, row_max, v)
+        den_cold, num_cold = tgat.esattn.cold_terms(
+            adj.es_coords, adj.es_rc, adj.es_off, adj.es_ord, cold_ops, v,
+            row_max, **walk)
     elif cold_empty:
         den_cold = torch.zeros((adj.nrows, H), device=dev)
         num_cold = torch.zeros((adj.nrows, n_out), device=dev)

@@ -123,6 +123,20 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _entry(mode, *xs, **kw):
+    """The entry point of ``mode`` on its plain version's arguments ``xs``:
+    the tiles (three for the rowmax, four else), ``q``, ``k`` and the
+    mode's others."""
+    from gnn_tpu_torch.ops import esattn as ea
+    n = 3 if mode == "rowmax" else 4
+    tiles, ops, rest = xs[:n], xs[n:n + 2], xs[n + 2:]
+    if mode == "rowmax":
+        return ea.cold_rowmax(*tiles, ops, **kw)
+    if mode == "terms":
+        return ea.cold_terms(*tiles, ops, *rest, **kw)
+    return ea.cold_backward(mode, *tiles, ops, *rest, **kw)
+
+
 def cases(adjs, n, dev):
     """Per layer and mode: ``(label, kernel call, plain result)``."""
     import torch
@@ -142,21 +156,19 @@ def cases(adjs, n, dev):
         rm = ea.cold_attention_rowmax_ref(*t[:3], q, k, **kw)
         rm = torch.where(rm > ea.NEG_SENTINEL / 2, rm, torch.zeros_like(rm))
         args = {
-            "rowmax": (ea.cold_attention_rowmax, ea.cold_attention_rowmax_ref,
-                       t[:3] + (q, k)),
-            "terms": (ea.cold_attention_terms, ea.cold_attention_terms_ref,
-                      t + (q, k, v, rm)),
-            "bwd_q": (ea.cold_attention_bwd_q, ea.cold_attention_bwd_q_ref,
+            "rowmax": (ea.cold_attention_rowmax_ref, t[:3] + (q, k)),
+            "terms": (ea.cold_attention_terms_ref, t + (q, k, v, rm)),
+            "bwd_q": (ea.cold_attention_bwd_q_ref,
                       t + (q, k, v, rm, gd, gn)),
-            "bwd_kv": (ea.cold_attention_bwd_kv,
-                       ea.cold_attention_bwd_kv_ref,
+            "bwd_kv": (ea.cold_attention_bwd_kv_ref,
                        t + (q, k, v, rm, gd, gn)),
         }
         for mode in MODES:
-            kern, plain, xs = args[mode]
+            plain, xs = args[mode]
             want = plain(*xs, **kw)
             out.append((f"{mode} layer{l}",
-                        lambda kern=kern, xs=xs, kw=kw: kern(*xs, **kw),
+                        lambda mode=mode, xs=xs, kw=kw: _entry(mode, *xs,
+                                                               **kw),
                         want if isinstance(want, tuple) else (want,)))
     return out
 
