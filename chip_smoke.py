@@ -31,7 +31,12 @@ Phases (any failure exits non-zero without the final result line):
    kernels on its live entries (the mask pass, rowmax, terms, bwd_row,
    bwd_col of ``hot_attention.cu``) on the same batch's resident layers
    at those widths, the mask and row max exact, each timed beside its
-   plain version (the dense grid) and bound.
+   plain version (the dense grid) and bound; the dot-product hot modes
+   of gat (dot_rowmax, dot_terms, dot_bwd_row, dot_bwd_col) on the same
+   layers at gat's width (one head of 512), each timed beside its plain
+   version and bound, and each layer's live route (mask pass, row max,
+   terms, backward) beside the grid route it replaced, with their times
+   and the memory each allocates.
    The stream SpMM (K2) runs at the three layers of one blocked batch (50k nodes / degree 30, batch 512,
    samp_num 2048; widths 602 / 1024 / 1024) over ``block_*`` and over
    the transposed ``block_*_t``, and K2 in both orientations and the
@@ -125,7 +130,8 @@ Phases (any failure exits non-zero without the final result line):
    layer-0 rows from the own part, the other part and the host, and the
    median step (not a multi-GPU speed figure); (c) the same with
    ``--model gat`` and no test sweep: equal digests, finite losses, K3
-   and K4 launched phase 5's GAT counts a step (and a val pass);
+   and K4 launched phase 5's GAT counts a step (and a val pass), no hot
+   kernel (a part's shard keeps the dense hot grid);
 9. the entry points and the halo full-graph trainer: (a)
    ``gnn_tpu_torch.entry``: ``entry``'s forward on the card against the
    CPU's, then ``dryrun_multichip(4)``, four gloo ranks on ``cuda:0`` in
@@ -158,7 +164,8 @@ Phases (any failure exits non-zero without the final result line):
    run's, the val F1s within 1e-3, every graph recording the path's
    per-step kernel launches (phase 5's counts) for each of its steps,
    exactly and no other (K1 3 forward and 2 transposed; K3, K4 terms,
-   bwd_q and bwd_kv 3 each; none on the hot and coo formats), the
+   bwd_q and bwd_kv 3 each and, on GAT's, the hot part's mask pass and
+   four dot modes 3 each; none on the hot and coo formats), the
    replays covering every step, at most one capture in the second
    epoch, every capture logged. The kernels' launches in the replays
    are each graph's recorded launches times its replays, since a
@@ -248,6 +255,16 @@ KERNELS = [
      "gnn_tpu_torch/csrc/hot_attention.cu", None),
     ("hot_attention.terms.bwd_col", ("hotattn", "bwd_col"),
      "gnn_tpu_torch/csrc/hot_attention.cu", None),
+    # gat's hot part on its live entries: the dense grid it replaces was
+    # XLA's matmuls, no TPU kernel
+    ("hot_attention.dot_rowmax", ("hotattn", "dot_rowmax"),
+     "gnn_tpu_torch/csrc/hot_attention.cu", None),
+    ("hot_attention.dot_terms", ("hotattn", "dot_terms"),
+     "gnn_tpu_torch/csrc/hot_attention.cu", None),
+    ("hot_attention.dot_terms.bwd_row", ("hotattn", "dot_bwd_row"),
+     "gnn_tpu_torch/csrc/hot_attention.cu", None),
+    ("hot_attention.dot_terms.bwd_col", ("hotattn", "dot_bwd_col"),
+     "gnn_tpu_torch/csrc/hot_attention.cu", None),
 ]
 ATTN_KEYS = ["rowmax", "terms", "bwd_q", "bwd_kv"]
 # the additive score source's kernels (gatv1), timed at gatv1's widths:
@@ -256,6 +273,13 @@ ADD_KEYS = ["add_rowmax", "add_terms", "add_bwd_q", "add_bwd_kv"]
 GATV1_LAYERS = [(4, 256), (4, 256), (6, 41)]
 # the hot part's kernels on its live entries (gatv1), at the same widths
 HOT_KEYS = ["mask", "rowmax", "terms", "bwd_row", "bwd_col"]
+# gat's hot part on its live entries (the mask pass above and the dot
+# modes), at gat's width (one head of nhid)
+DOT_KEYS = ["dot_rowmax", "dot_terms", "dot_bwd_row", "dot_bwd_col"]
+# per-step launches of the hot part on its live entries: the mask pass
+# and the dot modes once a layer (gat's three)
+GAT_HOT_PER_STEP = {name: 3 for name, (mod, key), _, _ in KERNELS
+                    if mod == "hotattn" and key in ["mask"] + DOT_KEYS}
 # the blocked main path: the JAX package's records' smaller configuration
 # for this format (50k nodes, samp_num 2048)
 BLOCKED_ARGS = ["--adj_format", "blocked", "--dataset",
@@ -1014,7 +1038,8 @@ MAIN_PATHS = [
      {"edge_stream_spmm.forward": 3, "edge_stream_spmm.transpose": 2}),
     ("gat", ["--model", "gat", "--test"],
      {"cold_attention_rowmax": 3, "cold_attention_terms": 3,
-      "cold_attention_terms.bwd_q": 3, "cold_attention_terms.bwd_kv": 3}),
+      "cold_attention_terms.bwd_q": 3, "cold_attention_terms.bwd_kv": 3,
+      **GAT_HOT_PER_STEP}),
     ("blocked", BLOCKED_ARGS, {"stream_spmm.forward": 5}),
     ("gat pattern", ["--model", "gat", "--adj_format", "pattern", "--test"],
      {"stream_sddmm": 2, "stream_spmm.forward": 2,
@@ -1864,7 +1889,10 @@ def run_grid_gat(save_dir, main_recs):
         fail(f"grid gat: non-finite or missing losses: {losses}")
     total = dict.fromkeys((k[0] for k in KERNELS), 0)
     keys = {f"{mod}.{key}": name for name, (mod, key), _, _ in KERNELS}
-    per = MAIN_PATHS[1][2]
+    # K3/K4 as on one part; a part's shard keeps the dense hot grid, so no
+    # hot kernel launches
+    per = {n: c for n, c in MAIN_PATHS[1][2].items()
+           if n.startswith("cold_attention")}
     for rec in ranks:
         rs = sum(len(e["step_losses"]) for e in rec["epochs"])
         vals = len(rec["epochs"])
@@ -1880,6 +1908,10 @@ def run_grid_gat(save_dir, main_recs):
         if any(got.get(n, 0) != v for n, v in want.items()):
             fail(f"grid gat rank {rec['rank']}: K3/K4 launches do not add "
                  f"up")
+        hot = {n: v for n, v in got.items() if n.startswith("hot_") and v}
+        if hot:
+            fail(f"grid gat rank {rec['rank']}: a part's shard launched hot "
+                 f"kernels {hot}")
     return total
 
 
@@ -2152,7 +2184,8 @@ GROUP_PAIRS = [
 # once a layer
 GATV1_ARGS = ["--model", "gatv1", "--nhid", "1024"]
 GATV1_PER_STEP = {name: 3 for name, (mod, key), _, _ in KERNELS
-                  if key in ADD_KEYS or mod == "hotattn"}
+                  if key in ADD_KEYS or (mod == "hotattn"
+                                         and key in HOT_KEYS)}
 # a grouped run's peak memory above this is flagged in the log (GAT's
 # eager peak is 3.15 GB, PERF.md section 5)
 GROUP_PEAK_FLAG = 4e9
@@ -2492,6 +2525,164 @@ def check_hot_attention(adjs, device):
     return totals
 
 
+def check_dot_attention(adjs, device, nhid):
+    """gat's hot part on its live entries (`gnn_tpu_torch.ops.hotattn`:
+    the dot modes dot_rowmax, dot_terms, dot_bwd_row, dot_bwd_col) against
+    their plain versions on the default batch's resident layers at gat's
+    width (one head of ``nhid``), random q, k, v; each timed by CUDA
+    events beside its plain version and its bound (each input read once,
+    each output written once; float32 operations per live entry over the
+    float32 rate); then each layer's live route (mask pass, row max,
+    terms, backward) beside the grid route it replaced (the plain
+    versions under autograd: the dense route's operations). Returns
+    totals by key as :func:`check_attention`'s."""
+    import torch
+
+    from gnn_tpu_torch.ops import hotattn as ha
+    from gnn_tpu_torch.ops.hotdense import _take_rows_fill
+    gen = torch.Generator(device=device).manual_seed(5)
+    totals = {key: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+                        max_rel_err=0.0, bytes=0.0, flops=0.0)
+              for key in DOT_KEYS}
+    H, d = 1, nhid
+    n, scale = H * d, 1.0 / d ** 0.5
+    for l, adj in enumerate(adjs):
+        R, C = adj.nrows, adj.ncols
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=device)
+        q, k, v = rnd(R, n), rnd(C, n), rnd(C, n)
+        r_loc = adj.rowpos.index_select(0, adj.present_row_slots.long())
+        c_loc = adj.colpos.index_select(0, adj.present_col_slots.long())
+        grid = ha.dot_live_grid(adj, r_loc, c_loc, q, k, v, H, scale)
+        bits, bits_t, orders = grid.bits, grid.bits_t, grid.orders
+        qh, kh, vh = grid.qh, grid.kh, grid.vh
+        rh, ch = qh.shape[0], kh.shape[0]
+        m_ref = ha.dot_rowmax_ref(bits, qh, kh, H, scale)
+        rm = torch.where(torch.isfinite(m_ref), m_ref,
+                         torch.zeros_like(m_ref))
+        gd, gn = rnd(rh, H), rnd(rh, n)
+        live = int(ha.unpack_bits(bits, ch).sum())
+        a = (qh, kh, vh, rm)
+        fns = {
+            "dot_rowmax": (lambda: ha.dot_rowmax(bits, qh, kh, H, scale,
+                                                 order=orders[0]),
+                           lambda: ha.dot_rowmax_ref(bits, qh, kh, H,
+                                                     scale)),
+            "dot_terms": (lambda: ha.dot_terms(bits, bits_t, *a, H, scale,
+                                               orders),
+                          lambda: ha.dot_terms_ref(bits, *a, H, scale)),
+            "dot_bwd_row": (lambda: ha.dot_bwd_row(bits, *a, gd, gn, H,
+                                                   scale, orders[0]),
+                            lambda: ha.dot_bwd_row_ref(bits, *a, gd, gn, H,
+                                                       scale)),
+            "dot_bwd_col": (lambda: ha.dot_bwd_col(bits_t, *a, gd, gn, H,
+                                                   scale, orders[1]),
+                            lambda: ha.dot_bwd_col_ref(bits_t, *a, gd, gn, H,
+                                                       scale)),
+        }
+        words = 4 * (rh * -(-ch // 32) + ch * -(-rh // 32))
+        # bytes each call must move (inputs once, outputs once), and its
+        # float32 operations; the rows a live entry gathers (from L2) are
+        # logged beside them
+        io = {"dot_rowmax": (words / 2 + 4 * (rh * n + ch * n + rh * H),
+                             2 * live * n),
+              "dot_terms": (words / 2 + 4 * (2 * rh * n + 2 * ch * n
+                                             + 2 * rh * H), 4 * live * n),
+              "dot_bwd_row": (words / 2 + 4 * (3 * rh * n + 2 * ch * n
+                                               + 2 * rh * H), 6 * live * n),
+              "dot_bwd_col": (words / 2 + 4 * (2 * rh * n + 4 * ch * n
+                                               + 2 * rh * H), 8 * live * n)}
+        gathers = {"dot_rowmax": 1, "dot_terms": 2, "dot_bwd_row": 2,
+                   "dot_bwd_col": 2}
+        for key in DOT_KEYS:
+            kern, plain = fns[key]
+            with torch.no_grad():
+                got, want = kern(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            if key == "dot_rowmax":
+                fin = torch.isfinite(want[0])
+                if not torch.equal(fin, torch.isfinite(got[0])):
+                    fail(f"dot rowmax layer{l}: rows without a live entry "
+                         f"differ")
+                got, want = (got[0][fin],), (want[0][fin],)
+            errs = [_max_err(y, ref, f"layer{l}", f"dot {key}")
+                    for y, ref in zip(got, want)]
+            err = max(x for x, _ in errs)
+            rel = max(x for _, x in errs)
+            t_bytes = io[key][0] / MEM_BYTES_PER_S * 1e3
+            t_flops = io[key][1] / F32_FLOPS_PER_S * 1e3
+            with torch.no_grad():
+                ms = time_ms(kern)
+                plain_ms = time_ms(plain, reps=2, rounds=3)
+            tot = totals[key]
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["max_rel_err"] = max(tot["max_rel_err"], rel)
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bound_ms"] += max(t_bytes, t_flops)
+            tot["bytes"] += t_bytes
+            tot["flops"] += t_flops
+            gb = gathers[key] * 4 * n * live / 1e9
+            log(f"dot {key:11s} layer{l} rh={rh} ch={ch} n_out={n} H={H} "
+                f"live={live} ({live / max(rh * ch, 1):.4f} of the grid) "
+                f"max_abs_err={err:.3e} max_rel_err={rel:.3e} ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} "
+                f"bound_ms={max(t_bytes, t_flops):.4f} "
+                f"({'bytes' if t_bytes >= t_flops else 'operations'}) "
+                f"gathered={gb:.3f} GB ({gb / ms:.2f} TB/s)")
+            del got, want
+
+        def route(live_route):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            if live_route:
+                g2 = ha.dot_live_grid(adj, r_loc, c_loc, *leaves, H, scale)
+                g2.rowmax(count_live=False)
+                den, num = g2.terms(rm)
+            else:
+                # the dense route as the one-part DenseGrid ran it: the
+                # block's present sub-grid as the mask, one score product
+                # for the row max and the terms
+                sentinel = 1 << 30
+                row_ok = torch.arange(rh, device=device) < (
+                    adj.row_cmp_idx != sentinel).sum()
+                col_ok = torch.arange(ch, device=device) < (
+                    adj.col_cmp_idx != sentinel).sum()
+                mask = ((adj.dense.index_select(
+                    0, adj.present_row_slots.long()).index_select(
+                    1, adj.present_col_slots.long()) != 0)
+                    & row_ok[:, None] & col_ok[None, :])
+                qg, kg, vg = (_take_rows_fill(t, loc).reshape(-1, H, d)
+                              .transpose(0, 1) for t, loc in
+                              zip(leaves, (r_loc, c_loc, c_loc)))
+                sc = torch.where(mask[None], torch.matmul(
+                    qg, kg.transpose(1, 2)) * scale,
+                    torch.full((), float("-inf"), device=device))
+                sc.detach().amax(dim=2)
+                e = torch.exp(sc - rm.t()[:, :, None])
+                den, num = e.sum(dim=2), torch.matmul(e, vg)
+            ((den * gd.t()).sum() + (num * gn.reshape(
+                rh, H, d).transpose(0, 1)).sum()).backward()
+
+        routes = {}
+        for name, live_route in (("live", True), ("grid", False)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            routes[name] = (time_ms(lambda: route(live_route), reps=3,
+                                    rounds=3),
+                            torch.cuda.max_memory_allocated() - base)
+        log(f"dot route layer{l} rh={rh} ch={ch}: live (mask, row max, "
+            f"terms, backward) {routes['live'][0]:.4f} ms, "
+            f"{routes['live'][1]} B above the operands; grid route "
+            f"{routes['grid'][0]:.4f} ms, {routes['grid'][1]} B")
+        del grid, fns
+        torch.cuda.empty_cache()
+    return totals
+
+
 def run_gatv1(save_dir):
     """Phase 10's last run: ``--model gatv1 --nhid 1024`` on the default
     dataset at G = GROUP for GROUP_EPOCHS epochs. Fails unless every step
@@ -2561,6 +2752,7 @@ def main() -> int:
         attn = check_attention(adjs, device, nhid)
         additive = check_additive_attention(adjs, device)
         hot = check_hot_attention(adjs, device)
+        hot.update(check_dot_attention(adjs, device, nhid))
         del adjs
         blocked, bwidths = blocked_batch(device)
         tiles = check_tile_kernels(blocked, bwidths, pattern, device, nhid)

@@ -84,13 +84,13 @@ __device__ __forceinline__ float lrelu(float u, float slope) {
 
 // A lane's slice of one head's features of row `row` (VEC: 16 B vectors
 // 4 * (g + L t); else scalars g + L t); zeros past d and on idle lanes.
-template <bool VEC>
+template <bool VEC, int F = MAXF>
 __device__ __forceinline__ void load_slice(const float* __restrict__ row,
                                            int g, int L, int d, int nv,
-                                           bool act, float (&x)[MAXF]) {
+                                           bool act, float (&x)[F]) {
   if (VEC) {
 #pragma unroll
-    for (int t = 0; t < MAXF / 4; ++t) {
+    for (int t = 0; t < F / 4; ++t) {
       const int p = 4 * (g + L * t);
       float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
       if (act && t < nv && p < d)
@@ -102,21 +102,21 @@ __device__ __forceinline__ void load_slice(const float* __restrict__ row,
     }
   } else {
 #pragma unroll
-    for (int t = 0; t < MAXF; ++t) {
+    for (int t = 0; t < F; ++t) {
       const int p = g + L * t;
       x[t] = (act && t < nv && p < d) ? __ldg(row + p) : 0.f;
     }
   }
 }
 
-template <bool VEC>
+template <bool VEC, int F = MAXF>
 __device__ __forceinline__ void store_slice(float* __restrict__ row, int g,
                                             int L, int d, int nv, bool act,
-                                            const float (&x)[MAXF]) {
+                                            const float (&x)[F]) {
   if (!act) return;
   if (VEC) {
 #pragma unroll
-    for (int t = 0; t < MAXF / 4; ++t) {
+    for (int t = 0; t < F / 4; ++t) {
       const int p = 4 * (g + L * t);
       if (t < nv && p < d)
         *reinterpret_cast<float4*>(row + p) =
@@ -124,7 +124,7 @@ __device__ __forceinline__ void store_slice(float* __restrict__ row, int g,
     }
   } else {
 #pragma unroll
-    for (int t = 0; t < MAXF; ++t) {
+    for (int t = 0; t < F; ++t) {
       const int p = g + L * t;
       if (t < nv && p < d) row[p] = x[t];
     }
@@ -135,6 +135,44 @@ __device__ __forceinline__ void store_slice(float* __restrict__ row, int g,
 __device__ __forceinline__ float head_sum(float x, int L) {
   for (int o = L >> 1; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
   return x;
+}
+
+// One warp's share of an output row's live entries: of the row's
+// `n_words` words, warp `warp` of NW walks its slice in order (a word
+// shuffled to the whole warp, then its set bits) and hands `row` the
+// entries (their index on the other side, below `n_other`) two at a
+// time, an odd one left over alone.
+template <int NW, typename RowT>
+__device__ __forceinline__ void walk_live(const uint32_t* words, int n_words,
+                                          int n_other, int warp, int lane,
+                                          RowT& row) {
+  const int per = (n_words + NW - 1) / NW;
+  const int w0 = warp * per;
+  const int w1 = min(n_words, w0 + per);
+  int pend = -1;    // an entry waiting for its pair (warp-uniform)
+  for (int base = w0; base < w1; base += 32) {
+    const uint32_t mine = base + lane < w1 ? words[base + lane] : 0u;
+    if (!__any_sync(FULL, mine)) continue;
+    for (int src = 0; src < 32; ++src) {
+      uint32_t m = __shfl_sync(FULL, mine, src);
+      while (m) {
+        const int idx = (base + src) * 32 + __ffs(m) - 1;
+        m &= m - 1;
+        if (idx >= n_other) break;
+        if (pend < 0) {
+          pend = idx;
+        } else {
+          const int two[2] = {pend, idx};
+          row.template take<2>(two);
+          pend = -1;
+        }
+      }
+    }
+  }
+  if (pend >= 0) {
+    const int one[1] = {pend};
+    row.template take<1>(one);
+  }
 }
 
 struct Args {
@@ -292,37 +330,8 @@ hot_additive_kernel(const Args a) {
   const int o = a.order != nullptr ? a.order[blockIdx.x] : blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   Row<MODE, VEC> row(a, o, lane);
-
-  // this warp's share of the row's words, walked in order: a word
-  // shuffled to the whole warp, then its set bits
-  const int per = (a.n_words + NW - 1) / NW;
-  const int w0 = warp * per;
-  const int w1 = min(a.n_words, w0 + per);
-  const uint32_t* words = a.bits + (size_t)o * a.n_words;
-  int pend = -1;    // an entry waiting for its pair (warp-uniform)
-  for (int base = w0; base < w1; base += 32) {
-    const uint32_t mine = base + lane < w1 ? words[base + lane] : 0u;
-    if (!__any_sync(FULL, mine)) continue;
-    for (int src = 0; src < 32; ++src) {
-      uint32_t m = __shfl_sync(FULL, mine, src);
-      while (m) {
-        const int idx = (base + src) * 32 + __ffs(m) - 1;
-        m &= m - 1;
-        if (idx >= a.n_other) break;
-        if (pend < 0) {
-          pend = idx;
-        } else {
-          const int two[2] = {pend, idx};
-          row.template take<2>(two);
-          pend = -1;
-        }
-      }
-    }
-  }
-  if (pend >= 0) {
-    const int one[1] = {pend};
-    row.template take<1>(one);
-  }
+  walk_live<NW>(a.bits + (size_t)o * a.n_words, a.n_words, a.n_other, warp,
+                lane, row);
 
   // the warps' sums, added in warp order (ROWMAX: max and count)
   for (int w = 0; w < NW; ++w) {
@@ -362,6 +371,229 @@ hot_additive_kernel(const Args a) {
     for (int t = 0; t < MAXF; ++t) out[t] = red[t][lane];
     store_slice<VEC>(a.y_f + (size_t)o * n + h * a.d, g, a.L, a.d, a.nv,
                      row.act, out);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The dot-product source (gat: per head s = q_r·k_c / sqrt(d)) on the same
+// live set. Replaces no TPU kernel: in gnn_tpu its hot part is a dense
+// [H, rh, ch] float32 grid that XLA computes outside any Pallas kernel
+// (two matmuls forward, four backward, the mask, exp and row sums); at
+// gat-reddit's sizes about 3% of that grid holds an edge. These kernels
+// keep no grid either. Per live entry (r, c) and head h, with q [rh, H d]
+// and gn [rh, H d] of the present rows, k, v [ch, H d] of the present
+// columns, rm [rh, H] the combined (hot, cold) row max, `scale` 1/sqrt(d):
+//   s  = scale * q[r,h,:]·k[c,h,:]        e = exp(s - rm[r,h])
+//   t  = gd[r,h] + gn[r,h,:]·v[c,h,:]     ds = (e > 0) ? e*t : 0
+//   dot_rowmax:  m[r,h]    = max s                 (-inf: no entry)
+//   dot_terms:   den[r,h]  = sum e,   num[r,h,:] = sum e*v[c,h,:]
+//   dot_bwd_row: dq[r,h,:] = scale * sum ds*k[c,h,:]
+//   dot_bwd_col: dk[c,h,:] = scale * sum ds*q[r,h,:],
+//                dv[c,h,:] = sum e*gn[r,h,:]       (0 where e == 0)
+//
+// The arithmetic differs from the additive kind's: a d-deep product an
+// entry (d = 512 at gat-reddit) where that has a scalar sum, so the score
+// is a head_sum over the head's lanes and every pass gathers whole rows.
+// They share the mask pass, the row walk (walk_live) and the block order.
+//
+// Bound on this card: the gather, 2 KB a row at width 512, from L2 (k and
+// v of the present columns, about 25 MB at gat-reddit's layer 0). Rows
+// gathered a live entry: k (rowmax), k and v (terms: the score is
+// recomputed, no per-entry array is kept), k and v (bwd_row), q and gn
+// (bwd_col): 7, 14 KB an entry, against about 9 flops a gathered float.
+//
+// Design: as the additive kernels' (one block an output row, its words
+// split among the warps, entries in pairs, heaviest rows first, the warps'
+// sums added in warp order, no float atomics), with each lane holding F
+// floats of its head's slice of every row (F a template parameter: 16 at
+// one head of 512, so the bwd_col pass's six slices stay in registers).
+enum DotMode { DOT_ROWMAX = 0, DOT_TERMS = 1, DOT_BWD_ROW = 2, DOT_BWD_COL = 3 };
+
+struct DotArgs {
+  const uint32_t* bits;   // the output side's words [n_out_rows, n_words]
+  int n_words, n_other;   // words a row; entries on the other side
+  const float* q;         // [rh, H d]
+  const float* k;         // [ch, H d]
+  const float* v;         // [ch, H d]
+  const float* rm;        // [rh, H]
+  const float* gd;        // [rh, H]
+  const float* gn;        // [rh, H d]
+  const int* order;       // the output rows, heaviest first (or null)
+  float* y_h;             // per-head output [rh, H]: m or den
+  float* y_f;             // width output [out rows, H d]: num, dq or dk
+  float* y_g;             // dv [ch, H d] (dot_bwd_col)
+  unsigned long long* counter;  // dot_rowmax: += H * live entries (or null)
+  int H, d, L, nv;
+  float scale;
+};
+
+// One lane's state over one output row o (a present row; a present
+// column for DOT_BWD_COL): its own slices, its sums and the per-entry work.
+template <int MODE, bool VEC, int F>
+struct DotRow {
+  const DotArgs& a;
+  int h, g;
+  bool act;
+  float rm_o = 0.f, gd_o = 0.f;
+  float own[F];    // q[o] (k[o]: DOT_BWD_COL)
+  float own2[F];   // gn[o] (DOT_BWD_ROW), v[o] (DOT_BWD_COL)
+  float acc[F];    // num, dq or dk (unscaled)
+  float acc2[F];   // dv
+  float sc;        // max s (DOT_ROWMAX) or den
+  int cnt = 0;     // live entries (DOT_ROWMAX)
+
+  __device__ DotRow(const DotArgs& a_, int o, int lane) : a(a_) {
+    h = lane / a.L;
+    g = lane % a.L;
+    act = h < a.H;
+    const int H = a.H;
+    const size_t off = (size_t)o * H * a.d + (size_t)h * a.d;
+    if (act && (MODE == DOT_TERMS || MODE == DOT_BWD_ROW))
+      rm_o = a.rm[o * H + h];
+    if (act && MODE == DOT_BWD_ROW) gd_o = a.gd[o * H + h];
+    load_slice<VEC, F>((MODE == DOT_BWD_COL ? a.k : a.q) + off, g, a.L, a.d,
+                       a.nv, act, own);
+    if (MODE == DOT_BWD_ROW)
+      load_slice<VEC, F>(a.gn + off, g, a.L, a.d, a.nv, act, own2);
+    else if (MODE == DOT_BWD_COL)
+      load_slice<VEC, F>(a.v + off, g, a.L, a.d, a.nv, act, own2);
+#pragma unroll
+    for (int t = 0; t < F; ++t) acc[t] = acc2[t] = 0.f;
+    sc = MODE == DOT_ROWMAX ? -INFINITY : 0.f;
+  }
+
+  template <int NB>
+  __device__ __forceinline__ void take(const int (&idx)[NB]) {
+    const int H = a.H, d = a.d, L = a.L, nv = a.nv;
+    const size_t n = (size_t)H * d;
+    // the other side's slices of each entry (and its scalars for
+    // DOT_BWD_COL), all loads issued before any is used
+    float x[NB][F], y[NB][F];
+    float r_m[NB], r_d[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const size_t off = (size_t)idx[b] * n + (size_t)h * d;
+      r_m[b] = r_d[b] = 0.f;
+      if (MODE == DOT_BWD_COL) {
+        if (act) {
+          r_m[b] = __ldg(a.rm + idx[b] * H + h);
+          r_d[b] = __ldg(a.gd + idx[b] * H + h);
+        }
+        load_slice<VEC, F>(a.q + off, g, L, d, nv, act, x[b]);
+        load_slice<VEC, F>(a.gn + off, g, L, d, nv, act, y[b]);
+      } else {
+        load_slice<VEC, F>(a.k + off, g, L, d, nv, act, x[b]);
+        if (MODE != DOT_ROWMAX)
+          load_slice<VEC, F>(a.v + off, g, L, d, nv, act, y[b]);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      float p = 0.f;
+#pragma unroll
+      for (int t = 0; t < F; ++t) p = fmaf(own[t], x[b][t], p);
+      const float s = head_sum(p, L) * a.scale;
+      if (MODE == DOT_ROWMAX) {
+        ++cnt;
+        sc = fmaxf(sc, s);
+        continue;
+      }
+      const float e = expf(s - (MODE == DOT_BWD_COL ? r_m[b] : rm_o));
+      if (MODE == DOT_TERMS) {
+        sc += e;
+#pragma unroll
+        for (int t = 0; t < F; ++t) acc[t] = fmaf(e, y[b][t], acc[t]);
+        continue;
+      }
+      float p2 = 0.f;
+#pragma unroll
+      for (int t = 0; t < F; ++t) p2 = fmaf(own2[t], y[b][t], p2);
+      const float tt = (MODE == DOT_BWD_COL ? r_d[b] : gd_o) + head_sum(p2, L);
+      const float ds = e > 0.f ? e * tt : 0.f;
+#pragma unroll
+      for (int t = 0; t < F; ++t) acc[t] = fmaf(ds, x[b][t], acc[t]);
+      if (MODE == DOT_BWD_COL && e > 0.f) {
+#pragma unroll
+        for (int t = 0; t < F; ++t) acc2[t] = fmaf(e, y[b][t], acc2[t]);
+      }
+    }
+  }
+};
+
+// warps a block, by mode (as the additive kernels')
+constexpr int DOT_WARPS_ROWMAX = 8;
+constexpr int DOT_WARPS_TERMS = 8;
+constexpr int DOT_WARPS_BWD_ROW = 8;
+constexpr int DOT_WARPS_BWD_COL = 4;
+
+template <int MODE>
+__host__ __device__ constexpr int dot_warps_of() {
+  return MODE == DOT_TERMS ? DOT_WARPS_TERMS
+         : MODE == DOT_BWD_ROW ? DOT_WARPS_BWD_ROW
+         : MODE == DOT_BWD_COL ? DOT_WARPS_BWD_COL : DOT_WARPS_ROWMAX;
+}
+
+// One block per output row o, heaviest first (`order`).
+template <int MODE, bool VEC, int F>
+__global__ void __launch_bounds__(32 * dot_warps_of<MODE>())
+hot_dot_kernel(const DotArgs a) {
+  constexpr int NW = dot_warps_of<MODE>();
+  // width sums a lane carries out: num / dq / dk, and dv
+  constexpr int NF = MODE == DOT_ROWMAX ? 0 : MODE == DOT_BWD_COL ? 2 : 1;
+  __shared__ float red[2 * F + 2][32];
+  const int o = a.order != nullptr ? a.order[blockIdx.x] : blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  DotRow<MODE, VEC, F> row(a, o, lane);
+  walk_live<NW>(a.bits + (size_t)o * a.n_words, a.n_words, a.n_other, warp,
+                lane, row);
+
+  // the warps' sums, added in warp order (DOT_ROWMAX: max and count)
+  for (int w = 0; w < NW; ++w) {
+    if (warp == w) {
+      if (NF >= 1) {
+#pragma unroll
+        for (int t = 0; t < F; ++t)
+          red[t][lane] = w == 0 ? row.acc[t] : red[t][lane] + row.acc[t];
+      }
+      if (NF == 2) {
+#pragma unroll
+        for (int t = 0; t < F; ++t)
+          red[F + t][lane] =
+              w == 0 ? row.acc2[t] : red[F + t][lane] + row.acc2[t];
+      }
+      if (MODE == DOT_ROWMAX) {
+        red[2 * F][lane] = w == 0 ? row.sc : fmaxf(red[2 * F][lane], row.sc);
+        red[2 * F + 1][lane] = __int_as_float(
+            w == 0 ? row.cnt
+                   : __float_as_int(red[2 * F + 1][lane]) + row.cnt);
+      } else if (MODE == DOT_TERMS) {
+        red[2 * F][lane] = w == 0 ? row.sc : red[2 * F][lane] + row.sc;
+      }
+    }
+    __syncthreads();
+  }
+  if (warp != 0) return;
+  const int H = a.H;
+  const size_t off = (size_t)o * H * a.d + (size_t)row.h * a.d;
+  if (MODE == DOT_ROWMAX) {
+    const int total = __float_as_int(red[2 * F + 1][lane]);
+    if (row.act && row.g == 0)
+      a.y_h[o * H + row.h] = total > 0 ? red[2 * F][lane] : -INFINITY;
+    if (lane == 0 && a.counter != nullptr && total > 0)
+      atomicAdd(a.counter, (unsigned long long)total * H);
+    return;
+  }
+  if (MODE == DOT_TERMS && row.act && row.g == 0)
+    a.y_h[o * H + row.h] = red[2 * F][lane];
+  const float f = MODE == DOT_TERMS ? 1.f : a.scale;
+  float out[F];
+#pragma unroll
+  for (int t = 0; t < F; ++t) out[t] = f * red[t][lane];
+  store_slice<VEC, F>(a.y_f + off, row.g, a.L, a.d, a.nv, row.act, out);
+  if (NF == 2) {
+#pragma unroll
+    for (int t = 0; t < F; ++t) out[t] = red[F + t][lane];
+    store_slice<VEC, F>(a.y_g + off, row.g, a.L, a.d, a.nv, row.act, out);
   }
 }
 
@@ -471,6 +703,56 @@ int launch(Args a, int n_out_rows, int H, int d, cudaStream_t stream) {
           <<<n_out_rows, 32 * warps_of<MODE>(), 0, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// floats a lane holds of a head's width: the dot kernels' F, rounded up
+// to 4, 16 or 32 (0: wider than 32)
+int dot_floats(int floats) {
+  return floats <= 4 ? 4 : floats <= 16 ? 16 : floats <= 32 ? 32 : 0;
+}
+
+template <int MODE, bool VEC>
+void launch_dot_f(const DotArgs& a, int f, int blocks, cudaStream_t stream) {
+  const int threads = 32 * dot_warps_of<MODE>();
+  if (f == 4)
+    hot_dot_kernel<MODE, VEC, 4><<<blocks, threads, 0, stream>>>(a);
+  else if (f == 16)
+    hot_dot_kernel<MODE, VEC, 16><<<blocks, threads, 0, stream>>>(a);
+  else
+    hot_dot_kernel<MODE, VEC, 32><<<blocks, threads, 0, stream>>>(a);
+}
+
+template <int MODE>
+int launch_dot(DotArgs a, int n_out_rows, cudaStream_t stream) {
+  a.L = lanes_per_head(a.H);
+  const bool vec = a.d % 4 == 0;
+  a.nv = vec ? (a.d + 4 * a.L - 1) / (4 * a.L) : (a.d + a.L - 1) / a.L;
+  const int f = dot_floats(vec ? 4 * a.nv : a.nv);
+  if (a.H < 1 || a.H > 32 || a.d < 1 || f == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_out_rows > 0) {
+    if (vec)
+      launch_dot_f<MODE, true>(a, f, n_out_rows, stream);
+    else
+      launch_dot_f<MODE, false>(a, f, n_out_rows, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+DotArgs make_dot_args(const void* bits, const void* order, int n_words,
+                      int n_other, const void* q, const void* k, int H,
+                      int d, float scale) {
+  DotArgs a = {};
+  a.bits = static_cast<const uint32_t*>(bits);
+  a.order = static_cast<const int*>(order);
+  a.n_words = n_words;
+  a.n_other = n_other;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.H = H;
+  a.d = d;
+  a.scale = scale;
+  return a;
 }
 
 Args make_args(const void* bits, const void* order, int n_words,
@@ -592,4 +874,69 @@ extern "C" int hotattn_bwd_col(const void* bits_t, const void* order, int rh,
   a.y_h = static_cast<float*>(d_er);
   a.y_f = static_cast<float*>(dv);
   return launch<BWD_COL>(a, ch, H, d, static_cast<cudaStream_t>(stream));
+}
+
+// The dot-product source's modes (q [rh, H d], k, v [ch, H d], rm, gd [rh,
+// H], gn [rh, H d]; scale = 1 / sqrt(d)):
+// dot_rowmax: m [rh, H]; counter (int64 on the device, or null) += H *
+// live entries
+extern "C" int hotattn_dot_rowmax(const void* bits, const void* order,
+                                  int rh, int ch, const void* q,
+                                  const void* k, void* m, int H, int d,
+                                  float scale, void* counter, void* stream) {
+  DotArgs a = make_dot_args(bits, order, (ch + 31) / 32, ch, q, k, H, d,
+                            scale);
+  a.y_h = static_cast<float*>(m);
+  a.counter = static_cast<unsigned long long*>(counter);
+  return launch_dot<DOT_ROWMAX>(a, rh, static_cast<cudaStream_t>(stream));
+}
+
+// dot_terms: den [rh, H], num [rh, H d]
+extern "C" int hotattn_dot_terms(const void* bits, const void* order, int rh,
+                                 int ch, const void* q, const void* k,
+                                 const void* v, const void* rm, void* den,
+                                 void* num, int H, int d, float scale,
+                                 void* stream) {
+  DotArgs a = make_dot_args(bits, order, (ch + 31) / 32, ch, q, k, H, d,
+                            scale);
+  a.v = static_cast<const float*>(v);
+  a.rm = static_cast<const float*>(rm);
+  a.y_h = static_cast<float*>(den);
+  a.y_f = static_cast<float*>(num);
+  return launch_dot<DOT_TERMS>(a, rh, static_cast<cudaStream_t>(stream));
+}
+
+// dot_bwd_row: dq [rh, H d]
+extern "C" int hotattn_dot_bwd_row(const void* bits, const void* order,
+                                   int rh, int ch, const void* q,
+                                   const void* k, const void* v,
+                                   const void* rm, const void* gd,
+                                   const void* gn, void* dq, int H, int d,
+                                   float scale, void* stream) {
+  DotArgs a = make_dot_args(bits, order, (ch + 31) / 32, ch, q, k, H, d,
+                            scale);
+  a.v = static_cast<const float*>(v);
+  a.rm = static_cast<const float*>(rm);
+  a.gd = static_cast<const float*>(gd);
+  a.gn = static_cast<const float*>(gn);
+  a.y_f = static_cast<float*>(dq);
+  return launch_dot<DOT_BWD_ROW>(a, rh, static_cast<cudaStream_t>(stream));
+}
+
+// dot_bwd_col over bits_t (order: of the columns): dk, dv [ch, H d]
+extern "C" int hotattn_dot_bwd_col(const void* bits_t, const void* order,
+                                   int rh, int ch, const void* q,
+                                   const void* k, const void* v,
+                                   const void* rm, const void* gd,
+                                   const void* gn, void* dk, void* dv, int H,
+                                   int d, float scale, void* stream) {
+  DotArgs a = make_dot_args(bits_t, order, (rh + 31) / 32, rh, q, k, H, d,
+                            scale);
+  a.v = static_cast<const float*>(v);
+  a.rm = static_cast<const float*>(rm);
+  a.gd = static_cast<const float*>(gd);
+  a.gn = static_cast<const float*>(gn);
+  a.y_f = static_cast<float*>(dk);
+  a.y_g = static_cast<float*>(dv);
+  return launch_dot<DOT_BWD_COL>(a, ch, static_cast<cudaStream_t>(stream));
 }

@@ -11,11 +11,12 @@ Three device strategies:
   score source (:class:`DotScores` for ``gat``, :class:`AdditiveScores`
   for ``gatv1``). The source decides its hot part over the resident
   block's batch-present slots and hands it over as one object with a row
-  max and softmax terms: the dot product's dense scores, terms and
-  aggregation (:class:`DenseGrid`: ``torch.matmul``, as XLA computed them
-  outside any Pallas kernel), or the additive source's live entries alone
-  through the hot attention kernels (`gnn_tpu_torch.ops.hotattn`, one
-  part). The cold residual runs through the edge-stream attention
+  max and softmax terms: on one part, either source's live entries alone
+  through the hot attention kernels (`gnn_tpu_torch.ops.hotattn`: no
+  ``[H, rh, ch]`` tensor); on a part's shard of the block, the dot
+  product's dense scores, terms and aggregation (:class:`DenseGrid`:
+  ``torch.matmul``, as XLA computed them outside any Pallas kernel). The
+  cold residual runs through the edge-stream attention
   kernels K3/K4 (`gnn_tpu_torch.ops.esattn`, keyed by the source's
   operands) when the batch ships stream tiles, or the per-edge route on a
   cold COO, or nothing when the layer has no cold edge. One row-wise
@@ -36,10 +37,10 @@ Three device strategies:
 :class:`~gnn_tpu_torch.ops.sparse.BlockedAdj`.
 
 On the part-sharded resident graph (``adj.part_axis`` set,
-``--resident_parts P``; the dot-product source) each part holds a
-slot-column shard of the block and masks its hot scores to the columns
-it owns. The softmax terms then combine over the part group, as the JAX
-package's ``_psum_terms`` and ``pmax`` do:
+``--resident_parts P``; the dot-product source, its dense grid) each part
+holds a slot-column shard of the block and masks its hot scores to the
+columns it owns. The softmax terms then combine over the part group, as
+the JAX package's ``_psum_terms`` and ``pmax`` do:
 
 * the row max is a MAX over the part group of a score pass run without
   gradient (``part_max_``): it is only a shift, so no gradient flows
@@ -320,12 +321,13 @@ class _PartSumTerms(torch.autograd.Function):
 
 
 class DenseGrid:
-    """The dot product's hot part: per head the dense ``[rh, ch]`` scores
-    of a layer's batch-present slots, masked to the block's edges between
-    true present slots. On one part, one differentiable score pass serves
-    the row max (detached: a softmax shift) and the terms; on a part's
-    shard of the block both combine over the part group (module
-    docstring)."""
+    """The dot product's hot part on a part's shard of the block
+    (``--resident_parts``): per head the dense ``[rh, ch]`` scores of a
+    layer's batch-present slots, masked to the block's edges between true
+    present slots in this part's slot columns; the row max and the terms
+    combine over the part group (module docstring). A layer of one part
+    takes its live entries instead (`gnn_tpu_torch.ops.hotattn.DotLiveGrid`);
+    the part-sharded live route is queued (ROADMAP.md: gat-parts-live)."""
 
     def __init__(self, adj: HotDenseAdj, r_loc, c_loc, score, v):
         dev = v.device
@@ -340,14 +342,11 @@ class DenseGrid:
         col_ok = torch.arange(ch, device=dev) < n_hot_c
         d_rows = adj.dense.index_select(0, adj.present_row_slots.long())
         self.part = adj.part_axis
-        if self.part is not None:
-            # this part's slot columns only
-            ksh = adj.dense.shape[1]
-            pcs_loc = adj.present_col_slots.long() - self.part.rank * ksh
-            col_ok = col_ok & (pcs_loc >= 0) & (pcs_loc < ksh)
-            d_sub = d_rows.index_select(1, pcs_loc.clamp(0, ksh - 1))
-        else:
-            d_sub = d_rows.index_select(1, adj.present_col_slots.long())
+        # this part's slot columns only
+        ksh = adj.dense.shape[1]
+        pcs_loc = adj.present_col_slots.long() - self.part.rank * ksh
+        col_ok = col_ok & (pcs_loc >= 0) & (pcs_loc < ksh)
+        d_sub = d_rows.index_select(1, pcs_loc.clamp(0, ksh - 1))
         self.mask = (d_sub != 0) & row_ok[:, None] & col_ok[None, :]
 
         def split(a):   # [n, n_out] -> [H, n, d]
@@ -364,51 +363,58 @@ class DenseGrid:
                            torch.full((), _NEG_INF, device=qh.device))
 
     def rowmax(self, count_live: bool) -> torch.Tensor:
-        """``m_hot [H, rh]`` (-inf: no edge), no gradient; the host counts
-        the grid (:class:`AttentionCounts`), not ``count_live``."""
-        if self.part is not None:
-            with torch.no_grad():
-                m_hot = self._scores(self.qh, self.kh).amax(2).contiguous()
-            part_max_(m_hot, self.part)
-            return m_hot
-        self.s = self._scores(self.qh, self.kh)
-        return self.s.detach().amax(dim=2)
+        """``m_hot [H, rh]`` (-inf: no edge) over the part group, no
+        gradient; the host counts the grid (:class:`AttentionCounts`), not
+        ``count_live``."""
+        with torch.no_grad():
+            m_hot = self._scores(self.qh, self.kh).amax(2).contiguous()
+        part_max_(m_hot, self.part)
+        return m_hot
 
     def terms(self, rm_cmp: torch.Tensor):
         """``(den_hot [H, rh], num_hot [H, rh, d])`` for the combined row
-        max of the present rows ``rm_cmp [rh, H]``."""
-        def hot_terms(s, vh):
-            # s is -inf wherever masked BEFORE the exp: a masked entry's
-            # raw s - rm could overflow, and its exp gradient would be
-            # 0 * inf
-            e = torch.exp(s - rm_cmp.t()[:, :, None])
+        max of the present rows ``rm_cmp [rh, H]``, summed over the part
+        group."""
+        def hot_terms(qh, kh, vh):
+            # the scores are -inf wherever masked BEFORE the exp: a masked
+            # entry's raw s - rm could overflow, and its exp gradient would
+            # be 0 * inf
+            e = torch.exp(self._scores(qh, kh) - rm_cmp.t()[:, :, None])
             return e.sum(dim=2), torch.matmul(e, vh)
 
-        if self.part is not None:
-            return _PartSumTerms.apply(
-                self.part, lambda qh, kh, vh: hot_terms(self._scores(qh, kh),
-                                                        vh),
-                self.qh, self.kh, self.vh)
-        return hot_terms(self.s, self.vh)
+        return _PartSumTerms.apply(self.part, hot_terms, self.qh, self.kh,
+                                   self.vh)
 
 
 class DotScores:
     """The dot-product score source of :func:`hot_attention`: per head
-    ``s = q_r·k_c / sqrt(d)`` (``gat``). Its hot part is the dense grid
+    ``s = q_r·k_c / sqrt(d)`` (``gat``). Its hot part runs on its live
+    entries on one part (`gnn_tpu_torch.ops.hotattn.DotLiveGrid`, counted
+    on the card) and as the dense grid on a part's shard of the block
     (:class:`DenseGrid`, whose entries the host counts); its cold residual
     runs K3/K4 with the scale folded into ``q``."""
 
     self_pos = None
     slope = None
-    # the hot part is the dense grid: attn.dense_entries counts it
-    dense_grid = True
+
+    @staticmethod
+    def dense_grid(sharded: bool) -> bool:
+        """Whether the hot part is the dense grid (attn.dense_entries
+        counts it): on a part's shard of the block only."""
+        return sharded
 
     def __init__(self, q_pad, k, n_heads: int):
         self.q_pad, self.k, self.H = q_pad, k, n_heads
         self.scale = _scale(k.shape[1] // n_heads)
 
-    def hot_part(self, adj, r_loc, c_loc, v) -> DenseGrid:
-        return DenseGrid(adj, r_loc, c_loc, self, v)
+    def hot_part(self, adj, r_loc, c_loc, v):
+        """The live entries alone on one part (a bit mask of the present
+        grid and the gathered operands; no ``[H, rh, ch]`` tensor); the
+        dense grid on a part's shard."""
+        if self.dense_grid(adj.part_axis is not None):
+            return DenseGrid(adj, r_loc, c_loc, self, v)
+        return hotattn.dot_live_grid(adj, r_loc, c_loc, self.q_pad, self.k,
+                                     v, self.H, self.scale)
 
     def edge_operands(self):
         return self.q_pad, self.k
@@ -431,8 +437,11 @@ class AdditiveScores:
     it, so it counts once. Its hot part runs on its live entries alone
     (`gnn_tpu_torch.ops.hotattn`, counted on the card), on one part."""
 
-    # the hot part is the live entries: the card counts them
-    dense_grid = False
+    @staticmethod
+    def dense_grid(sharded: bool) -> bool:
+        """Never: the hot part is the live entries, which the card
+        counts."""
+        return False
 
     def __init__(self, el_pad, er, self_pos, slope: float = 0.2):
         self.el, self.er, self.self_pos = el_pad, er, self_pos
@@ -468,7 +477,8 @@ class AdditiveScores:
 def hot_attention(adj: HotDenseAdj, score, v):
     """Hot-block attention on a resident layer: the batch's hot-hot edges
     over the batch-present compacted slots (the score source's hot part:
-    :class:`DenseGrid` or `gnn_tpu_torch.ops.hotattn.LiveGrid`), the cold
+    `gnn_tpu_torch.ops.hotattn.DotLiveGrid` or ``LiveGrid`` on one part,
+    :class:`DenseGrid` on a part's shard), the cold
     residual through K3/K4 (stream tiles, ``adj.es_rc`` set), the
     per-edge route (cold COO) or nothing (no cold edge), and, for a
     source with ``self_pos``, each row's self edge; one row-wise softmax
@@ -812,19 +822,23 @@ class AttentionCounts:
     training batch is staged (:meth:`staged`; a CUDA-graph replay runs no
     forward on the host): ``attn.dense_entries``, ``H * rh * ch`` of each
     resident layer whose score source's hot part is the dense grid (its
-    padded present rows and columns), and ``attn.cold_slots``, the packed
-    cold edge slots (stream tiles' coords, else the cold COO's). Where an
+    padded present rows and columns; the dot product's on a part's shard
+    of the block, ``sharded``), and ``attn.cold_slots``, the packed cold
+    edge slots (stream tiles' coords, else the cold COO's). Where an
     epoch already waits for the card (:meth:`epoch_end`):
     ``attn.hot_live_entries``, the live hot entries the card counted."""
 
-    def __init__(self, layers: list):
+    def __init__(self, layers: list, sharded: bool = False):
         self.layers = layers
+        self.sharded = sharded
 
     @classmethod
-    def of(cls, net) -> "AttentionCounts | None":
-        """The counters of ``net``; None for a model without attention."""
+    def of(cls, net, sharded: bool = False) -> "AttentionCounts | None":
+        """The counters of ``net`` (``sharded``: its resident layers are a
+        part's shard of the block); None for a model without
+        attention."""
         layers = _attention_layers(net)
-        return cls(layers) if layers else None
+        return cls(layers, sharded) if layers else None
 
     def staged(self, mb) -> None:
         """Count a host training batch (`MiniBatch`)."""
@@ -833,7 +847,7 @@ class AttentionCounts:
             rh = getattr(a, "rh_pad", 0)
             if layer is None or not rh:
                 continue
-            if layer.scores.dense_grid:
+            if layer.scores.dense_grid(self.sharded):
                 entries += layer.n_heads * rh * a.ch_pad
             cold = a.es_coords if a.es_coords is not None else a.cols
             slots += 0 if cold is None else cold.size

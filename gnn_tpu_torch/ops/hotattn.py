@@ -1,7 +1,10 @@
-"""Hot-block additive attention on its live entries: the hot part of
-`gnn_tpu_torch.models.gat.hot_attention` that the additive score source
-(GAT of arXiv:1710.10903, ``gatv1``; `gat.AdditiveScores.hot_part`)
-hands over on a resident layer of one part, as a :class:`LiveGrid`.
+"""Hot-block attention on its live entries: the hot part of
+`gnn_tpu_torch.models.gat.hot_attention` that a score source hands over
+on a resident layer of one part. The additive source (GAT of
+arXiv:1710.10903, ``gatv1``; `gat.AdditiveScores.hot_part`) hands over a
+:class:`LiveGrid`, the dot-product source (``gat``;
+`gat.DotScores.hot_part`) a :class:`DotLiveGrid`. The two share the live
+set (the mask pass) and nothing of their arithmetic.
 
 The hot part runs over a layer's batch-present compacted grid ``[rh,
 ch]`` (rows: present row slots, columns: present column slots). An
@@ -20,6 +23,17 @@ H]`` the combined row max, per live entry and head:
               e == 0)
     bwd_col:  d er[c]   = sum dx,  dv[c, h, :] = sum e * gnum[r, h, :]
 
+With ``q [rh, H d]`` of the rows, ``k``, ``v [ch, H d]`` of the columns
+and ``scale = 1 / sqrt(d)``, the dot-product modes per live entry and
+head (:func:`dot_rowmax`, :func:`dot_terms` and its backward):
+
+    s = scale * q[r, h, :]·k[c, h, :],  e = exp(s - rm[r, h])
+    dot_rowmax:  m[r, h] = max s
+    dot_terms:   den[r, h] = sum e,   num[r, h, :] = sum e * v[c, h, :]
+    dot_bwd_row: dq[r] = scale * sum ds * k[c],  ds = e * (gden[r, h] +
+                 gnum[r, h, :]·v[c, h, :])
+    dot_bwd_col: dk[c] = scale * sum ds * q[r],  dv[c] = sum e * gnum[r]
+
 The live set is a bit mask (:func:`live_masks`: int32 words ``[rh,
 ceil(ch / 32)]``, bit ``c % 32`` of word ``c // 32``, and its transpose
 ``[ch, ceil(rh / 32)]`` for the column side), built once a layer and
@@ -27,7 +41,10 @@ step; the backward keeps it instead of float32 grids. :func:`rowmax`
 (no gradient) and :func:`terms` (an ``autograd.Function`` whose
 backward is ``bwd_row`` and ``bwd_col``) launch the hand-written kernels
 of ``gnn_tpu_torch/csrc/hot_attention.cu`` on CUDA tensors and take the
-plain versions (``*_ref``: the masked dense formulas) on CPU tensors.
+plain versions (``*_ref``: the masked dense formulas) on CPU tensors; so
+do the dot-product modes. The dot modes' plain versions are the dense
+grid's own operations in its order (`gat.DenseGrid`, autograd's for the
+backward), so a CPU layer gives the dense route's bits.
 
 Counter: a training forward's row max adds ``H x`` its live entries to
 a per-device int64 buffer (:func:`live_counter`), on the device and
@@ -51,7 +68,8 @@ from gnn_tpu_torch.utils.timing import count
 _NEG_INF = float("-inf")
 
 # kernel launches by mode ("mask", "rowmax", "terms", "bwd_row",
-# "bwd_col"); a launch recorded into a CUDA graph under capture counts in
+# "bwd_col"; the dot product's "dot_rowmax", "dot_terms", "dot_bwd_row",
+# "dot_bwd_col"); a launch recorded into a CUDA graph under capture counts in
 # ``captured`` (`gnn_tpu_torch.train.dispatch` multiplies by the replays)
 launches: collections.Counter = collections.Counter()
 captured: collections.Counter = collections.Counter()
@@ -166,18 +184,78 @@ def bwd_col_ref(bits_t, elh, erh, vh, rm, gden, gnum, slope: float):
     return dx.sum(1).t(), _flat(dv)
 
 
+def _dot_scores(bits, qh, kh, H: int, scale: float):
+    """``[H, rh, ch]`` scores ``q·k * scale`` over the dense grid, -inf
+    off the live set (the dense grid's operations, in its order)."""
+    live = unpack_bits(bits, kh.shape[0])[None]
+    return torch.where(
+        live, torch.matmul(_heads(qh, H), _heads(kh, H).transpose(1, 2))
+        * scale, torch.full((), _NEG_INF, device=qh.device))
+
+
+def dot_rowmax_ref(bits, qh, kh, H: int, scale: float) -> torch.Tensor:
+    """Plain version of :func:`dot_rowmax` (without the count): ``[rh,
+    H]``, -inf for a row without a live entry."""
+    return _dot_scores(bits, qh, kh, H, scale).amax(2).t()
+
+
+def dot_terms_ref(bits, qh, kh, vh, rm, H: int, scale: float, s=None):
+    """Plain version of the forward of :func:`dot_terms`: ``(den [rh, H],
+    num [rh, H d])``; ``s``: the scores of :func:`_dot_scores`, if
+    already taken."""
+    if s is None:
+        s = _dot_scores(bits, qh, kh, H, scale)
+    e = torch.exp(s - rm.t()[:, :, None])
+    return e.sum(dim=2).t(), _flat(torch.matmul(e, _heads(vh, H)))
+
+
+def _dot_bwd_grid(bits, qh, kh, vh, rm, gden, gnum, H, scale):
+    """``(g [H, rh, ch], e)``: the cotangent of the dense grid's product
+    ``q·k`` (before the scale) and ``e``, as autograd takes them."""
+    s = _dot_scores(bits, qh, kh, H, scale)
+    e = torch.exp(s - rm.t()[:, :, None])
+    g_e = gden.t()[:, :, None] + torch.matmul(
+        _heads(gnum, H), _heads(vh, H).transpose(1, 2))
+    live = unpack_bits(bits, kh.shape[0])[None]
+    return torch.where(live, g_e * e, 0.0) * scale, e
+
+
+def dot_bwd_row_ref(bits, qh, kh, vh, rm, gden, gnum, H: int,
+                    scale: float):
+    """Plain version of the row pass of :func:`dot_terms`' backward:
+    ``dq [rh, H d]``."""
+    g, _ = _dot_bwd_grid(bits, qh, kh, vh, rm, gden, gnum, H, scale)
+    return _flat(torch.matmul(g, _heads(kh, H)))
+
+
+def dot_bwd_col_ref(bits_t, qh, kh, vh, rm, gden, gnum, H: int,
+                    scale: float):
+    """Plain version of the column pass of :func:`dot_terms`' backward,
+    from the transposed mask: ``(dk [ch, H d], dv [ch, H d])``."""
+    bits = pack_bits(unpack_bits(bits_t, qh.shape[0]).t())
+    g, e = _dot_bwd_grid(bits, qh, kh, vh, rm, gden, gnum, H, scale)
+    dk = torch.matmul(_heads(qh, H).transpose(1, 2), g).transpose(1, 2)
+    dv = torch.matmul(e.transpose(1, 2), _heads(gnum, H))
+    return _flat(dk), _flat(dv)
+
+
 # --- the CUDA kernels ----------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each C function's arguments (csrc/hot_attention.cu): the words, the
 # order of the output rows, their count and the other side's, the inputs,
-# the outputs, H and d, the slope, then the stream
+# the outputs, H and d, the slope (the dot modes: the scale), then the
+# stream
 _SIGS = {
     "hotattn_mask": [_P, _I, _I, _P, _I, _P, _P, _P, _I] + [_P] * 5,
     "hotattn_rowmax": [_P, _P, _I, _I, _P, _P, _P, _I, _F, _P, _P],
     "hotattn_terms": [_P, _P, _I, _I] + [_P] * 6 + [_I, _I, _F, _P],
     "hotattn_bwd_row": [_P, _P, _I, _I] + [_P] * 7 + [_I, _I, _F, _P],
     "hotattn_bwd_col": [_P, _P, _I, _I] + [_P] * 8 + [_I, _I, _F, _P],
+    "hotattn_dot_rowmax": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _F, _P, _P],
+    "hotattn_dot_terms": [_P, _P, _I, _I] + [_P] * 6 + [_I, _I, _F, _P],
+    "hotattn_dot_bwd_row": [_P, _P, _I, _I] + [_P] * 7 + [_I, _I, _F, _P],
+    "hotattn_dot_bwd_col": [_P, _P, _I, _I] + [_P] * 8 + [_I, _I, _F, _P],
 }
 # a lane holds at most 32 floats of a head's width (csrc: MAXF)
 _MAXF = 32
@@ -481,34 +559,235 @@ class LiveGrid:
         return den.t(), num.reshape(num.shape[0], H, -1).transpose(0, 1)
 
 
-def mask_operands(adj, r_loc, self_pos):
+def mask_operands(adj, r_loc, self_pos=None):
     """The arguments of :func:`live_masks` for an unsharded resident layer
     ``adj`` (`gnn_tpu_torch.ops.hotdense.HotDenseAdj`): its block, its
     present slots, each slot's present row and column (-1: none) and each
     present row's own column (``r_loc``: the present rows' local rows;
-    ``self_pos [nrows]``: each row's own local column)."""
+    ``self_pos [nrows]``: each row's own local column; None: no row has
+    one, -1 for every row)."""
     cmp_r = _take_rows_fill(adj.row_cmp_idx[:, None], adj.rowpos,
                             fill=-1)[:, 0]
     cmp_c = _take_rows_fill(adj.col_cmp_idx[:, None], adj.colpos,
                             fill=-1)[:, 0]
-    own = _take_rows_fill(self_pos[:, None], r_loc, fill=-1)[:, 0]
-    own_cmp = _take_rows_fill(adj.col_cmp_idx[:, None], own, fill=-1)[:, 0]
+    if self_pos is None:
+        own_cmp = torch.full((r_loc.shape[0],), -1, dtype=torch.int32,
+                             device=r_loc.device)
+    else:
+        own = _take_rows_fill(self_pos[:, None], r_loc, fill=-1)[:, 0]
+        own_cmp = _take_rows_fill(adj.col_cmp_idx[:, None], own,
+                                  fill=-1)[:, 0]
     return (adj.dense, adj.present_row_slots, adj.present_col_slots, cmp_r,
             cmp_c, own_cmp)
+
+
+def _live_set(adj, r_loc, self_pos=None):
+    """``(bits, bits_t, orders)`` of an unsharded resident layer: its live
+    set (:func:`mask_operands`, :func:`live_masks`) and its rows and
+    columns in order of their live entries, most first."""
+    bits, bits_t, n_r, n_c = live_masks(*mask_operands(adj, r_loc,
+                                                       self_pos))
+    orders = tuple(torch.argsort(n, descending=True, stable=True).to(
+        torch.int32) for n in (n_r, n_c))
+    return bits, bits_t, orders
 
 
 def live_grid(adj, r_loc, c_loc, el, er, v, self_pos, slope: float
               ) -> LiveGrid:
     """The :class:`LiveGrid` of an unsharded resident layer: its live set
-    (:func:`mask_operands`, :func:`live_masks`) and the present rows'
-    ``el [nrows, H]``, the present columns' ``er [ncols, H]`` and ``v
-    [ncols, H d]`` gathered (``r_loc`` / ``c_loc``: the present rows' /
-    columns' local indices)."""
-    bits, bits_t, n_r, n_c = live_masks(*mask_operands(adj, r_loc,
-                                                       self_pos))
-    orders = tuple(torch.argsort(n, descending=True, stable=True).to(
-        torch.int32) for n in (n_r, n_c))
+    (:func:`_live_set`) and the present rows' ``el [nrows, H]``, the
+    present columns' ``er [ncols, H]`` and ``v [ncols, H d]`` gathered
+    (``r_loc`` / ``c_loc``: the present rows' / columns' local
+    indices)."""
+    bits, bits_t, orders = _live_set(adj, r_loc, self_pos)
     return LiveGrid(bits=bits, bits_t=bits_t, orders=orders,
                     elh=_take_rows_fill(el, r_loc),
                     erh=_take_rows_fill(er, c_loc),
                     vh=_take_rows_fill(v, c_loc), slope=slope)
+
+
+# --- the dot-product source's entry points ---------------------------------------
+
+def _count_live_ref(bits, n: int, H: int) -> None:
+    """A CPU row max's count: ``H x`` the live entries of ``bits`` into
+    :func:`live_counter`."""
+    live_counter(bits.device).add_(unpack_bits(bits, n).sum() * H)
+
+
+def _dot_operands(key, bits, qh, kh, vh, H, rm=None, gden=None, gnum=None):
+    """The float32 operands of a dot launch, checked: ``rh, ch, d`` and
+    ``[q, k, (v, rm, (gden, gnum))]``."""
+    rh, n = qh.shape
+    ch = kh.shape[0]
+    if n % H:
+        raise ValueError(f"hot attention {key}: width {n} over {H} heads")
+    d = n // H
+    _check_width(key, H, d)
+    ops = [_f32(key, "q", qh, (rh, n)), _f32(key, "k", kh, (ch, n))]
+    if vh is not None:
+        ops += [_f32(key, "v", vh, (ch, n)), _f32(key, "rm", rm, (rh, H))]
+    if gden is not None:
+        ops += [_f32(key, "gden", gden, (rh, H)),
+                _f32(key, "gnum", gnum, (rh, n))]
+    return rh, ch, d, ops
+
+
+def dot_rowmax(bits, qh, kh, H: int, scale: float, count_live: bool = False,
+               order=None):
+    """Per-row max of the live dot-product scores, ``[rh, H]`` float32,
+    -inf for a row without a live entry; no gradient. ``count_live``,
+    ``order``: as :func:`rowmax`'s. CUDA tensors launch the dot_rowmax
+    kernel; CPU tensors take :func:`dot_rowmax_ref`."""
+    qh, kh = qh.detach(), kh.detach()
+    if not _on_cuda("dot_rowmax", qh):
+        if count_live:
+            _count_live_ref(bits, kh.shape[0], H)
+        return dot_rowmax_ref(bits, qh, kh, H, scale)
+    rh, ch, d, ops = _dot_operands("dot_rowmax", bits, qh, kh, None, H)
+    _check_words("dot_rowmax", "bits", bits, rh, ch)
+    m = torch.empty((rh, H), dtype=torch.float32, device=qh.device)
+    ctr = live_counter(qh.device).data_ptr() if count_live else None
+    _call("dot_rowmax", qh.device, bits.data_ptr(),
+          _order("dot_rowmax", order, rh), rh, ch,
+          *(t.data_ptr() for t in ops), m.data_ptr(), H, d, float(scale),
+          ctr)
+    return m
+
+
+def dot_bwd_row(bits, qh, kh, vh, rm, gden, gnum, H: int, scale: float,
+                order=None):
+    """The row pass of :func:`dot_terms`' backward: ``dq [rh, H d]``
+    float32 for the cotangents ``gden [rh, H]``, ``gnum [rh, H d]``. CUDA
+    tensors launch the dot_bwd_row kernel; CPU tensors take
+    :func:`dot_bwd_row_ref`."""
+    if not _on_cuda("dot_bwd_row", qh):
+        return dot_bwd_row_ref(bits, qh, kh, vh, rm, gden, gnum, H, scale)
+    rh, ch, d, ops = _dot_operands("dot_bwd_row", bits, qh, kh, vh, H, rm,
+                                   gden, gnum)
+    _check_words("dot_bwd_row", "bits", bits, rh, ch)
+    dq = torch.empty((rh, H * d), dtype=torch.float32, device=qh.device)
+    _call("dot_bwd_row", qh.device, bits.data_ptr(),
+          _order("dot_bwd_row", order, rh), rh, ch,
+          *(t.data_ptr() for t in ops), dq.data_ptr(), H, d, float(scale))
+    return dq
+
+
+def dot_bwd_col(bits_t, qh, kh, vh, rm, gden, gnum, H: int, scale: float,
+                order=None):
+    """The column pass of :func:`dot_terms`' backward, over the
+    transposed words: ``(dk [ch, H d], dv [ch, H d])`` float32
+    (``order``: of the columns). CUDA tensors launch the dot_bwd_col
+    kernel; CPU tensors take :func:`dot_bwd_col_ref`."""
+    if not _on_cuda("dot_bwd_col", qh):
+        return dot_bwd_col_ref(bits_t, qh, kh, vh, rm, gden, gnum, H, scale)
+    rh, ch, d, ops = _dot_operands("dot_bwd_col", bits_t, qh, kh, vh, H, rm,
+                                   gden, gnum)
+    _check_words("dot_bwd_col", "bits_t", bits_t, ch, rh)
+    dk = torch.empty((ch, H * d), dtype=torch.float32, device=qh.device)
+    dv = torch.empty((ch, H * d), dtype=torch.float32, device=qh.device)
+    _call("dot_bwd_col", qh.device, bits_t.data_ptr(),
+          _order("dot_bwd_col", order, ch), rh, ch,
+          *(t.data_ptr() for t in ops), dk.data_ptr(), dv.data_ptr(), H, d,
+          float(scale))
+    return dk, dv
+
+
+class _DotTerms(torch.autograd.Function):
+    """The live dot-product terms forward; backward the row pass (``dq``)
+    and the column pass (``dk``, ``dv``). No gradient to ``rm``, the words
+    or ``s`` (a CPU row max's dense scores, reused by the plain
+    forward)."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh, rm, bits, bits_t, H, scale, orders, s):
+        ctx.save_for_backward(qh, kh, vh, rm, bits, bits_t)
+        ctx.H, ctx.scale, ctx.orders = H, scale, orders
+        if not _on_cuda("dot_terms", qh):
+            return dot_terms_ref(bits, qh, kh, vh, rm, H, scale, s)
+        rh, ch, d, ops = _dot_operands("dot_terms", bits, qh, kh, vh, H, rm)
+        _check_words("dot_terms", "bits", bits, rh, ch)
+        den = torch.empty((rh, H), dtype=torch.float32, device=qh.device)
+        num = torch.empty((rh, H * d), dtype=torch.float32,
+                          device=qh.device)
+        _call("dot_terms", qh.device, bits.data_ptr(),
+              _order("dot_terms", orders[0], rh), rh, ch,
+              *(t.data_ptr() for t in ops), den.data_ptr(), num.data_ptr(),
+              H, d, float(scale))
+        return den, num
+
+    @staticmethod
+    def backward(ctx, gden, gnum):
+        qh, kh, vh, rm, bits, bits_t = ctx.saved_tensors
+        args = (qh, kh, vh, rm, gden, gnum, ctx.H, ctx.scale)
+        dq = dk = dv = None
+        if ctx.needs_input_grad[0]:
+            dq = dot_bwd_row(bits, *args, order=ctx.orders[0]).to(qh.dtype)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dk, dv = dot_bwd_col(bits_t, *args, order=ctx.orders[1])
+            dk, dv = dk.to(kh.dtype), dv.to(vh.dtype)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def dot_terms(bits, bits_t, qh, kh, vh, rm, H: int, scale: float,
+              orders=(None, None), s=None):
+    """Softmax terms of the live dot-product entries: ``den [rh, H] =
+    sum_c exp(s - rm)`` and ``num [rh, H d] = sum_c exp(s - rm) v[c]`` per
+    head, ``s = scale * q[r]·k[c]``. ``rm [rh, H]`` is the combined row
+    max, finite, and gets no gradient. Differentiable in ``q``, ``k`` and
+    ``v`` (backward: :func:`dot_bwd_row`, :func:`dot_bwd_col`). ``s``
+    (CPU): the dense scores, if already taken. CUDA tensors launch the
+    dot_terms kernel; CPU tensors take :func:`dot_terms_ref`."""
+    return _DotTerms.apply(qh, kh, vh, rm.detach().float(), bits, bits_t,
+                           int(H), float(scale), orders, s)
+
+
+@dataclasses.dataclass
+class DotLiveGrid:
+    """One unsharded layer's dot-product hot part on its live entries:
+    the words of the live set, the rows' and columns' block orders, and
+    the present rows' ``q`` and the present columns' ``k``, ``v``
+    (gathered, differentiable). On CPU tensors the row max keeps its
+    dense scores (``s``) for the terms, so the grid's product runs once a
+    forward, as the dense route's did."""
+
+    bits: torch.Tensor
+    bits_t: torch.Tensor
+    orders: tuple         # (int32 [rh], int32 [ch])
+    qh: torch.Tensor      # [rh, H d]
+    kh: torch.Tensor      # [ch, H d]
+    vh: torch.Tensor      # [ch, H d]
+    H: int
+    scale: float
+    s: torch.Tensor = None
+
+    def rowmax(self, count_live: bool) -> torch.Tensor:
+        """``m_hot [H, rh]`` (-inf: no live entry), no gradient."""
+        if self.qh.is_cuda:
+            return dot_rowmax(self.bits, self.qh, self.kh, self.H,
+                              self.scale, count_live, self.orders[0]).t()
+        if count_live:
+            _count_live_ref(self.bits, self.kh.shape[0], self.H)
+        self.s = _dot_scores(self.bits, self.qh.detach(), self.kh.detach(),
+                             self.H, self.scale)
+        return self.s.amax(dim=2)
+
+    def terms(self, rm_cmp: torch.Tensor):
+        """``(den_hot [H, rh], num_hot [H, rh, d])`` for the combined row
+        max of the present rows ``rm_cmp [rh, H]``."""
+        den, num = dot_terms(self.bits, self.bits_t, self.qh, self.kh,
+                             self.vh, rm_cmp, self.H, self.scale,
+                             self.orders, self.s)
+        return den.t(), num.reshape(num.shape[0], self.H, -1).transpose(0, 1)
+
+
+def dot_live_grid(adj, r_loc, c_loc, q, k, v, H: int, scale: float
+                  ) -> DotLiveGrid:
+    """The :class:`DotLiveGrid` of an unsharded resident layer: its live
+    set (:func:`_live_set`, no own columns) and the present rows' ``q
+    [nrows, H d]``, the present columns' ``k``, ``v [ncols, H d]``
+    gathered."""
+    bits, bits_t, orders = _live_set(adj, r_loc)
+    return DotLiveGrid(bits=bits, bits_t=bits_t, orders=orders,
+                       qh=_take_rows_fill(q, r_loc),
+                       kh=_take_rows_fill(k, c_loc),
+                       vh=_take_rows_fill(v, c_loc), H=H, scale=scale)

@@ -99,7 +99,7 @@ class Trainer(EvalMixin, OpTimingMixin):
         self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
         from gnn_tpu_torch.models.gat import AttentionCounts
         # attention's counters (None: the net has no attention)
-        self.attn_counts = AttentionCounts.of(self.net)
+        self.attn_counts = AttentionCounts.of(self.net, sharded=parts > 1)
         if self.steps_per_dispatch > 1:
             from gnn_tpu_torch.train.dispatch import unported
             # the format is the sampler's: the coo format has neither a

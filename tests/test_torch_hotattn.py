@@ -1,9 +1,9 @@
-"""The additive hot part on its live entries (`gnn_tpu_torch.ops.hotattn`,
-``csrc/hot_attention.cu``): the plain version of each mode against a
-direct computation over the dense ``[H, rh, ch]`` grid and its autograd,
-the model's hot-block attention against the dense route it replaced,
-the dot product's dense grid, the refusal of a part's shard, and the
-counters.
+"""The hot part on its live entries (`gnn_tpu_torch.ops.hotattn`,
+``csrc/hot_attention.cu``), additive and dot-product: the plain version
+of each mode against a direct computation over the dense ``[H, rh, ch]``
+grid and its autograd, the model's hot-block attention against the dense
+route it replaced, the dot product's dense grid on a part's shard, the
+refusal of a part's shard by gatv1, and the counters.
 
 * The mask: :func:`hotattn.live_masks_ref` is the dense route's mask
   (present pads that repeat slot 0 and each row's own column left out),
@@ -13,18 +13,25 @@ counters.
   with pad rows and columns, a row with no live entry, self columns and a
   score of exactly 0 (LeakyReLU's kink), at 4 and 6 heads, widths a
   multiple of 8 and 41.
+* The four dot-product modes' plain versions and their autograd
+  Function against the dense formula and its autograd (a hub row, a row
+  with no live entry, pads that repeat slot 0; one head of 16, two of
+  6), and gat's live grid against the dense grid on resident layers.
 * `hot_attention` with the additive source against a frozen copy of the
   function as it was (the dense grid): close; bit-equal for the
-  dot-product source, which keeps the grid. gatv1 refuses a part's
+  dot-product source, on one part (its plain versions are the grid's
+  operations) and on a part's shard (the grid). gatv1 refuses a part's
   shard of the block.
 * A net's `AttentionCounts` adds no dense entries where the hot part
-  runs live, the live-entry counter adds ``H x`` the walked entries in
-  training forwards only, and an epoch records it.
+  runs live (gat and gatv1 on one part), the live-entry counter adds ``H
+  x`` the walked entries in training forwards only, and an epoch records
+  it.
 * On a card (``-m cuda``; this module imports no JAX, so ``pytest
   --noconftest -m cuda tests/test_torch_hotattn.py`` runs it there): the
-  mask pass and the four kernels against the plain versions at gatv1's
-  widths, their names in a trace beside the additive K3/K4's unchanged
-  number of calls, and the counter.
+  mask pass and the four additive kernels against the plain versions at
+  gatv1's widths, the four dot kernels at gat's (one head of 512) on a
+  skewed grid, their names in a trace beside K3/K4's unchanged number of
+  calls, and the counter.
 """
 import dataclasses
 
@@ -236,6 +243,103 @@ def test_the_kink_takes_the_slope():
     assert d_er[4, 0].item() == float(np.float32(SLOPE))
 
 
+# --- the dot-product modes -----------------------------------------------------
+
+# (heads, features a head) of the dot modes: gat's one head, and two heads
+# of a width off the vector path
+DOT_CASES = [(1, 16), (2, 6)]
+# the dot product's plain versions against autograd of the dense formula:
+# float32 sums of a few dozen terms in another order
+DOT_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def _dot_grid(seed):
+    """:func:`_grid` with no own columns (the dot source has none) and a
+    hub row (row 2 holds an edge to every true present column)."""
+    grid = _grid(seed=seed)
+    grid.dense[grid.prs[2].long(), grid.pcs[:grid.n_c].long()] = 1
+    grid.own = torch.full_like(grid.own, -1)
+    grid.mask = hotattn.unpack_bits(hotattn.live_masks_ref(
+        grid.dense, grid.prs, grid.pcs, grid.cmp_r, grid.cmp_c, grid.own)[0],
+        grid.mask.shape[1])
+    return grid
+
+
+def _dense_dot_scores(mask, q, k, H, scale):
+    """``[H, rh, ch]`` dot-product scores, written out, -inf off the
+    mask."""
+    qh, kh = (t.reshape(t.shape[0], H, -1).transpose(0, 1) for t in (q, k))
+    return torch.where(mask[None],
+                       torch.einsum("hrd,hcd->hrc", qh, kh) * scale,
+                       torch.full((), float("-inf")))
+
+
+def _dense_dot_terms(mask, q, k, v, rm, H, scale):
+    """The dense grid's terms, written out: ``(den [rh, H], num [rh, H
+    d])``."""
+    e = torch.exp(_dense_dot_scores(mask, q, k, H, scale)
+                  - rm.t()[:, :, None])
+    num = torch.einsum("hrc,hcd->hrd", e,
+                       v.reshape(v.shape[0], H, -1).transpose(0, 1))
+    return e.sum(2).t(), num.transpose(0, 1).reshape(q.shape[0], -1)
+
+
+def _dot_operands(grid, H, d, seed):
+    """q, k, v, a combined row max at or above the live max, cotangents."""
+    g = torch.Generator().manual_seed(seed)
+    rh, ch = grid.mask.shape
+    q = torch.randn(rh, H * d, generator=g)
+    k = torch.randn(ch, H * d, generator=g)
+    v = torch.randn(ch, H * d, generator=g)
+    scale = tgat._scale(d)
+    m = _dense_dot_scores(grid.mask, q, k, H, scale).amax(2).t()
+    rm = torch.where(torch.isfinite(m), m, torch.zeros(())) + torch.rand(
+        rh, H, generator=g) * (torch.arange(rh) % 3 == 0)[:, None]
+    gden = torch.randn(rh, H, generator=g)
+    gnum = torch.randn(rh, H * d, generator=g)
+    return q, k, v, rm, gden, gnum, scale
+
+
+@pytest.mark.parametrize("H,d", DOT_CASES)
+def test_dot_modes_match_the_dense_grid_and_its_autograd(H, d):
+    """The four dot modes' plain versions, and the autograd Function over
+    them, against the dense formula and its autograd on a grid with pad
+    rows and columns that repeat slot 0, a row with no live entry (3) and
+    a hub row (2)."""
+    grid = _dot_grid(seed=30 + H)
+    bits, bits_t, n_r, _ = hotattn.live_masks(
+        grid.dense, grid.prs, grid.pcs, grid.cmp_r, grid.cmp_c, grid.own)
+    assert n_r[3] == 0 and n_r[2] == grid.n_c > 4 * n_r.float().median()
+    assert (grid.prs[grid.n_r:] == 0).all() and grid.cmp_r[0] >= 0
+    q, k, v, rm, gden, gnum, scale = _dot_operands(grid, H, d, seed=d)
+    want_m = _dense_dot_scores(grid.mask, q, k, H, scale).amax(2).t()
+    got_m = hotattn.dot_rowmax_ref(bits, q, k, H, scale)
+    assert torch.isinf(got_m[3]).all() and (got_m[3] < 0).all()
+    torch.testing.assert_close(got_m, want_m, **DOT_TOL)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    den, num = _dense_dot_terms(grid.mask, *leaves, rm, H, scale)
+    ((den * gden).sum() + (num * gnum).sum()).backward()
+    got_den, got_num = hotattn.dot_terms_ref(bits, q, k, v, rm, H, scale)
+    dq = hotattn.dot_bwd_row_ref(bits, q, k, v, rm, gden, gnum, H, scale)
+    dk, dv = hotattn.dot_bwd_col_ref(bits_t, q, k, v, rm, gden, gnum, H,
+                                     scale)
+    fn = [t.clone().requires_grad_() for t in (q, k, v)]
+    f_den, f_num = hotattn.dot_terms(bits, bits_t, *fn, rm, H, scale)
+    ((f_den * gden).sum() + (f_num * gnum).sum()).backward()
+    for name, a, b in (("den", got_den, den), ("num", got_num, num),
+                       ("dq", dq, leaves[0].grad), ("dk", dk, leaves[1].grad),
+                       ("dv", dv, leaves[2].grad),
+                       ("fn den", f_den, den), ("fn num", f_num, num),
+                       ("fn dq", fn[0].grad, leaves[0].grad),
+                       ("fn dk", fn[1].grad, leaves[1].grad),
+                       ("fn dv", fn[2].grad, leaves[2].grad)):
+        torch.testing.assert_close(a.detach(), b.detach(), **DOT_TOL,
+                                   msg=name)
+    # the row without a live entry adds nothing
+    assert (got_den[3] == 0).all() and (got_num[3] == 0).all()
+    assert (dq[3] == 0).all()
+
+
 # --- the model's hot-block attention ----------------------------------------
 
 class Resident:
@@ -315,26 +419,81 @@ def test_additive_hot_attention_matches_the_dense_route(resident, H, d,
 
 @pytest.mark.parametrize("source", ["dot"])
 def test_dense_routes_bit_equal_to_before(resident, source):
-    """The dot-product source keeps the dense grid, bit-equal to
-    before."""
+    """The dot-product source on a part's shard of the block (one part of
+    one) keeps the dense grid, and on one part takes its live entries,
+    whose CPU plain versions are the dense grid's operations: both
+    bit-equal to before."""
     _, batch, adjs = resident.batch(seed=9)
-    a = adjs[1]
     H, d = 2, 8
-    _, _, v, w, _ = _layer_operands(a, batch, 1, H, d, seed=3)
-    g = torch.Generator().manual_seed(4)
-    leaves = (torch.randn(a.nrows, H * d, generator=g),
-              torch.randn(a.ncols, H * d, generator=g), v)
+    for a, kind in ((adjs[1], hotattn.DotLiveGrid),
+                    (dataclasses.replace(adjs[1], part_axis=PartGroup(0, 1)),
+                     tgat.DenseGrid)):
+        _, _, v, w, _ = _layer_operands(a, batch, 1, H, d, seed=3)
+        g = torch.Generator().manual_seed(4)
+        leaves = (torch.randn(a.nrows, H * d, generator=g),
+                  torch.randn(a.ncols, H * d, generator=g), v)
 
-    def score_of(q, k):
-        return tgat.DotScores(q, k, H)
-    assert isinstance(score_of(*leaves[:2]).hot_part(
-        a, a.rowpos.index_select(0, a.present_row_slots.long()),
-        a.colpos.index_select(0, a.present_col_slots.long()), v),
-        tgat.DenseGrid)
-    want = _run(_hot_attention_parent, a, score_of, leaves, w)
-    got = _run(tgat.hot_attention, a, score_of, leaves, w)
-    for name, x, y in zip(("y", "d0", "d1", "dv"), got, want):
-        assert torch.equal(x, y), name
+        def score_of(q, k):
+            return tgat.DotScores(q, k, H)
+        assert isinstance(score_of(*leaves[:2]).hot_part(
+            a, a.rowpos.index_select(0, a.present_row_slots.long()),
+            a.colpos.index_select(0, a.present_col_slots.long()), v), kind)
+        want = _run(_hot_attention_parent, a, score_of, leaves, w)
+        got = _run(tgat.hot_attention, a, score_of, leaves, w)
+        for name, x, y in zip(("y", "d0", "d1", "dv"), got, want):
+            assert torch.equal(x, y), (kind.__name__, name)
+
+
+@pytest.mark.parametrize("H,d", DOT_CASES)
+@pytest.mark.parametrize("layer", [0, 1])
+def test_dot_live_grid_matches_the_dense_grid(resident, H, d, layer):
+    """gat's hot part on one part (the live grid) against the dense grid
+    (a part of one) on a resident layer whose pads repeat a true present
+    slot, with a row without a hot edge and a hub row: the row max,
+    ``den``, ``num`` and the gradients of ``q``, ``k`` and ``v``."""
+    _, batch, adjs = resident.batch(seed=8)
+    a = adjs[layer]
+    sentinel = 1 << 30
+    n_r = int((a.row_cmp_idx != sentinel).sum())
+    n_c = int((a.col_cmp_idx != sentinel).sum())
+    prs, pcs = a.present_row_slots.clone(), a.present_col_slots.clone()
+    assert prs.shape[0] > n_r and pcs.shape[0] > n_c
+    # the pads repeat the first true slot, which the mask must leave out
+    prs[n_r:], pcs[n_c:] = prs[0], pcs[0]
+    dense = a.dense.clone()
+    dense[prs[1].long()] = 0                              # no hot edge
+    dense[prs[2].long(), pcs[:n_c].long()] = 1            # a hub row
+    a = dataclasses.replace(a, dense=dense, present_row_slots=prs,
+                            present_col_slots=pcs)
+    g = torch.Generator().manual_seed(10 * H + layer)
+    q = torch.randn(a.nrows, H * d, generator=g)
+    k = torch.randn(a.ncols, H * d, generator=g)
+    v = torch.randn(a.ncols, H * d, generator=g)
+    rh, ch = prs.shape[0], pcs.shape[0]
+    gden, gnum = torch.randn(H, rh, generator=g), torch.randn(H, rh, d,
+                                                              generator=g)
+    r_loc = a.rowpos.index_select(0, prs.long())
+    c_loc = a.colpos.index_select(0, pcs.long())
+    outs = []
+    for part, kind in ((None, hotattn.DotLiveGrid),
+                       (PartGroup(0, 1), tgat.DenseGrid)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        hot = tgat.DotScores(leaves[0], leaves[1], H).hot_part(
+            dataclasses.replace(a, part_axis=part), r_loc, c_loc, leaves[2])
+        assert isinstance(hot, kind)
+        m = hot.rowmax(count_live=False)
+        rm = torch.where(torch.isfinite(m), m, torch.zeros(())).t() + 0.5
+        den, num = hot.terms(rm)
+        ((den * gden).sum() + (num * gnum).sum()).backward()
+        outs.append([m, den.detach(), num.detach()]
+                    + [t.grad for t in leaves])
+        if kind is hotattn.DotLiveGrid:
+            n = hotattn.unpack_bits(hot.bits, ch).sum(1)
+            assert n[1] == 0 and n[2] == n_c > 4 * n[:n_r].float().median()
+            assert (n[n_r:] == 0).all()
+    assert torch.isinf(outs[0][0][:, 1]).all()
+    for name, x, y in zip(("m", "den", "num", "dq", "dk", "dv"), *outs):
+        torch.testing.assert_close(x, y, **DOT_TOL, msg=name)
 
 
 def test_gatv1_refuses_a_part_sharded_layer(resident):
@@ -354,20 +513,32 @@ def test_gatv1_refuses_a_part_sharded_layer(resident):
 def test_count_attention_adds_no_dense_entries_where_the_hot_part_runs_live(
         resident):
     from gnn_tpu_torch.models.gnn import build_model
-    mb, _, _ = resident.batch()
-    # the layers' score sources decide: gat's dot product keeps the grid,
-    # gatv1's additive source walks the live entries
+    mb, batch, adjs = resident.batch()
+    # the layers' score sources decide: on one part both gat's dot product
+    # and gatv1's additive source walk the live entries; gat on a part's
+    # shard of the block keeps the grid
     gat = build_model("gat", 16, (1, 1, 1), 5, 12)
     gatv1 = build_model("gatv1", 16, (1, 1, 1), 5, 12)
     assert tgat.AttentionCounts.of(build_model("graphsage", 16, (1, 1, 1),
                                                5, 12)) is None
     # epoch keys of this case alone
-    live, dense = (f"hotattn-{w}-{id(resident)}" for w in ("live", "dense"))
+    live, dot, dense, flush, fwd = (
+        f"hotattn-{w}-{id(resident)}"
+        for w in ("live", "dot", "dense", "flush", "fwd"))
     prev = RECORDER.epoch
     try:
-        for key, net in ((live, gatv1), (dense, gat)):
+        for key, net, sharded in ((live, gatv1, False), (dot, gat, False),
+                                  (dense, gat, True)):
             RECORDER.epoch = key
-            tgat.AttentionCounts.of(net).staged(mb)
+            tgat.AttentionCounts.of(net, sharded).staged(mb)
+        # gat's training forward counts its live entries on the device
+        RECORDER.epoch = flush
+        hotattn.live_counter("cpu")
+        hotattn.record_live_entries()
+        RECORDER.epoch = fwd
+        x = torch.from_numpy(resident.g.feats)[batch.input_nodes.long()]
+        gat(x, adjs, batch.sampled_nodes)
+        hotattn.record_live_entries()
     finally:
         RECORDER.epoch = prev
     heads = tgat.attention_heads(gat)
@@ -376,10 +547,19 @@ def test_count_attention_adds_no_dense_entries_where_the_hot_part_runs_live(
     assert want > 0
     # the counter is there, at 0, so the metric reads 0.0, not nothing
     assert RECORDER.total("attn.dense_entries", [live], "count") == 0
+    assert RECORDER.total("attn.dense_entries", [dot], "count") == 0
     assert RECORDER.total("attn.dense_entries", [dense], "count") == want
     slots = [RECORDER.total("attn.cold_slots", [key], "count")
-             for key in (live, dense)]
-    assert slots[0] == slots[1] > 0
+             for key in (live, dot, dense)]
+    assert slots[0] == slots[1] == slots[2] > 0
+    n_live = 0
+    for h, a in zip(heads, adjs):
+        r_loc = a.rowpos.index_select(0, a.present_row_slots.long())
+        bits = hotattn._live_set(a, r_loc)[0]
+        n_live += h * int(hotattn.unpack_bits(
+            bits, a.present_col_slots.shape[0]).sum())
+    assert n_live > 0
+    assert RECORDER.total("attn.hot_live_entries", [fwd], "count") == n_live
 
 
 def test_live_entries_count_in_training_forwards_only(resident):
@@ -554,6 +734,113 @@ def test_cuda_kernels_match_the_plain_versions(cuda_device, H, d, rh, ch,
     assert torch.equal(dv2, leaves[2].grad)
 
 
+# (H, d, rh, ch, density): gat's one head of 512 on a reduced layer-0 grid
+# at the cell's 3% density with hub rows and columns, two heads of 6 (the
+# scalar path), and odd sizes
+DOT_CARD_CASES = [(1, 512, 1600, 1700, 0.03), (2, 6, 900, 1300, 0.03),
+                  (1, 40, 333, 517, 0.2)]
+
+
+def _dot_mags(bits, q, k, v, rm, gden, gnum, H, scale):
+    """Each dot output's magnitude, the sum of its terms' absolute values
+    over the dense grid: ``(m, den, num, dq, dk, dv)``."""
+    def heads(t):
+        return t.reshape(t.shape[0], H, -1).transpose(0, 1)
+
+    def flat(t):
+        return t.transpose(0, 1).reshape(t.shape[1], -1)
+    live = hotattn.unpack_bits(bits, k.shape[0])[None]
+    zero = torch.zeros(())
+    mag_s = torch.where(live, torch.matmul(heads(q.abs()), heads(
+        k.abs()).transpose(1, 2)) * scale, zero)
+    s = torch.where(live, torch.matmul(heads(q), heads(k).transpose(1, 2))
+                    * scale, torch.full((), float("-inf")))
+    e = torch.exp(s - rm.t()[:, :, None])
+    t = gden.abs().t()[:, :, None] + torch.matmul(
+        heads(gnum.abs()), heads(v.abs()).transpose(1, 2))
+    ds = e * t
+    return (mag_s.amax(2).t(), e.sum(2).t(),
+            flat(torch.matmul(e, heads(v.abs()))),
+            flat(torch.matmul(ds, heads(k.abs()))) * scale,
+            flat(torch.matmul(ds.transpose(1, 2), heads(q.abs()))) * scale,
+            flat(torch.matmul(e.transpose(1, 2), heads(gnum.abs()))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,d,rh,ch,density", DOT_CARD_CASES)
+def test_cuda_dot_kernels_match_the_plain_versions(cuda_device, H, d, rh, ch,
+                                                   density):
+    """The dot modes against their plain versions on a skewed grid (16
+    hub rows and 16 hub columns at half density), each launched once a
+    call; any block order gives the same bits."""
+    dev = cuda_device
+    dense, prs, pcs, cmp_r, cmp_c, _ = _big_grid(H + d, rh, ch, density)
+    g = torch.Generator().manual_seed(d)
+    dense[prs[:16].long()] = (torch.rand(16, dense.shape[1], generator=g)
+                              < 0.5).to(dense.dtype)
+    dense[:, pcs[:16].long()] = (torch.rand(dense.shape[0], 16, generator=g)
+                                 < 0.5).to(dense.dtype)
+    own = torch.full((rh,), -1, dtype=torch.int32)
+    host = (dense, prs, pcs, cmp_r, cmp_c, own)
+    bits_ref, bits_t_ref, n_r_ref, _ = hotattn.live_masks_ref(*host)
+    assert n_r_ref.max() > 2 * n_r_ref.float().median()
+    before = dict(hotattn.launches)
+    bits, bits_t, n_r, n_c = hotattn.live_masks(*(t.to(dev) for t in host))
+    assert torch.equal(bits.cpu(), bits_ref)
+    assert torch.equal(bits_t.cpu(), bits_t_ref)
+    orders = tuple(torch.argsort(n, descending=True, stable=True).int()
+                   for n in (n_r, n_c))
+    scale = tgat._scale(d)
+    q, k, v = (torch.randn(n, H * d, generator=g) for n in (rh, ch, ch))
+    m_ref = hotattn.dot_rowmax_ref(bits_ref, q, k, H, scale)
+    rm = torch.where(torch.isfinite(m_ref), m_ref, torch.zeros(()))
+    gden, gnum = torch.randn(rh, H, generator=g), torch.randn(
+        rh, H * d, generator=g)
+    cuda = [t.to(dev) for t in (q, k, v, rm, gden, gnum)]
+    ctr = hotattn.live_counter(dev)
+    n0 = int(ctr.item())
+    m = hotattn.dot_rowmax(bits, *cuda[:2], H, scale, count_live=True,
+                           order=orders[0])
+    assert int(ctr.item()) - n0 == H * int(n_r_ref.sum())
+    leaves = [t.clone().requires_grad_() for t in cuda[:3]]
+    den, num = hotattn.dot_terms(bits, bits_t, *leaves, cuda[3], H, scale,
+                                 orders)
+    ((den * cuda[4]).sum() + (num * cuda[5]).sum()).backward()
+    want = (m_ref, *hotattn.dot_terms_ref(bits_ref, q, k, v, rm, H, scale),
+            hotattn.dot_bwd_row_ref(bits_ref, q, k, v, rm, gden, gnum, H,
+                                    scale),
+            *hotattn.dot_bwd_col_ref(bits_t_ref, q, k, v, rm, gden, gnum, H,
+                                     scale))
+    mags = _dot_mags(bits_ref, q, k, v, rm, gden, gnum, H, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(m.cpu()), torch.isinf(m_ref))
+    # float32 sums in another order (a lane's slice, then the head's
+    # lanes, then the warps in order) against dense matmuls: each entry
+    # within 1e-5 of its magnitude, some 80 ulps of it; an entry with no
+    # live term exactly 0
+    for name, a, b, mag in zip(("m", "den", "num", "dq", "dk", "dv"),
+                               (m, den, num, *(t.grad for t in leaves)),
+                               want, mags):
+        a, fin = a.detach().cpu(), torch.isfinite(b)
+        err = (a[fin] - b[fin]).abs()
+        bad = ~(err <= 1e-5 * mag[fin])
+        assert not bad.any(), (name, int(bad.sum()), float(err[bad].max()))
+    for key in ("mask", "dot_rowmax", "dot_terms", "dot_bwd_row",
+                "dot_bwd_col"):
+        assert hotattn.launches[key] == before.get(key, 0) + 1, key
+    for key in ("rowmax", "terms", "bwd_row", "bwd_col"):
+        assert hotattn.launches[key] == before.get(key, 0), key
+    # in the rows' own order: the same bits
+    den2, num2 = hotattn.dot_terms(bits, bits_t, *cuda[:4], H, scale)
+    assert torch.equal(den2, den.detach()) and torch.equal(num2,
+                                                           num.detach())
+    assert torch.equal(hotattn.dot_bwd_row(bits, *cuda, H, scale),
+                       leaves[0].grad)
+    dk2, dv2 = hotattn.dot_bwd_col(bits_t, *cuda, H, scale)
+    assert torch.equal(dk2, leaves[1].grad) and torch.equal(dv2,
+                                                            leaves[2].grad)
+
+
 def _trace_kernels(fn):
     """Calls of each CUDA kernel ``fn()`` launches, by name."""
     from torch.profiler import ProfilerActivity, profile
@@ -601,6 +888,55 @@ def test_cuda_hot_kernels_have_names_of_their_own(cuda_device):
     assert calls("hot_mask_transpose_kernel") == n_layers, names
     assert not any("edge_attention" in name for name in names
                    if "hot_" in name), names
+
+
+@pytest.mark.cuda
+def test_cuda_gat_hot_part_launches_only_the_dot_modes(cuda_device):
+    """A gat training step on the card: the hot part launches the mask
+    pass and the four dot modes a layer under their own names
+    (``hot_dot_kernel``), no additive hot kernel, and no ``[H, rh, ch]``
+    product; K3/K4 keep their four calls a layer."""
+    from gnn_tpu_torch.models.gnn import build_model
+    from gnn_tpu_torch.train.loss import masked_loss
+    r = Resident(True)
+    mb, _, _ = r.batch()
+    dev = cuda_device
+    rg = ResidentGraph.from_host(r.host, dev)
+    batch = to_device_batch(mb, dev)
+    adjs = prepare_adjs(batch, rg)
+    net = build_model("gat", 16, (1, 1, 1), 5, 12).to(dev)
+    x = torch.from_numpy(r.g.feats).to(dev)[batch.input_nodes.long()]
+    grids = {(1, a.present_row_slots.shape[0], a.present_col_slots.shape[0])
+             for a in adjs}
+    shapes = []
+
+    class Count(torch.overrides.TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor):
+                shapes.append(tuple(out.shape))
+            return out
+
+    def step():
+        out = net(x, adjs, batch.sampled_nodes)
+        masked_loss(out, batch.labels, batch.label_mask, True).backward()
+    step()
+    before = dict(hotattn.launches)
+    with Count():
+        names = _trace_kernels(step)
+    n_layers = 3
+    assert not grids & set(shapes), grids
+
+    def calls(part):
+        return sum(n for name, n in names.items() if part in name)
+    assert calls("hot_dot_kernel") == 4 * n_layers, names
+    assert calls("hot_additive_kernel") == 0, names
+    assert calls("hot_mask_kernel") == n_layers, names
+    assert calls("hot_mask_transpose_kernel") == n_layers, names
+    assert calls("edge_attention_kernel") == 4 * n_layers, names
+    for key in ("mask", "dot_rowmax", "dot_terms", "dot_bwd_row",
+                "dot_bwd_col"):
+        assert hotattn.launches[key] == before.get(key, 0) + n_layers, key
 
 
 # --- the dense route as it was ---------------------------------------------

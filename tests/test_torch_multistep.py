@@ -478,8 +478,9 @@ def test_cuda_graph_replay_matches_eager_steps(tmp_path, model, adj_format):
     exactly those of :data:`CAPTURES`, the replays covering every step,
     and the kernels of the path recorded and
     replayed: K1 in both directions on GraphSAGE's resident path, K3 and
-    K4's three kernels twice a step (one a layer) on GAT's, none on the
-    hot and coo formats. Then a checkpoint of the grouped run (a CPU
+    K4's three kernels and the hot part's mask pass and four dot modes
+    twice a step (one a layer) on GAT's, none on the hot and coo
+    formats. Then a checkpoint of the grouped run (a CPU
     float32 step count) resumes at G = 1. ``small_graph``'s graph from
     the port's own generator (no JAX on the card's machine)."""
     if not torch.cuda.is_available():
@@ -505,8 +506,16 @@ def test_cuda_graph_replay_matches_eager_steps(tmp_path, model, adj_format):
             2 * STEPS
         rep = d.replayed_launches()
         if model == "gat":
-            assert rep == {f"esattn.{k}": len(ORDERS) * 2 * STEPS
-                           for k in ("rowmax", "terms", "bwd_q", "bwd_kv")}
+            # K3/K4, and the hot part on its live entries: the mask pass
+            # and the four dot modes
+            assert rep == {f"{mod}.{k}": len(ORDERS) * 2 * STEPS
+                           for mod, keys in (
+                               ("esattn", ("rowmax", "terms", "bwd_q",
+                                           "bwd_kv")),
+                               ("hotattn", ("mask", "dot_rowmax",
+                                            "dot_terms", "dot_bwd_row",
+                                            "dot_bwd_col")))
+                           for k in keys}
         elif adj_format == "resident":
             assert rep["edgestream.forward"] >= 2 * len(ORDERS) * STEPS
             assert rep["edgestream.transpose"] >= \
